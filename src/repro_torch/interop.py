@@ -1,0 +1,118 @@
+"""Carry the reference's state into the port as plain data.
+
+This system has no weights. What the reference computes, and the port
+must accept, is:
+
+* the lowered tables, as numpy arrays (``TABLE_PATHS`` names them);
+* a placement ``{instance: (x, y)}`` — already plain data, taken as is
+  by the port's router and emulator;
+* a routing, as lists of node keys: ``Node.node_key()``, the structural
+  identity (kind, tile, side/port, track, width) that the two IRs share
+  (``Node`` itself hashes on a per-process id, which does not carry).
+
+Everything here takes numpy arrays, dicts and tuples, never objects of
+the reference package, and builds the port's objects from them.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+
+from .core.graph import Interconnect
+from .core.pnr.driver import PnRResult
+from .core.pnr.packing import pack
+from .core.pnr.route import (RoutedNet, RoutingResources, RoutingResult,
+                             _net_delay)
+from .core.pnr.timing import sta_critical_path
+
+NodeKey = Tuple
+#: one routed net: (name, source key, sink keys, tree edges (parent, child))
+NetKeys = Tuple[str, NodeKey, Sequence[NodeKey],
+                Sequence[Tuple[NodeKey, NodeKey]]]
+
+#: attribute paths of a lowered fabric's tables, the same in both packages
+TABLE_PATHS = (
+    "arrays.src", "arrays.fanin_count", "arrays.config_slot",
+    "arrays.is_reg", "arrays.is_driven", "arrays.reg_ids", "arrays.reg_src",
+    "width_mask", "pe_in", "pe_out", "io_in_nodes", "io_out_nodes",
+    "mem_in", "mem_out", "fused_tables.keep", "fused_tables.pin_mask",
+    "fused_tables.pe_in", "fused_tables.pe_res_idx",
+    "stream_tables.pin_src", "stream_tables.reg_src",
+    "stream_tables.mem_in", "stream_tables.io_out",
+)
+
+
+def fabric_tables(fab) -> Dict[str, np.ndarray]:
+    """The port fabric's tables by ``TABLE_PATHS`` name."""
+    out = {}
+    for path in TABLE_PATHS:
+        head, _, leaf = path.rpartition(".")
+        obj = fab
+        if head == "stream_tables":
+            obj = fab.stream_tables()
+        elif head:
+            obj = getattr(fab, head)
+        out[path] = np.asarray(obj[leaf] if isinstance(obj, dict)
+                               else getattr(obj, leaf))
+    return out
+
+
+def check_tables(fab, tables: Mapping[str, np.ndarray]) -> None:
+    """Hold the port fabric's tables against ``tables`` (the reference's,
+    as numpy, keyed by ``TABLE_PATHS``); raise ``ValueError`` naming the
+    first table that differs."""
+    mine = fabric_tables(fab)
+    for path in TABLE_PATHS:
+        if not np.array_equal(mine[path], np.asarray(tables[path])):
+            raise ValueError(f"lowered table {path} differs")
+
+
+def _key_index(res: RoutingResources) -> Dict[NodeKey, int]:
+    index = {node.node_key(): i for i, node in enumerate(res.nodes)}
+    if len(index) != len(res.nodes):
+        raise ValueError("node keys are not unique in this interconnect")
+    return index
+
+
+def routing_keys(routing: RoutingResult) -> List[NetKeys]:
+    """A port routing as plain node-key data (the inverse of
+    :func:`routing_from_keys`)."""
+    nodes = routing.resources.nodes
+    return [(net.name, nodes[net.src].node_key(),
+             [nodes[s].node_key() for s in net.sinks],
+             sorted((nodes[p].node_key(), nodes[c].node_key())
+                    for p, c in net.edges()))
+            for net in routing.nets]
+
+
+def routing_from_keys(res: RoutingResources,
+                      nets: Sequence[NetKeys]) -> RoutingResult:
+    """Build the port's :class:`RoutingResult` from node-key routes (no
+    negotiation iterations of its own)."""
+    index = _key_index(res)
+    out = []
+    for name, src, sinks, edges in nets:
+        net = RoutedNet(name, index[src], [index[s] for s in sinks])
+        net.tree = {index[c]: index[p] for p, c in edges}
+        net.delay = _net_delay(res, net)
+        out.append(net)
+    return RoutingResult(out, 0, [], res)
+
+
+def pnr_result(ic: Interconnect, app, placement: Mapping[str, Tuple[int,
+                                                                      int]],
+               nets: Sequence[NetKeys],
+               resources: Optional[RoutingResources] = None) -> PnRResult:
+    """The port's :class:`PnRResult` for a placement and node-key routing
+    computed elsewhere: packs ``app`` with the port's packer and times the
+    routing with the port's STA, so bitstream and emulation can run on
+    it."""
+    packed = pack(app)
+    res = resources or RoutingResources(ic)
+    routing = routing_from_keys(res, nets)
+    placement = {k: (int(x), int(y)) for k, (x, y) in placement.items()}
+    timing = sta_critical_path(packed, routing, placement)
+    return PnRResult(success=True, placement=placement, packed=packed,
+                     routing=routing, timing=timing,
+                     wirelength=routing.total_wirelength())

@@ -1,0 +1,10 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a) and their plain PyTorch
+versions.
+
+- fabric_step: fused fabric fixpoint (``fabric_fused_batch``) and the
+  T-cycle streamed engine (``fabric_fused_run``)
+- minplus: tropical relaxation for batched routing wavefronts
+- hpwl: per-net pin bounding boxes seeding the batched annealer
+- build: nvcc build of ``csrc/`` into ``build/kernels`` and launch counts
+"""
+from . import ops, ref  # noqa: F401

@@ -1,0 +1,273 @@
+"""Fused fabric fixpoint kernels (counterpart of repro/kernels/fabric_step.py).
+
+Two kernels, both hand-written CUDA in ``csrc/fabric_step.cu``:
+
+``fabric_fused_batch``
+    The whole per-cycle fixpoint for B configurations in one launch:
+    ``max_depth`` sweeps of gather -> hold undriven (``keep``) -> re-pin
+    (``pin_mask`` / ``pin_vals``) -> 14-op PE ALU masked by ``word`` ->
+    PE results placed through ``pe_res_idx``; lane b runs exactly
+    ``min(depths[b], max_depth)`` sweeps.
+
+``fabric_fused_run``
+    T fabric cycles in one launch. Each lane's state vector is laid out
+    ``[regs | io | mem | 0]``; every cycle starts from the pinned sources
+    on a zero background, runs the fused fixpoint, observes ``io_out`` and
+    clocks registers (``reg_src``) and memories (``mem_in``).
+
+Each wrapper takes the plain PyTorch version beside it only when its
+tensors lie on the CPU; CUDA tensors launch the kernel (or raise).
+``fabric_sweep`` / ``fabric_sweep_batch`` (the single-config and unfused
+sweeps) are not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import build
+
+# PE ALU candidate order; must match repro_torch.core.tiles.PECore.OPS
+# (repro_torch.core.lowering asserts the correspondence at import time).
+PE_OPS = ("add", "sub", "mul", "and", "or", "xor", "shl", "shr", "min",
+          "max", "abs", "sel", "const", "pass")
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 with two's-complement wrap-around."""
+    return (((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+
+
+def pe_alu_candidates(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                      const: torch.Tensor) -> torch.Tensor:
+    """All PE ALU results, stacked (n_ops, ...) in ``PE_OPS`` order, with
+    the reference's int32 semantics: add/sub/mul/shl/abs wrap, ``>>`` is
+    arithmetic and the shift amount clips to [0, 15]. Wrapping ops are
+    computed in int64 and wrapped explicitly (int32 overflow is not
+    defined behaviour in PyTorch's C++ kernels)."""
+    a64, b64 = a.long(), b.long()
+    shift = torch.clamp(b, 0, 15)
+    return torch.stack([
+        _wrap32(a64 + b64), _wrap32(a64 - b64), _wrap32(a64 * b64),
+        a & b, a | b, a ^ b,
+        _wrap32(a64 << shift.long()), a >> shift,
+        torch.minimum(a, b), torch.maximum(a, b),
+        _wrap32(torch.abs(_wrap32(a64 - b64).long())),
+        torch.where((a & 1) == 1, b, c), const, a,
+    ], dim=0)
+
+
+# ----------------------------------------------------------- plain versions
+def _picked(src: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """(B, N) selected source node per lane and node: src[i, sel[b, i]]."""
+    n, f = src.shape
+    rows = torch.arange(n, device=src.device) * f
+    return src.reshape(-1)[rows[None, :] + sel.long()]
+
+
+def _plain_fixpoint(vals0, pin_vals, picked, depths, op, const, imm_mask,
+                    imm_val, keep, pin_mask, pe_in, pe_res_idx,
+                    max_depth: int, word: int) -> torch.Tensor:
+    """Masked Jacobi sweeps of the fused engine; returns (B, N)."""
+    b, n = vals0.shape
+    p = pe_in.shape[0]
+    zero = torch.zeros((b, 1), dtype=torch.int32, device=vals0.device)
+    v = torch.cat([vals0, zero], dim=1)                   # (B, N+1)
+    keep_b = (keep > 0)[None, :]
+    pin_b = (pin_mask > 0)[None, :]
+    is_pe = (pe_res_idx < 2 * p)[None, :]
+    pe_flat = pe_in.reshape(-1).long()
+    res_idx = pe_res_idx.long()
+    imm_b = imm_mask > 0
+    depths = depths.to(vals0.device)
+    for t in range(max_depth):
+        nv = torch.gather(v, 1, picked)
+        nv = torch.where(keep_b, v[:, :n], nv)
+        nv = torch.where(pin_b, pin_vals, nv)
+        ins = torch.cat([nv, zero], dim=1)[:, pe_flat].reshape(b, p, 4)
+        ins = torch.where(imm_b, imm_val, ins)
+        a_, b_, c_ = ins[..., 0], ins[..., 1], ins[..., 2]
+        cand = pe_alu_candidates(a_, b_, c_, const)      # (14, B, P)
+        res0 = torch.gather(cand, 0, op.long()[None])[0] & word
+        res1 = a_ & word
+        res = torch.cat([torch.stack([res0, res1], dim=2).reshape(b, 2 * p),
+                         zero], dim=1)
+        nv = torch.where(is_pe, res[:, res_idx], nv)
+        live = (t < depths)[:, None]
+        v = torch.cat([torch.where(live, nv, v[:, :n]), zero], dim=1)
+    return v[:, :n]
+
+
+def fabric_fused_batch_plain(vals0, sel, pin_vals, depths, op, const,
+                             imm_mask, imm_val, src, keep, pin_mask, pe_in,
+                             pe_res_idx, max_depth: int,
+                             word: int = 0xFFFF) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fabric_fused_batch`."""
+    return _plain_fixpoint(vals0, pin_vals, _picked(src, sel), depths, op,
+                           const, imm_mask, imm_val, keep, pin_mask, pe_in,
+                           pe_res_idx, max_depth, word)
+
+
+def fabric_fused_run_plain(sel, ext, depths, op, const, imm_mask, imm_val,
+                           src, keep, pin_mask, pin_src, pe_in, pe_res_idx,
+                           reg_src, mem_in, io_out, n_reg: int, n_io: int,
+                           n_mem: int, max_depth: int, chunk: int = 8,
+                           word: int = 0xFFFF) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fabric_fused_run` (a loop over the
+    T cycles; ``chunk`` does not change the result)."""
+    b, n = sel.shape
+    t_len = ext.shape[1]
+    dev = sel.device
+    picked = _picked(src, sel)
+    zero = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+    st = torch.zeros((b, n_reg + n_io + n_mem + 1), dtype=torch.int32,
+                     device=dev)
+    obs = torch.zeros((b, t_len, n_io), dtype=torch.int32, device=dev)
+    pin_b = (pin_mask > 0)[None, :]
+    pin_src = pin_src.long()
+    for c in range(t_len):
+        st[:, n_reg:n_reg + n_io] = ext[:, c, :n_io]
+        pinned = st[:, pin_src]
+        v0 = torch.where(pin_b, pinned, torch.zeros_like(pinned))
+        v = _plain_fixpoint(v0, pinned, picked, depths, op, const, imm_mask,
+                            imm_val, keep, pin_mask, pe_in, pe_res_idx,
+                            max_depth, word)
+        v_ext = torch.cat([v, zero], dim=1)
+        obs[:, c] = v_ext[:, io_out.long()]
+        st[:, :n_reg] = v_ext[:, reg_src.long()]
+        st[:, n_reg + n_io:n_reg + n_io + n_mem] = v_ext[:, mem_in.long()]
+    return obs
+
+
+# ----------------------------------------------------------------- wrappers
+def _check_fabric(kernel, b, n, p, depths, sel, op, const, imm_mask,
+                  imm_val, src, keep, pin_mask, pe_in, pe_res_idx, **lane_nb):
+    dev = sel.device
+    build.require(kernel, dev, torch.int32, depths=depths, sel=sel, op=op,
+                  const=const, imm_mask=imm_mask, imm_val=imm_val, src=src,
+                  keep=keep, pin_mask=pin_mask, pe_in=pe_in,
+                  pe_res_idx=pe_res_idx, **lane_nb)
+    for name, t, shape in [("depths", depths, (b,)), ("sel", sel, (b, n)),
+                           ("op", op, (b, p)), ("const", const, (b, p)),
+                           ("imm_mask", imm_mask, (b, p, 4)),
+                           ("imm_val", imm_val, (b, p, 4)),
+                           ("keep", keep, (n,)), ("pin_mask", pin_mask, (n,)),
+                           ("pe_in", pe_in, (p, 4)),
+                           ("pe_res_idx", pe_res_idx, (n,))]:
+        build.require_shape(kernel, name, t, shape)
+    if src.dim() != 2 or src.shape[0] != n:
+        raise ValueError(f"{kernel}: src has shape {tuple(src.shape)}, "
+                         f"expected ({n}, F)")
+    if 2 * b * (n + 1) >= 2 ** 31:
+        raise ValueError(f"{kernel}: {b} lanes x {n} nodes overflow the "
+                         f"kernel's int32 indexing")
+
+
+def fabric_fused_batch(vals0: torch.Tensor, sel: torch.Tensor,
+                       pin_vals: torch.Tensor, depths: torch.Tensor,
+                       op: torch.Tensor, const: torch.Tensor,
+                       imm_mask: torch.Tensor, imm_val: torch.Tensor,
+                       src: torch.Tensor, keep: torch.Tensor,
+                       pin_mask: torch.Tensor, pe_in: torch.Tensor,
+                       pe_res_idx: torch.Tensor, max_depth: int,
+                       word: int = 0xFFFF) -> torch.Tensor:
+    """Fused batched fixpoint. vals0/sel/pin_vals: (B, N) int32; depths:
+    (B,) per-lane sweep counts; op/const: (B, P); imm_mask/imm_val:
+    (B, P, 4); src: (N, F) with sentinel N for absent fan-in; keep /
+    pin_mask: (N,) flags; pe_in: (P, 4) node ids (sentinel N);
+    pe_res_idx: (N,) index into the flattened (res0, res1) PE results, 2P
+    for non-PE-output nodes. ``sel`` must lie in [0, F) and ``op`` in
+    [0, 14). Returns the (B, N) values after the fixpoint."""
+    if vals0.device.type == "cpu":
+        return fabric_fused_batch_plain(
+            vals0, sel, pin_vals, depths, op, const, imm_mask, imm_val, src,
+            keep, pin_mask, pe_in, pe_res_idx, max_depth, word)
+    b, n = vals0.shape
+    p = pe_in.shape[0]
+    _check_fabric("fabric_fused_batch", b, n, p, depths, sel, op, const,
+                  imm_mask, imm_val, src, keep, pin_mask, pe_in, pe_res_idx,
+                  vals0=vals0, pin_vals=pin_vals)
+    build.require_shape("fabric_fused_batch", "pin_vals", pin_vals, (b, n))
+    out = torch.empty((b, n), dtype=torch.int32, device=vals0.device)
+    if b == 0 or n == 0:
+        return out
+    buf = torch.empty(2 * b * (n + 1), dtype=torch.int32, device=vals0.device)
+    picked = torch.empty((b, n), dtype=torch.int32, device=vals0.device)
+    lib = build.library()
+    err = lib.canal_fabric_fused_batch(
+        depths.data_ptr(), vals0.data_ptr(), sel.data_ptr(),
+        pin_vals.data_ptr(), op.data_ptr(), const.data_ptr(),
+        imm_mask.data_ptr(), imm_val.data_ptr(), src.data_ptr(),
+        keep.data_ptr(), pin_mask.data_ptr(), pe_in.data_ptr(),
+        pe_res_idx.data_ptr(), out.data_ptr(), buf.data_ptr(),
+        picked.data_ptr(), b, n, src.shape[1], p, int(max_depth), int(word),
+        build.stream_ptr(vals0.device))
+    build.check(err, "fabric_fused_batch")
+    build.LAUNCHES["fabric_fused_batch"] += 1
+    return out
+
+
+def fabric_fused_run(sel: torch.Tensor, ext: torch.Tensor,
+                     depths: torch.Tensor, op: torch.Tensor,
+                     const: torch.Tensor, imm_mask: torch.Tensor,
+                     imm_val: torch.Tensor, src: torch.Tensor,
+                     keep: torch.Tensor, pin_mask: torch.Tensor,
+                     pin_src: torch.Tensor, pe_in: torch.Tensor,
+                     pe_res_idx: torch.Tensor, reg_src: torch.Tensor,
+                     mem_in: torch.Tensor, io_out: torch.Tensor,
+                     n_reg: int, n_io: int, n_mem: int, max_depth: int,
+                     chunk: int = 8, word: int = 0xFFFF) -> torch.Tensor:
+    """Streamed fused emulation: T cycles in one launch.
+
+    sel: (B, N); ext: (B, T, n_io) stimulus; depths/op/const/imm_*/src/
+    keep/pin_mask/pe_in/pe_res_idx as in :func:`fabric_fused_batch`;
+    pin_src: (N,) node -> state slot ([regs | io | mem | zero] layout);
+    reg_src: (R,) node feeding each register (sentinel N allowed);
+    mem_in: (M,); io_out: (n_io,) observed port nodes. Returns (B, T,
+    n_io) observations, bit-identical to scanning
+    :func:`fabric_fused_batch` cycle by cycle. ``chunk`` (>= 1) is the
+    stimulus block of the streamed contract; the kernel reads each
+    cycle's stimulus straight from device memory, so it does not change
+    the launch."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if sel.device.type == "cpu":
+        return fabric_fused_run_plain(
+            sel, ext, depths, op, const, imm_mask, imm_val, src, keep,
+            pin_mask, pin_src, pe_in, pe_res_idx, reg_src, mem_in, io_out,
+            n_reg, n_io, n_mem, max_depth, chunk, word)
+    b, n = sel.shape
+    p = pe_in.shape[0]
+    t_len = ext.shape[1]
+    kernel = "fabric_fused_run"
+    _check_fabric(kernel, b, n, p, depths, sel, op, const, imm_mask,
+                  imm_val, src, keep, pin_mask, pe_in, pe_res_idx, ext=ext,
+                  pin_src=pin_src, reg_src=reg_src, mem_in=mem_in,
+                  io_out=io_out)
+    for name, t, shape in [("ext", ext, (b, t_len, n_io)),
+                           ("pin_src", pin_src, (n,)),
+                           ("reg_src", reg_src, (n_reg,)),
+                           ("mem_in", mem_in, (n_mem,)),
+                           ("io_out", io_out, (n_io,))]:
+        build.require_shape(kernel, name, t, shape)
+    dev = sel.device
+    obs = torch.empty((b, t_len, n_io), dtype=torch.int32, device=dev)
+    if b == 0 or n == 0 or t_len == 0:
+        return obs
+    buf = torch.empty(2 * b * (n + 1), dtype=torch.int32, device=dev)
+    picked = torch.empty((b, n), dtype=torch.int32, device=dev)
+    pinv = torch.empty((b, n), dtype=torch.int32, device=dev)
+    state = torch.empty((b, n_reg + n_io + n_mem + 1), dtype=torch.int32,
+                        device=dev)
+    lib = build.library()
+    err = lib.canal_fabric_fused_run(
+        depths.data_ptr(), sel.data_ptr(), op.data_ptr(), const.data_ptr(),
+        imm_mask.data_ptr(), imm_val.data_ptr(), ext.data_ptr(),
+        src.data_ptr(), keep.data_ptr(), pin_mask.data_ptr(),
+        pin_src.data_ptr(), pe_in.data_ptr(), pe_res_idx.data_ptr(),
+        reg_src.data_ptr(), mem_in.data_ptr(), io_out.data_ptr(),
+        obs.data_ptr(), buf.data_ptr(), picked.data_ptr(), pinv.data_ptr(),
+        state.data_ptr(), b, n, src.shape[1], p, t_len, n_reg, n_io, n_mem,
+        int(max_depth), int(word), build.stream_ptr(dev))
+    build.check(err, kernel)
+    build.LAUNCHES[kernel] += 1
+    return obs

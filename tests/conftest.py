@@ -19,3 +19,9 @@ try:
     settings.load_profile("ci")
 except ModuleNotFoundError:
     pass
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA "
+        "kernels); skips on hosts without CUDA")

@@ -1,0 +1,85 @@
+"""The port's import boundary: ``repro_torch`` / ``canal_torch`` load
+neither JAX nor the reference package, import none of it in source, and
+their default-device entry points refuse to run without CUDA."""
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import canal_torch
+from repro_torch.configs.cgra_amber import smoke
+from repro_torch.core.lowering import FabricModule
+from repro_torch.core.passes import PassManager
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+SRC = os.path.join(ROOT, "src")
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|from\s+repro\.|import\s+repro\b"
+    r"|from\s+repro\s+import|import\s+canal\b|from\s+canal\b)", re.M)
+
+_PROBE = """
+import sys
+import repro_torch, canal_torch
+import repro_torch.interop, repro_torch.fabric, repro_torch.core.pnr
+import repro_torch.kernels.ops, repro_torch.configs.cgra_amber
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "canal"))
+print("LOADED", bad)
+"""
+
+
+def test_import_loads_no_jax_and_no_reference():
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.strip().splitlines()[-1] == "LOADED []", out.stdout
+
+
+def _port_sources():
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for pkg in ("repro_torch", "canal_torch"):
+        for dirpath, _, files in os.walk(os.path.join(SRC, pkg)):
+            paths += [os.path.join(dirpath, f) for f in files
+                      if f.endswith(".py")]
+    return paths
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_source_imports_no_jax_and_no_reference(path):
+    with open(path) as f:
+        text = f.read()
+    hits = [m.group(0).strip() for m in FORBIDDEN.finditer(text)]
+    assert not hits, f"{path}: {hits}"
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    """``device=None`` means the card: with no CUDA the entry points
+    raise instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        canal_torch.compile(smoke())
+    ic = PassManager().run(smoke())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FabricModule(ic)
+    # the CPU is used only when asked for
+    assert canal_torch.compile(smoke(), device="cpu",
+                               analyze="off").device.type == "cpu"
+
+
+def test_unported_paths_raise():
+    fab = canal_torch.compile(smoke(), device="cpu", analyze="off")
+    with pytest.raises(NotImplementedError):
+        fab.verify()
+    rv = canal_torch.compile(
+        canal_torch.InterconnectSpec(width=4, height=4, num_tracks=2,
+                                     ready_valid=True),
+        device="cpu", analyze="off")
+    with pytest.raises(NotImplementedError):
+        rv.fabric()
+    with pytest.raises(NotImplementedError):
+        canal_torch.analyze(fab.interconnect, scope="lowered",
+                            fabric=fab.fabric())

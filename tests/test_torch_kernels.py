@@ -1,0 +1,280 @@
+"""The port's four on-path kernels against the JAX reference.
+
+On the CPU every wrapper runs its plain PyTorch version, which must be
+bit-identical to the reference's Pallas kernel run in interpret mode
+(min-plus included: every candidate is one rounded add and ``min`` is
+exact). Inputs are made with numpy from a seed and handed to both.
+
+``TestCudaKernels`` (marked ``cuda``) holds each CUDA kernel against its
+plain version on the card; it skips on a host without CUDA. The JAX side
+is imported inside a fixture, so that class also runs where JAX is
+absent: ``python -m pytest -q -m cuda tests/test_torch_kernels.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import build, fabric_step, hpwl, minplus, ref
+
+INT_MIN, INT_MAX = -2 ** 31, 2 ** 31 - 1
+#: operand pool: int32 extremes, shifts around the [0, 15] clip, negatives
+EDGE = np.array([INT_MIN, INT_MAX, INT_MIN + 1, -1, 0, 1, 2, 7, 15, 16, 17,
+                 31, 32, -5, -16, 0x7FFF, 0x8000, 0xFFFF, 0x10000, 12345,
+                 -98765, 1 << 30], np.int64)
+
+
+@pytest.fixture(scope="module")
+def jref():
+    """The reference kernels (JAX, interpret mode on this host)."""
+    pytest.importorskip("jax")
+    from repro.kernels import fabric_step as jfs
+    from repro.kernels import hpwl as jhp
+    from repro.kernels import minplus as jmp
+    from repro.kernels import ref as jr
+    return jfs, jhp, jmp, jr
+
+
+def _edge_ints(rng, shape):
+    """int32 values: half from the edge pool, half random full-range."""
+    pick = EDGE[rng.integers(0, len(EDGE), shape)]
+    rand = rng.integers(INT_MIN, INT_MAX, shape, endpoint=True)
+    return np.where(rng.random(shape) < 0.5, pick, rand).astype(np.int32)
+
+
+def fabric_case(seed, b=5, n=300, f=6, p=16, t_len=5):
+    """Random fused-engine tables: random fan-in (so configurations are
+    cyclic), per-lane depths, PE outputs scattered over the nodes."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n + 1, (n, f)).astype(np.int32)
+    pe_nodes = rng.permutation(n)[:2 * p]
+    pe_res_idx = np.full(n, 2 * p, np.int32)
+    pe_res_idx[pe_nodes] = np.arange(2 * p, dtype=np.int32)
+    pe_out = pe_nodes.reshape(p, 2).astype(np.int32)
+    n_reg, n_io, n_mem = 12, 7, 3
+    return {
+        "vals0": rng.integers(0, 1 << 16, (b, n)).astype(np.int32),
+        "sel": rng.integers(0, f, (b, n)).astype(np.int32),
+        "pin_vals": _edge_ints(rng, (b, n)),
+        "depths": rng.integers(0, 7, b).astype(np.int32),
+        "op": rng.integers(0, len(fabric_step.PE_OPS), (b, p)).astype(
+            np.int32),
+        "const": _edge_ints(rng, (b, p)),
+        "imm_mask": (rng.random((b, p, 4)) < 0.3).astype(np.int32),
+        "imm_val": _edge_ints(rng, (b, p, 4)),
+        "src": src,
+        "keep": (rng.random(n) < 0.1).astype(np.int32),
+        "pin_mask": (rng.random(n) < 0.15).astype(np.int32),
+        "pe_in": rng.integers(0, n + 1, (p, 4)).astype(np.int32),
+        "pe_res_idx": pe_res_idx,
+        "pe_out": pe_out,
+        "ext": _edge_ints(rng, (b, t_len, n_io)),
+        "pin_src": rng.integers(0, n_reg + n_io + n_mem + 1, n).astype(
+            np.int32),
+        "reg_src": rng.integers(0, n + 1, n_reg).astype(np.int32),
+        "mem_in": rng.integers(0, n, n_mem).astype(np.int32),
+        "io_out": rng.integers(0, n, n_io).astype(np.int32),
+        "n_reg": n_reg, "n_io": n_io, "n_mem": n_mem,
+    }
+
+
+BATCH_ARGS = ("vals0", "sel", "pin_vals", "depths", "op", "const",
+              "imm_mask", "imm_val", "src", "keep", "pin_mask", "pe_in",
+              "pe_res_idx")
+RUN_ARGS = ("sel", "ext", "depths", "op", "const", "imm_mask", "imm_val",
+            "src", "keep", "pin_mask", "pin_src", "pe_in", "pe_res_idx",
+            "reg_src", "mem_in", "io_out")
+RUN_KW = ("n_reg", "n_io", "n_mem")
+
+
+def _t(case, names, device="cpu"):
+    return [torch.as_tensor(case[k], device=device) for k in names]
+
+
+def test_pe_alu_candidates_int32_semantics(jref):
+    """Wrap in add/sub/mul/shl, shifts >= 16 clipped, negative >>, abs at
+    INT_MIN: the whole ALU stack equals the reference's bit for bit."""
+    jfs = jref[0]
+    import jax.numpy as jnp
+    grid = np.array(np.meshgrid(EDGE, EDGE)).reshape(2, -1).astype(np.int32)
+    a, b = grid
+    c = np.roll(a, 3)
+    const = np.roll(b, 5)
+    want = np.asarray(jfs.pe_alu_candidates(*map(jnp.asarray, (a, b, c,
+                                                                const))))
+    got = fabric_step.pe_alu_candidates(*map(torch.as_tensor,
+                                             (a, b, c, const))).numpy()
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed,b,word,max_depth", [
+    (0, 5, 0xFFFF, 6), (1, 1, 0xFFFF, 3), (2, 9, -1, 6), (3, 3, -1, 8)])
+def test_fused_batch_plain_matches_pallas(jref, seed, b, word, max_depth):
+    jfs, _, _, jr = jref
+    import jax.numpy as jnp
+    case = fabric_case(seed, b=b)
+    want = np.asarray(jfs.fabric_fused_batch(
+        *[jnp.asarray(case[k]) for k in BATCH_ARGS], max_depth=max_depth,
+        word=word, interpret=True))
+    got = fabric_step.fabric_fused_batch(*_t(case, BATCH_ARGS),
+                                         max_depth=max_depth, word=word)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the scatter-based oracles of both packages agree as well
+    ref_args = [k if k != "pe_res_idx" else "pe_out" for k in BATCH_ARGS]
+    want_ref = np.asarray(jr.fabric_fused_batch_ref(
+        *[jnp.asarray(case[k]) for k in ref_args], max_depth=max_depth,
+        word=word))
+    got_ref = ref.fabric_fused_batch_ref(*_t(case, ref_args),
+                                         max_depth=max_depth, word=word)
+    np.testing.assert_array_equal(got_ref.numpy(), want_ref)
+
+
+@pytest.mark.parametrize("seed,b,t_len,chunk,word", [
+    (4, 5, 5, 2, 0xFFFF), (5, 2, 7, 8, -1), (6, 9, 3, 1, 0xFFFF)])
+def test_fused_run_plain_matches_pallas(jref, seed, b, t_len, chunk, word):
+    jfs = jref[0]
+    import jax.numpy as jnp
+    case = fabric_case(seed, b=b, t_len=t_len)
+    kw = {k: case[k] for k in RUN_KW}
+    want = np.asarray(jfs.fabric_fused_run(
+        *[jnp.asarray(case[k]) for k in RUN_ARGS], **kw, max_depth=6,
+        chunk=chunk, word=word, interpret=True))
+    got = fabric_step.fabric_fused_run(*_t(case, RUN_ARGS), **kw,
+                                       max_depth=6, chunk=chunk, word=word)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def minplus_case(seed, b=6, n=70):
+    """Sparse random weights with INF gaps, zero diagonal, and lanes that
+    are all INF (the router's power-of-two padding lanes)."""
+    rng = np.random.default_rng(seed)
+    inf = np.float32(minplus.INF)
+    w = np.where(rng.random((n, n)) < 0.08,
+                 rng.uniform(0.01, 3.0, (n, n)), inf).astype(np.float32)
+    np.fill_diagonal(w, 0.0)
+    d = np.full((b, n), inf, np.float32)
+    seeds = rng.integers(0, n, b)
+    live = (b + 1) // 2
+    d[np.arange(live), seeds[:live]] = 0.0              # rest stay all-INF
+    return d, w
+
+
+@pytest.mark.parametrize("seed,b,n", [(0, 6, 70), (1, 1, 130), (2, 8, 20)])
+def test_minplus_step_exact(jref, seed, b, n):
+    jmp = jref[2]
+    import jax.numpy as jnp
+    d, w = minplus_case(seed, b, n)
+    for _ in range(3):                        # relax a few steps deep
+        want = np.asarray(jmp.minplus_step(jnp.asarray(d), jnp.asarray(w),
+                                           interpret=True))
+        got = minplus.minplus_step(torch.as_tensor(d),
+                                   torch.as_tensor(w)).numpy()
+        np.testing.assert_array_equal(got, want)
+        d = np.array(want)
+
+
+@pytest.mark.parametrize("seed,b,n", [(3, 4, 40), (4, 8, 57)])
+def test_minplus_wavefront_exact(jref, seed, b, n):
+    """Same stop/cap contract: the converged fields are equal bit for bit
+    to the reference's blocked Pallas wavefront."""
+    jmp = jref[2]
+    d, w = minplus_case(seed, b, n)
+    want = np.asarray(jmp.minplus_wavefront(d, w, engine="pallas",
+                                            interpret=True))
+    got = minplus.minplus_wavefront(torch.as_tensor(d),
+                                    torch.as_tensor(w)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got[(b + 1) // 2:] == np.float32(minplus.INF)).all()
+
+
+def bbox_case(seed, n=300, k=9):
+    """Pins with empty nets, single-pin nets and masked-out pins whose
+    coordinates would win the min/max if they were read."""
+    rng = np.random.default_rng(seed)
+    pins = rng.integers(-50, 400, (n, k, 2)).astype(np.int32)
+    mask = (rng.random((n, k)) < 0.6).astype(np.int32)
+    mask[rng.random(n) < 0.1] = 0                       # empty nets
+    pins[mask == 0] = rng.choice([-(1 << 21), 1 << 21, 0],
+                                 ((mask == 0).sum(), 2))
+    return pins, mask
+
+
+@pytest.mark.parametrize("seed,n,k", [(0, 300, 9), (1, 1, 1), (2, 513, 40)])
+def test_net_bboxes_plain_matches_pallas(jref, seed, n, k):
+    jhp = jref[1]
+    import jax.numpy as jnp
+    pins, mask = bbox_case(seed, n, k)
+    want = np.asarray(jhp.net_bboxes(jnp.asarray(pins), jnp.asarray(mask),
+                                     interpret=True))
+    got = hpwl.net_bboxes(torch.as_tensor(pins), torch.as_tensor(mask))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_cpu_wrappers_launch_nothing():
+    """On CPU tensors the wrappers take the plain path: no kernel library
+    is built and no launch is counted."""
+    build.reset_launch_counts()
+    d, w = minplus_case(0, 2, 10)
+    minplus.minplus_wavefront(torch.as_tensor(d), torch.as_tensor(w))
+    pins, mask = bbox_case(0, 5, 3)
+    hpwl.net_bboxes(torch.as_tensor(pins), torch.as_tensor(mask))
+    assert all(v == 0 for v in build.LAUNCHES.values())
+
+
+# --------------------------------------------------------------- the card
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+class TestCudaKernels:
+    """Each CUDA kernel against its plain version, on the card."""
+
+    @pytest.mark.parametrize("seed,b,word", [(0, 5, 0xFFFF), (1, 9, -1)])
+    def test_fused_batch(self, cuda, seed, b, word):
+        case = fabric_case(seed, b=b, n=5000, f=20, p=200)
+        want = fabric_step.fabric_fused_batch_plain(
+            *_t(case, BATCH_ARGS, cuda), max_depth=7, word=word)
+        before = build.LAUNCHES["fabric_fused_batch"]
+        got = fabric_step.fabric_fused_batch(*_t(case, BATCH_ARGS, cuda),
+                                             max_depth=7, word=word)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["fabric_fused_batch"] == before + 1
+        assert torch.equal(got, want)
+
+    @pytest.mark.parametrize("seed,b,t_len", [(2, 5, 6), (3, 3, 1)])
+    def test_fused_run(self, cuda, seed, b, t_len):
+        case = fabric_case(seed, b=b, n=5000, f=20, p=200, t_len=t_len)
+        kw = {k: case[k] for k in RUN_KW}
+        want = fabric_step.fabric_fused_run_plain(
+            *_t(case, RUN_ARGS, cuda), **kw, max_depth=7, word=-1)
+        got = fabric_step.fabric_fused_run(*_t(case, RUN_ARGS, cuda), **kw,
+                                           max_depth=7, word=-1)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+    @pytest.mark.parametrize("b,n", [(1, 1024), (8, 1000), (32, 257)])
+    def test_minplus(self, cuda, b, n):
+        d, w = minplus_case(b, b, n)
+        d_t, w_t = torch.as_tensor(d, device=cuda), torch.as_tensor(
+            w, device=cuda)
+        assert torch.equal(minplus.minplus_step(d_t, w_t),
+                           minplus.minplus_step_plain(d_t, w_t))
+
+    def test_net_bboxes(self, cuda):
+        pins, mask = bbox_case(5, 3000, 33)
+        p_t = torch.as_tensor(pins, device=cuda)
+        m_t = torch.as_tensor(mask, device=cuda)
+        assert torch.equal(hpwl.net_bboxes(p_t, m_t),
+                           hpwl.net_bboxes_plain(p_t, m_t))
+
+    def test_cuda_tensor_never_takes_plain_path(self, cuda):
+        """A CUDA tensor the kernel does not take raises; it is never
+        handed to the plain version."""
+        pins, mask = bbox_case(6, 10, 4)
+        with pytest.raises(TypeError):
+            hpwl.net_bboxes(torch.as_tensor(pins, device=cuda).long(),
+                            torch.as_tensor(mask, device=cuda))

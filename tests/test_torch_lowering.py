@@ -1,0 +1,124 @@
+"""``FabricModule`` in the port against the reference's, on the
+``_random_fabric_workload`` workload (random configs, so cyclic ones with
+per-lane depths are included): ``run_batch`` unstreamed and streamed,
+fused and unfused, and ``step`` / ``run``, all bit-identical."""
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.lowering import FabricModule as RefFabric
+from repro.core.passes import PassManager as RefPassManager
+from repro.core.spec import InterconnectSpec as RefSpec
+from repro_torch.core.lowering import PE_OP_IDS, FabricModule
+from repro_torch.core.passes import PassManager
+from repro_torch.core.spec import InterconnectSpec
+
+SPEC = dict(width=4, height=4, num_tracks=2, io_ring=True,
+            sb_type="wilton", reg_density=1.0)
+
+
+@functools.lru_cache(maxsize=None)
+def _fabrics(use_kernels):
+    ref_fab = RefFabric(RefPassManager().run(RefSpec(**SPEC)),
+                        use_pallas=use_kernels)
+    fab = FabricModule(PassManager().run(InterconnectSpec(**SPEC)),
+                       device="cpu", use_kernels=use_kernels)
+    return ref_fab, fab
+
+
+def _workload(fab, seed, batch=4, cycles=5, programs=False):
+    """``dse._random_fabric_workload``'s draws, optionally with random PE
+    programs (ops, constants, immediates) as well."""
+    rng = np.random.default_rng(seed)
+    cfgs = rng.integers(0, 4, (batch, fab.num_config)).astype(np.int32)
+    ext = rng.integers(0, 256, (batch, cycles, fab.num_io)).astype(np.int32)
+    pe = None
+    if programs:
+        p = max(fab.num_pe, 1)
+        pe = {"op": rng.integers(0, len(PE_OP_IDS), (batch, p)),
+              "const": rng.integers(-300, 70000, (batch, p)),
+              "imm_mask": (rng.random((batch, p, 4)) < 0.3),
+              "imm_val": rng.integers(-9, 1 << 17, (batch, p, 4))}
+        pe = {k: v.astype(np.int32) for k, v in pe.items()}
+    return cfgs, ext, pe
+
+
+def _run_both(use_kernels, seed, programs=False, **kw):
+    ref_fab, fab = _fabrics(use_kernels)
+    cfgs, ext, pe = _workload(fab, seed, programs=programs)
+    ref_pe = None if pe is None else {k: jnp.asarray(v)
+                                      for k, v in pe.items()}
+    want = np.asarray(ref_fab.run_batch(jnp.asarray(cfgs), jnp.asarray(ext),
+                                        pe_cfgs=ref_pe, **kw))
+    got = fab.run_batch(cfgs, ext, pe_cfgs=pe, **kw)
+    return got, want, cfgs
+
+
+@pytest.mark.parametrize("seed,programs", [(0, False), (1, True)])
+@pytest.mark.parametrize("use_kernels", [False, True],
+                         ids=["oracle", "kernel_path"])
+def test_run_batch_matches_reference(use_kernels, seed, programs):
+    got, want, cfgs = _run_both(use_kernels, seed, programs)
+    assert isinstance(got, torch.Tensor) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    ref_fab, fab = _fabrics(use_kernels)
+    assert [fab.combinational_depth(c) for c in cfgs] == \
+        [ref_fab.combinational_depth(c) for c in cfgs]
+
+
+@pytest.mark.parametrize("io_chunk", [2, 8])
+def test_run_batch_streamed_matches_reference(io_chunk):
+    """``io_chunk`` on the kernel path: one ``fabric_fused_run`` call
+    (plain version here) vs the reference's Pallas streamed kernel in
+    interpret mode."""
+    got, want, _ = _run_both(True, 2, programs=True, io_chunk=io_chunk)
+    np.testing.assert_array_equal(got.numpy(), want)
+    unstreamed, _, _ = _run_both(True, 2, programs=True)
+    assert torch.equal(got, unstreamed)
+
+
+def test_run_batch_unfused_matches_reference():
+    got, want, _ = _run_both(False, 3, programs=True, fused=False)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_step_and_run_plain_branch_match_reference():
+    ref_fab, fab = _fabrics(False)
+    cfgs, ext, pe = _workload(fab, 4, programs=True)
+    for b in range(2):
+        pe_b = {k: v[b] for k, v in pe.items()}
+        want = np.asarray(ref_fab.run(
+            jnp.asarray(cfgs[b]), jnp.asarray(ext[b]),
+            pe_cfg={k: jnp.asarray(v) for k, v in pe_b.items()}))
+        got = fab.run(cfgs[b], ext[b],
+                      pe_cfg={k: torch.as_tensor(v) for k, v in pe_b.items()})
+        np.testing.assert_array_equal(got.numpy(), want)
+    st_ref, obs_ref = ref_fab.step(ref_fab.init_state(),
+                                   jnp.asarray(ext[0, 0]),
+                                   jnp.asarray(cfgs[0]), depth=5)
+    st, obs = fab.step(fab.init_state(), ext[0, 0], cfgs[0], depth=5)
+    np.testing.assert_array_equal(obs.numpy(), np.asarray(obs_ref))
+    for k in st_ref:
+        np.testing.assert_array_equal(st[k].numpy(), np.asarray(st_ref[k]))
+
+
+def test_shard_true_and_unported_sweeps_raise_on_cuda(monkeypatch):
+    """``shard=True`` across several GPUs and the unfused sweeps under
+    ``use_kernels`` on CUDA are later slices: they raise instead of
+    falling back."""
+    _, fab = _fabrics(True)
+    fab_cuda = object.__new__(FabricModule)
+    fab_cuda.__dict__.update(fab.__dict__)
+    fab_cuda.device = torch.device("cuda")
+    with pytest.raises(NotImplementedError, match="fabric_sweep"):
+        fab_cuda._sweep_batch(torch.zeros((1, fab.arrays.num_nodes + 1),
+                                          dtype=torch.int32),
+                              torch.zeros((1, fab.arrays.num_nodes),
+                                          dtype=torch.int32))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    cfgs, ext, _ = _workload(fab, 5)
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        fab_cuda.run_batch(cfgs, ext, shard=True)
