@@ -4,31 +4,61 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a host with one CUDA card and nvcc.
-Phases (any failure raises, so the script exits non-zero):
+Phases (any failure raises, so the script exits non-zero). Every path
+phase zeroes the launch counts just before it runs and reads them just
+after; each must have launched the kernels it exists to drive.
 
 1. build   — nvcc builds ``src/repro_torch/kernels/csrc/*.cu`` into
              ``build/kernels/`` (one process per source, in parallel).
-2. main    — the main path at the full size of the paper's artifact,
+2. main    — one design point at the full size of the paper's artifact,
              ``cgra_amber.FULL`` (32x32, 5 tracks, 86,288 IR nodes):
              ``canal_torch.compile(FULL, use_kernels=True)`` on the card,
              place-and-route of the five bench apps (``auto`` strategies,
              which resolve to the minplus router and the batched
              annealer), bitstreams, and ``run_apps_batch`` over all five
-             apps unstreamed and with ``io_chunk=8``. Launch counts are
-             zeroed just before and read just after; every kernel must
-             have launched. Outputs are checked against the port's
-             scatter-based oracle (``use_kernels=False``), the two
-             emulation modes against each other, and the pointwise app
-             against its dataflow semantics (out = in + 1 + ... + 6).
-3. kernels — every kernel against its plain PyTorch version on the card,
-             at the main path's shapes (bit-identical, min-plus
-             included), with CUDA-event times of the kernel and the plain
-             version and the least time the card could take (``bound``).
+             apps unstreamed and with ``io_chunk=8``. Outputs are checked
+             against the port's scatter-based oracle
+             (``use_kernels=False``), the two emulation modes against each
+             other, and the pointwise app against its dataflow semantics
+             (out = in + 1 + ... + 6). Kernels: fused batch and run,
+             min-plus, boxes.
+   smoke   — the placed nets' HPWL through ``ops.hpwl``, against numpy.
+             No port path calls ``ops.hpwl`` yet, so its launches are this
+             script's own check, not path coverage.
+3. emulate — each routed app alone through ``CompiledFabric.emulate``
+             (``FabricModule.run``: one ``fabric_sweep`` launch per
+             sweep), bit-identical to phase 2's batched outputs.
+4. verify  — ``CompiledFabric.verify()`` at FULL: the structural check
+             and the exhaustive configuration sweep, 214,080 (mux, input)
+             cases in chunks of 2,048 (``fabric_sweep_batch``).
+5. serve   — ``canal_torch.serve`` on a fresh store, FULL submitted twice
+             at once: one PnR computation, one coalesced request, five
+             routed and emulated apps whose areas equal ``fab.area()``; a
+             second service on the same store answers FULL from it with
+             an equal record and no PnR.
+6. engines — ``batched_vs_serial_emulation`` and
+             ``fused_vs_unfused_emulation`` at 32x32, 5 tracks, B 8, T 16
+             (each asserts bit-identical engines).
+7. search  — ``canal_torch.search`` on an 8x8 base over ``num_tracks``
+             2-5, ``budget=3``, store-backed (the one phase cut in size:
+             every candidate is a whole DSE point); its frontier must not
+             be empty.
+8. kernels — every kernel against its plain PyTorch version on the card,
+             at its path's shapes (bit-identical, min-plus included),
+             with the kernel's and the plain version's times and the least
+             time the card could take (``bound``). ``ms`` and
+             ``plain_ms`` are device time: back-to-back calls captured in
+             one CUDA graph and timed over a replay (``timing: graph``);
+             the two cooperative fused kernels, which are not captured,
+             are timed by CUDA events around back-to-back calls
+             (``timing: events``). ``call_ms`` is the cost of one call
+             from Python, wrapper included, by CUDA events.
 
-Before the last line it prints the per-app PnR seconds, the emulation
-times, the ``kernels`` JSON line and the card's name and power limit; the
-last line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside
-a checkout, it exits non-zero and prints no result.
+Before the last line it prints each phase's seconds and launches, the
+per-app PnR seconds, the emulation times, the ``kernels`` JSON line and
+the card's name and power limit; the last line is ``{"ok": true,
+"device": {...}}``. Without CUDA, or outside a checkout, it exits
+non-zero and prints no result.
 """
 import json
 import os
@@ -51,13 +81,30 @@ HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12
 
 
+#: the kernels each path exists to launch (phase 8 reads each kernel's
+#: launches from its path)
+PHASE_KERNELS = {
+    "main": ("fabric_fused_batch", "fabric_fused_run", "minplus_step",
+             "net_bboxes"),
+    "smoke": ("hpwl",),
+    "emulate": ("fabric_sweep",),
+    "verify": ("fabric_sweep_batch",),
+    "serve": ("fabric_fused_batch", "minplus_step", "net_bboxes"),
+    "engines": ("fabric_sweep", "fabric_sweep_batch", "fabric_fused_batch"),
+    "search": (),
+}
+KERNEL_PATH = {"fabric_sweep": "emulate", "fabric_sweep_batch": "verify",
+               "hpwl": "smoke"}
+
+
 def log(msg):
     print(f"[chip_smoke] {msg}", flush=True)
 
 
 def cuda_ms(fn, reps=5):
-    """Mean milliseconds per call over ``reps`` calls, by CUDA events,
-    after one warm-up call."""
+    """Mean milliseconds per call over ``reps`` back-to-back calls from
+    Python, by CUDA events, after one warm-up call (host gaps between
+    launches included)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -68,6 +115,41 @@ def cuda_ms(fn, reps=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps=20, replays=3):
+    """Device milliseconds per call: ``reps`` back-to-back calls captured
+    in one CUDA graph, timed by CUDA events over ``replays`` replays
+    after a warm one, so the host's per-call cost is left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * reps)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def timings(fn, plain, reps=20, plain_reps=20):
+    """``ms``/``plain_ms`` as graph-captured device time, and ``call_ms``
+    as the kernel's cost per call from Python."""
+    return {"ms": graph_ms(fn, reps), "plain_ms": graph_ms(plain, plain_reps),
+            "call_ms": cuda_ms(fn, reps), "timing": "graph"}
 
 
 def bound(n_bytes, n_ops):
@@ -140,6 +222,33 @@ def main_path(spec, device):
     return fab, routed, emus, ins, outs, report
 
 
+def pin_table(result):
+    """A routed app's placed nets (two or more placeable members) as
+    padded (n_nets, K, 2) pin coordinates and an (n_nets, K) mask."""
+    from repro_torch.core.pnr.batched_anneal import _net_members
+
+    order = list(result.packed.placeable)
+    members = _net_members(result.packed,
+                           {n: i for i, n in enumerate(order)})
+    k = max(len(m) for m in members)
+    pins = np.zeros((len(members), k, 2), np.int32)
+    mask = np.zeros((len(members), k), np.int32)
+    for n, mem in enumerate(members):
+        for j, gi in enumerate(mem):
+            pins[n, j] = result.placement[order[gi]]
+            mask[n, j] = 1
+    return pins, mask
+
+
+def placed_hpwl(result, device):
+    """Per-net HPWL of a routed app's placement (``ops.hpwl``)."""
+    from repro_torch.kernels import ops
+
+    pins, mask = pin_table(result)
+    return ops.hpwl(torch.as_tensor(pins, device=device),
+                    torch.as_tensor(mask, device=device)).cpu().numpy()
+
+
 def check_main_path(fab, routed, emus, ins, outs, report):
     """What came out is right: streamed == unstreamed == the scatter
     oracle, and the pointwise app computes in + 1 + ... + 6."""
@@ -175,6 +284,140 @@ def check_main_path(fab, routed, emus, ins, outs, report):
     if not np.array_equal(y[lat:], x[:T - lat] + app_consts):
         raise AssertionError(f"pointwise: {y} != in + {app_consts}")
     return {"pointwise_latency": lat, "pointwise_offset": int(app_consts)}
+
+
+def hpwl_phase(routed, device):
+    """Each routed app's total placed HPWL through ``ops.hpwl``, equal
+    to numpy's."""
+    total = {}
+    for name, r in routed.items():
+        total[name] = int(placed_hpwl(r, device).sum())
+        pins, mask = pin_table(r)
+        m = mask > 0
+        want = sum(int(np.ptp(pins[i, m[i], 0]) + np.ptp(pins[i, m[i], 1]))
+                   for i in range(len(mask)))
+        if total[name] != want:
+            raise AssertionError(f"{name}: placed HPWL {total[name]} != "
+                                 f"{want}")
+    return total
+
+
+# ------------------------------------------------------- the slice-2 paths
+def emulate_phase(fab, routed, ins, outs):
+    """Each routed app alone through ``CompiledFabric.emulate`` (one
+    ``fabric_sweep`` launch per sweep), equal to the batched run."""
+    per_app_ms = {}
+    for (name, r), stim, want in zip(routed.items(), ins,
+                                     outs["unstreamed"]):
+        t0 = time.perf_counter()
+        got = fab.emulate(r, stim, cycles=T)
+        per_app_ms[name] = (time.perf_counter() - t0) * 1e3
+        for coord in want:
+            if not np.array_equal(got[coord], want[coord]):
+                raise AssertionError(f"{name}: emulate != batched run")
+    return {"emulate_ms": per_app_ms}
+
+
+def verify_phase(fab):
+    """``fab.verify()`` at full size: it passes and checks every
+    (mux, input) connection once."""
+    report = fab.verify(use_kernels=True)
+    if not report.ok():
+        raise AssertionError(report.render())
+    expect = sum(s.fanin for s in fab.fabric().config_slots)
+    msgs = [d.message for d in report.diagnostics
+            if d.rule == "config-sweep"]
+    checked = int(msgs[0].split()[0]) if msgs else -1
+    if checked != expect:
+        raise AssertionError(f"config sweep checked {checked} "
+                             f"connections, expected {expect}")
+    return {"connections_checked": checked, "rules": list(report.rules_run)}
+
+
+def _json(rec):
+    return json.loads(json.dumps(rec, sort_keys=True, default=str))
+
+
+def serve_phase(spec, area, device):
+    """The DSE service on a fresh store: two concurrent requests for
+    ``spec`` cost one PnR; a second service answers from the store."""
+    import tempfile
+    import canal_torch
+
+    with tempfile.TemporaryDirectory(prefix="canal_torch_store_") as root:
+        with canal_torch.serve(store=root, emulate_cycles=T,
+                               use_kernels=True, device=device) as svc:
+            first = svc.submit(spec)
+            deadline = time.time() + 60
+            while not svc._inflight and time.time() < deadline:
+                time.sleep(0.01)
+            second = svc.submit(spec)
+            rec, rec2 = first.result(), second.result()
+            st = svc.stats()
+        if st["executor"]["pnr_computations"] != 1 or st["coalesced"] != 1:
+            raise AssertionError(f"serve: expected one PnR and one "
+                                 f"coalesced request, got {st}")
+        if _json(rec) != _json(rec2):
+            raise AssertionError("serve: coalesced record differs")
+        apps = rec["apps"]
+        bad = [n for n, a in apps.items()
+               if not a["success"] or "out_checksum" not in
+               a.get("emulation", {})]
+        if len(apps) != 5 or bad:
+            raise AssertionError(f"serve: apps not routed and emulated: "
+                                 f"{bad or sorted(apps)}")
+        for k in ("sb_area", "cb_area"):
+            if rec[k] != area[k]:
+                raise AssertionError(f"serve: {k} {rec[k]} != {area[k]}")
+        with canal_torch.serve(store=root, emulate_cycles=T,
+                               use_kernels=True, device=device) as svc2:
+            t0 = time.perf_counter()
+            warm = svc2.query(spec)
+            warm_s = time.perf_counter() - t0
+            st2 = svc2.stats()
+        if (st2["hits"], st2["executor"]["pnr_computations"]) != (1, 0):
+            raise AssertionError(f"serve: second service missed: {st2}")
+        if _json(warm) != _json(rec):
+            raise AssertionError("serve: stored record differs")
+    return {"gen_pnr_seconds": rec["gen_pnr_seconds"],
+            "metrics": rec["metrics"],
+            "checksums": {n: a["emulation"]["out_checksum"]
+                          for n, a in apps.items()},
+            "strategies": {n: [a["route_strategy"], a["place_strategy"]]
+                           for n, a in apps.items()},
+            "cold_latency_s": st["latency_max_s"], "warm_query_s": warm_s}
+
+
+def engines_phase(device):
+    from repro_torch.core import dse
+
+    kw = dict(width=32, height=32, num_tracks=5, batch=8, cycles=T,
+              use_kernels=True, device=device)
+    return {"batched_vs_serial": dse.batched_vs_serial_emulation(**kw),
+            "fused_vs_unfused": dse.fused_vs_unfused_emulation(
+                repeats=1, **kw)}
+
+
+def search_phase(device):
+    """Search over ``num_tracks`` on an 8x8 base, store-backed."""
+    import tempfile
+    import canal_torch
+
+    base = canal_torch.InterconnectSpec(width=8, height=8, io_ring=True,
+                                        reg_density=1.0)
+    with tempfile.TemporaryDirectory(prefix="canal_torch_store_") as root:
+        result = canal_torch.search(base, {"num_tracks": (2, 3, 4, 5)},
+                                    budget=3, store=root, use_kernels=True,
+                                    device=device)
+    if not result.frontier:
+        raise AssertionError("search: empty frontier")
+    used = set()
+    for e in result.evaluated:
+        for a in e.record["apps"].values():
+            used.update((a.get("route_strategy"), a.get("place_strategy")))
+    return {"frontier": [e.to_dict() for e in result.frontier],
+            "evaluated": len(result.evaluated), "strategies": sorted(
+                x for x in used if x), "stats": result.stats}
 
 
 # ------------------------------------------------------------ kernel checks
@@ -244,6 +487,7 @@ def fabric_kernel_rows(fabric, device, batch):
             *batch_args, max_depth=max_depth, word=WORD)),
         "plain_ms": cuda_ms(lambda: fs.fabric_fused_batch_plain(
             *batch_args, max_depth=max_depth, word=WORD), reps=2),
+        "timing": "events",
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": {"B": batch, "N": fabric.arrays.num_nodes,
                   "F": fabric.arrays.max_fanin, "P": p,
@@ -266,6 +510,7 @@ def fabric_kernel_rows(fabric, device, batch):
                                                   **run_kw)),
         "plain_ms": cuda_ms(lambda: fs.fabric_fused_run_plain(
             *run_args, chunk=IO_CHUNK, **run_kw), reps=1),
+        "timing": "events",
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": {"B": batch, "T": T, "N": fabric.arrays.num_nodes,
                   "n_io": fabric.num_io, "R": s["n_reg"],
@@ -311,9 +556,8 @@ def minplus_row(fab, device):
             "source": "src/repro_torch/kernels/csrc/minplus.cu",
             "replaces": "src/repro/kernels/minplus.py:80",
             "max_abs_err": err,
-            "ms": cuda_ms(lambda: mp.minplus_step(d0, w), reps=20),
-            "plain_ms": cuda_ms(lambda: mp.minplus_step_plain(d0, w),
-                                reps=5),
+            **timings(lambda: mp.minplus_step(d0, w),
+                      lambda: mp.minplus_step_plain(d0, w)),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "shape": {"B": int(d0.shape[0]), "N": n}}
 
@@ -347,9 +591,119 @@ def bbox_row(routed, device):
             "source": "src/repro_torch/kernels/csrc/hpwl.cu",
             "replaces": "src/repro/kernels/hpwl.py:111",
             "max_abs_err": err,
-            "ms": cuda_ms(lambda: hpwl.net_bboxes(p_t, m_t), reps=20),
-            "plain_ms": cuda_ms(lambda: hpwl.net_bboxes_plain(p_t, m_t),
-                                reps=20),
+            **timings(lambda: hpwl.net_bboxes(p_t, m_t),
+                      lambda: hpwl.net_bboxes_plain(p_t, m_t)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "shape": {"n_nets": n, "K": k}}
+
+
+def sweep_bytes(src, sel):
+    """Bytes a sweep ``out[b, i] = vals[b, src[i, sel[b, i]]]`` must move,
+    in 4-byte words each read or written once: every select, each
+    distinct ``src`` entry the selects pick, each distinct value a
+    configuration reads, and every output. Counted from this run's
+    selects, not from the whole ``src`` and ``vals`` tables."""
+    n, f = src.shape
+    b = sel.shape[0]
+    flat = (torch.arange(n, device=src.device) * f)[None, :] + sel.long()
+    src_used = torch.zeros(n * f, dtype=torch.bool, device=src.device)
+    src_used[flat.reshape(-1)] = True
+    picked = src.reshape(-1)[flat].long()
+    vals_used = torch.zeros((b, n + 1), dtype=torch.bool, device=src.device)
+    vals_used.scatter_(1, picked, True)
+    words = 2 * b * n + int(src_used.sum()) + int(vals_used.sum())
+    return 4 * words
+
+
+def sweep_rows(fab, routed, device):
+    """``fabric_sweep`` at FULL on a routed app's configuration, and
+    ``fabric_sweep_batch`` at the configuration sweep's chunk shape
+    (2,048 cases x N + 1)."""
+    from repro_torch.core import verify
+    from repro_torch.fabric import AppEmulator
+    from repro_torch.kernels import fabric_step as fs
+
+    fabric = fab.fabric()
+    a = fabric.arrays
+    n = a.num_nodes
+    src = fabric._dev("src", a.src, torch.int32)
+    rng = np.random.default_rng(4)
+    vals_np = rng.integers(0, 1 << 16, n + 1).astype(np.int32)
+    vals_np[n] = 0
+    vals = torch.as_tensor(vals_np, device=device)
+    r = routed["pointwise"]
+    config = AppEmulator.from_pnr(fabric, r.packed, r).config
+    sel = fabric._selects(config[None])[0]
+    rows = []
+    got = fs.fabric_sweep(vals, src, sel)
+    want = fs.fabric_sweep_plain(vals, src, sel)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"fabric_sweep differs (max {err})")
+    b_ms, b_by = bound(sweep_bytes(src, sel[None]), n)
+    rows.append({
+        "name": "fabric_sweep", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fabric_sweep.cu",
+        "replaces": "src/repro/kernels/fabric_step.py:135",
+        "max_abs_err": err,
+        **timings(lambda: fs.fabric_sweep(vals, src, sel),
+                  lambda: fs.fabric_sweep_plain(vals, src, sel), reps=50,
+                  plain_reps=50),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": {"N": n, "F": a.max_fanin}})
+
+    slot_ids, sels = verify.sweep_cases(fabric)
+    b = min(2048, len(slot_ids))
+    sel_b = verify.case_selects(fabric, slot_ids[:b], sels[:b])
+    vals_b = vals.expand(b, n + 1).contiguous()
+    got = fs.fabric_sweep_batch(vals_b, src, sel_b)
+    want = fs.fabric_sweep_batch_plain(vals_b, src, sel_b)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"fabric_sweep_batch differs (max {err})")
+    b_ms, b_by = bound(sweep_bytes(src, sel_b), b * n)
+    rows.append({
+        "name": "fabric_sweep_batch", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fabric_sweep.cu",
+        "replaces": "src/repro/kernels/fabric_step.py:191",
+        "max_abs_err": err,
+        **timings(lambda: fs.fabric_sweep_batch(vals_b, src, sel_b),
+                  lambda: fs.fabric_sweep_batch_plain(vals_b, src, sel_b),
+                  reps=5, plain_reps=3),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": {"B": b, "N": n, "F": a.max_fanin}})
+    return rows
+
+
+def hpwl_row(routed, device):
+    """The routed apps' placed-net tables (main path's shapes); times on
+    the largest."""
+    from repro_torch.kernels import hpwl
+
+    err = 0
+    tables = [pin_table(r) for r in routed.values()]
+    for pins, mask in tables:
+        p_t = torch.as_tensor(pins, device=device)
+        m_t = torch.as_tensor(mask, device=device)
+        got = hpwl.hpwl(p_t, m_t)
+        want = hpwl.hpwl_plain(p_t, m_t)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError("hpwl differs")
+        err = max(err, int((got - want).abs().max()))
+    pins, mask = max(tables, key=lambda t: t[1].size)
+    p_t = torch.as_tensor(pins, device=device)
+    m_t = torch.as_tensor(mask, device=device)
+    n, k = mask.shape
+    b_ms, b_by = bound(nbytes(p_t, m_t) + 4 * n, 4 * n * k)
+    return {"name": "hpwl", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/hpwl.cu",
+            "replaces": "src/repro/kernels/hpwl.py:80",
+            "max_abs_err": err,
+            **timings(lambda: hpwl.hpwl(p_t, m_t),
+                      lambda: hpwl.hpwl_plain(p_t, m_t)),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "shape": {"n_nets": n, "K": k}}
 
@@ -378,46 +732,99 @@ def main():
     build.library()
     log(f"kernel library built in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {build.build_seconds:.1f} s)")
-
-    # 2. main path, with launch counts zeroed just before and read after
-    build.reset_launch_counts()
-    fab, routed, emus, ins, outs, report = main_path(FULL, device)
-    torch.cuda.synchronize()
-    launches = dict(build.LAUNCHES)
-    log(f"main path launches: {launches}")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
-    report.update(check_main_path(fab, routed, emus, ins, outs, report))
-
-    # 3. every kernel against its plain version at the main path's shapes
-    rows = fabric_kernel_rows(fab.fabric(), device, batch=len(routed))
-    rows.append(minplus_row(fab, device))
-    rows.append(bbox_row(routed, device))
-    for row in rows:
-        row["launches"] = launches[row["name"]]
-    keys = ("name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "shape")
-    rows = [{k: row[k] for k in keys} for row in rows]
-
-    print(json.dumps({"pnr_seconds": report["pnr_s"],
-                      "compile_seconds": report["compile_s"],
-                      "nodes": report["nodes"],
-                      "bitstream_words": report["bitstream_words"],
-                      "depths": report["depths"],
-                      "pointwise_latency": report["pointwise_latency"]}))
-    print(json.dumps({"emulation_ms": report["emulation_ms"],
-                      "apps": len(routed), "cycles": T,
-                      "io_chunk": IO_CHUNK}))
-    print(json.dumps({"kernels": rows}))
-    print(json.dumps({"seconds": time.perf_counter() - t_start}))
+    drive(FULL, device, t_start)
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def drive(spec, device, t_start):
+    """Phases 2-8 on ``spec`` and ``device``; prints their JSON lines."""
+    from repro_torch.kernels import build
+
+    phases = {}
+
+    def phase(name, fn, *args):
+        """Run one path with the launch counts zeroed just before and
+        read just after; it must launch every kernel it exists for."""
+        build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        seconds = time.perf_counter() - t0
+        missing = [k for k in PHASE_KERNELS[name] if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"{name}: kernels never launched: "
+                                 f"{missing} ({launches})")
+        phases[name] = {"seconds": seconds,
+                        "launches": {k: v for k, v in launches.items()
+                                     if v}}
+        log(f"{name}: {seconds:.1f} s, launches {phases[name]['launches']}")
+        return out
+
+    # 2. main path
+    fab, routed, emus, ins, outs, report = phase("main", main_path, spec,
+                                                 device)
+    report.update(check_main_path(fab, routed, emus, ins, outs, report))
+    report["placed_hpwl"] = phase("smoke", hpwl_phase, routed, device)
+    # 3.-7. the DSE slice's paths
+    results = {
+        "emulate": phase("emulate", emulate_phase, fab, routed, ins, outs),
+        "verify": phase("verify", verify_phase, fab),
+        "serve": phase("serve", serve_phase, spec, fab.area(), device),
+        "engines": phase("engines", engines_phase, device),
+        "search": phase("search", search_phase, device),
+    }
+    for name, need in (("minplus", "minplus_step"),
+                       ("batched", "net_bboxes")):
+        if name in results["search"]["strategies"] and \
+                not phases["search"]["launches"].get(need):
+            raise AssertionError(f"search: {name} ran without {need}")
+
+    # 8. every kernel against its plain version at its path's shapes
+    rows = fabric_kernel_rows(fab.fabric(), device, batch=len(routed))
+    rows.append(minplus_row(fab, device))
+    rows.append(bbox_row(routed, device))
+    rows.extend(sweep_rows(fab, routed, device))
+    rows.append(hpwl_row(routed, device))
+    for row in rows:
+        row["path"] = KERNEL_PATH.get(row["name"], "main")
+        row["launches"] = phases[row["path"]]["launches"].get(row["name"],
+                                                              0)
+    for row in rows:
+        row.setdefault("call_ms", row["ms"])
+    keys = ("name", "route", "source", "replaces", "launches", "path",
+            "max_abs_err", "ms", "plain_ms", "call_ms", "timing",
+            "bound_ms", "bound_by", "library_ms", "shape")
+    rows = [{k: row[k] for k in keys} for row in rows]
+
+    print(json.dumps({"phases": phases}))
+    print(json.dumps({"pnr_seconds": report["pnr_s"],
+                      "compile_seconds": report["compile_s"],
+                      "nodes": report["nodes"],
+                      "bitstream_words": report["bitstream_words"],
+                      "placed_hpwl": report["placed_hpwl"],
+                      "depths": report["depths"],
+                      "pointwise_latency": report["pointwise_latency"]}))
+    print(json.dumps({"emulation_ms": report["emulation_ms"],
+                      "apps": len(routed), "cycles": T,
+                      "io_chunk": IO_CHUNK,
+                      "emulate_ms": results["emulate"]["emulate_ms"]}))
+    print(json.dumps({"verify": results["verify"]}))
+    print(json.dumps({"serve": results["serve"]}, default=str))
+    print(json.dumps({"engines": results["engines"]}))
+    search = results["search"]
+    print(json.dumps({"search": {"evaluated": search["evaluated"],
+                                 "frontier": search["frontier"],
+                                 "strategies": search["strategies"],
+                                 "executor": search["stats"]["executor"]}},
+                     default=str))
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"seconds": time.perf_counter() - t_start}))
 
 
 if __name__ == "__main__":

@@ -15,9 +15,8 @@ rules so the same driver, report model, CLI and CI plumbing cover them:
 Both need a compiled :class:`FabricModule` (and the sweep needs device
 time), so they are *not* part of the default ``scope="ir"`` set — reach
 them via ``CompiledFabric.verify()``, ``analyze(..., scope="lowered",
-fabric=...)``. In the port the underlying functions belong to
-``repro_torch.core.verify``, which is not ported yet: running either rule
-raises ``NotImplementedError`` until it is (ROADMAP.md queue 1).
+fabric=...)`` or ``python -m canal_torch.lint --lowered``. The
+underlying functions stay importable from ``repro_torch.core.verify``.
 """
 from __future__ import annotations
 
@@ -31,26 +30,15 @@ def _has_fabric(ctx: AnalysisContext) -> bool:
     return ctx.fabric is not None
 
 
-def _verify():
-    """``repro_torch.core.verify``, imported lazily like the reference."""
-    try:
-        from .. import verify
-    except ImportError as e:
-        raise NotImplementedError(
-            "the lowered rules need repro_torch.core.verify, which is not "
-            "ported yet (ROADMAP.md queue 1)") from e
-    return verify
-
-
 @register_rule(
     "structural-equivalence",
     description="lowered fabric gather tables reproduce the IR fan-in "
                 "lists exactly (paper §3.3 RTL-vs-IR check)",
     scope="lowered", when=_has_fabric)
 def structural_equivalence(ctx: AnalysisContext) -> Iterator[Diagnostic]:
-    verify = _verify()
+    from ..verify import verify_structural
     try:
-        verify.verify_structural(ctx.ic, ctx.fabric)
+        verify_structural(ctx.ic, ctx.fabric)
     except AssertionError as e:
         yield Diagnostic(
             rule="structural-equivalence", severity=Severity.ERROR,
@@ -66,9 +54,9 @@ def structural_equivalence(ctx: AnalysisContext) -> Iterator[Diagnostic]:
                 "exhaustive configuration test)",
     scope="lowered", when=_has_fabric)
 def config_sweep_rule(ctx: AnalysisContext) -> Iterator[Diagnostic]:
-    verify = _verify()
+    from ..verify import config_sweep
     try:
-        checked = verify.config_sweep(ctx.fabric)
+        checked = config_sweep(ctx.fabric)
     except AssertionError as e:
         yield Diagnostic(
             rule="config-sweep", severity=Severity.ERROR,

@@ -126,11 +126,23 @@ class CompiledFabric:
     def verify(self, rules: Optional[Sequence[str]] = None,
                fail_on: Optional[str] = "error",
                use_kernels: Optional[bool] = None):
-        """The post-lowering verification analyses (paper §3.3) need the
-        port's ``core/verify.py``, which is not ported yet."""
-        raise NotImplementedError(
-            "CompiledFabric.verify needs repro_torch.core.verify, which is "
-            "not ported yet (ROADMAP.md queue 1)")
+        """Run the post-lowering verification analyses (the paper's §3.3
+        checks, registered as ``scope="lowered"`` rules:
+        ``structural-equivalence`` and the exhaustive ``config-sweep``)
+        against this fabric's lowered module, on this handle's device
+        (the sweep through ``fabric_sweep_batch`` with ``use_kernels``).
+        Costs device time — deliberately not part of compile-time
+        analysis. Raises :class:`AnalysisError` at ``fail_on`` severity
+        (pass ``None`` to only report); returns the
+        :class:`AnalysisReport`."""
+        from .analysis import analyze as run_rules
+        if self.spec.ready_valid:
+            raise NotImplementedError(
+                "lowered verification covers the static interconnect; "
+                "the ready-valid fabric has its own emulation tests")
+        return run_rules(self._ic, spec=self.spec, rules=rules,
+                         scope="lowered", fabric=self.fabric(use_kernels),
+                         fail_on=fail_on)
 
     # ------------------------------------------------------------------ PnR
     def place_and_route(self, app,

@@ -16,16 +16,16 @@ Because the structural graph contains *potential* combinational cycles
 sweeps: one sweep propagates every node's value one combinational level.
 A legal configuration's active network is acyclic, so ``depth`` sweeps
 (≥ longest configured combinational path) reach the fixed point. The
-batched path runs the whole fixpoint — PE cores included — as one fused
-kernel launch per cycle (``repro_torch.kernels.fabric_step``), or the
-whole T-cycle emulation as one launch with ``io_chunk``, and masks each
-configuration to its own combinational depth.
+sweep itself is the hot spot and has a kernel
+(``repro_torch.kernels.fabric_step``); the batched path runs the whole
+fixpoint — PE cores included — as one fused kernel launch per cycle, or
+the whole T-cycle emulation as one launch with ``io_chunk``, and masks
+each configuration to its own combinational depth.
 
 The numpy table builders are the reference's, unchanged. With
-``use_kernels=True`` the fused paths call the kernel wrappers, which run
-the CUDA kernels for a CUDA ``device`` and their plain versions on the
-CPU; the single-config and unfused sweeps (``fabric_sweep`` /
-``fabric_sweep_batch``) are not ported yet and raise on CUDA.
+``use_kernels=True`` every path (single sweep, unfused batched sweep,
+fused fixpoint, streamed run) calls the kernel wrappers, which run the
+CUDA kernels for a CUDA ``device`` and their plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -47,11 +47,6 @@ PE_OP_IDS = {op: i for i, op in enumerate(PECore.OPS)}
 
 DepthSpec = Union[int, np.ndarray, torch.Tensor]
 State = Dict[str, torch.Tensor]
-
-_NOT_PORTED_SWEEP = (
-    "the fabric_sweep / fabric_sweep_batch CUDA kernels are not ported "
-    "yet (ROADMAP.md queue 2, kernels 1-2); use step_batch / run_batch "
-    "(fused) or use_kernels=False on CUDA")
 
 
 @dataclass
@@ -333,24 +328,45 @@ class FabricModule:
         hi = torch.clamp(self._dev("fanin_count", a.fanin_count) - 1, min=0)
         return torch.minimum(torch.clamp(sel, min=0), hi).to(torch.int32)
 
-    def _sweep_batch(self, vals_ext: torch.Tensor,
-                     sel: torch.Tensor) -> torch.Tensor:
-        """One combinational sweep of B configurations, the plain branch:
+    def _gather_batch(self, vals_ext: torch.Tensor,
+                      sel: torch.Tensor) -> torch.Tensor:
+        """Every node's selected input for B configurations, no hold:
         vals_ext (B, N+1) with the zero sentinel at N, sel (B, N) ->
-        (B, N)."""
-        if self.use_kernels and self.device.type == "cuda":
-            raise NotImplementedError(_NOT_PORTED_SWEEP)
+        (B, N) — the ``fabric_sweep_batch`` kernel with ``use_kernels``
+        (``core/verify.py``'s configuration sweep reads it directly)."""
         a = self.arrays
-        src = self._dev("src", a.src)
+        if self.use_kernels:
+            from repro_torch.kernels import ops as kops
+            return kops.fabric_sweep_batch(
+                vals_ext, self._dev("src", a.src, torch.int32), sel)
         rows = torch.arange(a.num_nodes, device=self.device)
-        new = torch.gather(vals_ext, 1, src[rows[None, :], sel.long()])
-        keep = self._dev("keep", ~a.is_driven, torch.bool)
-        return torch.where(keep[None, :], vals_ext[:, :-1], new)
+        return torch.gather(vals_ext, 1,
+                            self._dev("src", a.src)[rows[None, :],
+                                                    sel.long()])
 
     def _sweep(self, vals_ext: torch.Tensor, sel: torch.Tensor
                ) -> torch.Tensor:
-        """One sweep of one configuration: vals_ext (N+1,) -> (N,)."""
-        return self._sweep_batch(vals_ext[None], sel[None])[0]
+        """One combinational propagation sweep: the fabric hot loop.
+        vals_ext has the zero sentinel appended (length N+1); undriven
+        nodes hold their value. Returns (N,). With ``use_kernels`` the
+        gather is the ``fabric_sweep`` kernel."""
+        a = self.arrays
+        if self.use_kernels:
+            from repro_torch.kernels import ops as kops
+            new = kops.fabric_sweep(vals_ext,
+                                    self._dev("src", a.src, torch.int32), sel)
+        else:
+            rows = torch.arange(a.num_nodes, device=self.device)
+            new = vals_ext[self._dev("src", a.src)[rows, sel.long()]]
+        keep = self._dev("keep", ~a.is_driven, torch.bool)
+        return torch.where(keep, vals_ext[:-1], new)
+
+    def _sweep_batch(self, vals_ext: torch.Tensor,
+                     sel: torch.Tensor) -> torch.Tensor:
+        """Batched sweep: vals_ext (B, N+1), sel (B, N) -> (B, N)."""
+        keep = self._dev("keep", ~self.arrays.is_driven, torch.bool)
+        return torch.where(keep[None, :], vals_ext[:, :-1],
+                           self._gather_batch(vals_ext, sel))
 
     def _eval_pes(self, vals: torch.Tensor,
                   pe_cfg: State) -> torch.Tensor:
@@ -416,7 +432,7 @@ class FabricModule:
     def step(self, state: State, ext_in, config,
              pe_cfg: Optional[State] = None,
              depth: int = 16) -> Tuple[State, torch.Tensor]:
-        """One fabric clock cycle (plain sweeps).
+        """One fabric clock cycle (one sweep launch per fixpoint sweep).
 
         state: registers/mem. ext_in: (num_io,) values driven onto io_out
         ports. config: (num_config,) mux selects. Returns (state', io_out
@@ -430,9 +446,9 @@ class FabricModule:
         ext1 = self._ints(ext_in)[None]
         sel = self._selects(self._ints(config)[None])
         vals = self._pin(self._zeros(1, self.arrays.num_nodes), one, ext1)
+        zero = self._zeros(1)
         for _ in range(depth):
-            v_ext = torch.cat([vals, self._zeros(1, 1)], dim=1)
-            vals = self._sweep(v_ext[0], sel[0])[None]
+            vals = self._sweep(torch.cat([vals[0], zero]), sel[0])[None]
             vals = self._pin(vals, one, ext1)      # re-pin sources
             vals = self._eval_pes(vals, cfg1)
         new_state, io_obs = self._clock(vals, one)
@@ -791,3 +807,7 @@ class FabricModule:
         return out
 
 
+def compile_interconnect(ic: Interconnect, device: DeviceLike = None,
+                         use_kernels: bool = False) -> FabricModule:
+    """The static-backend entry point (IR → hardware, §3.3)."""
+    return FabricModule(ic, device=device, use_kernels=use_kernels)

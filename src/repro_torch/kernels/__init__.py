@@ -1,10 +1,12 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their plain PyTorch
 versions.
 
-- fabric_step: fused fabric fixpoint (``fabric_fused_batch``) and the
-  T-cycle streamed engine (``fabric_fused_run``)
+- fabric_step: single sweeps (``fabric_sweep``, ``fabric_sweep_batch``),
+  the fused fabric fixpoint (``fabric_fused_batch``) and the T-cycle
+  streamed engine (``fabric_fused_run``)
 - minplus: tropical relaxation for batched routing wavefronts
-- hpwl: per-net pin bounding boxes seeding the batched annealer
+- hpwl: per-net pin bounding boxes seeding the batched annealer, and
+  per-net HPWL (Eq. 2's distance term)
 - build: nvcc build of ``csrc/`` into ``build/kernels`` and launch counts
 """
 from . import ops, ref  # noqa: F401

@@ -35,21 +35,27 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
 LAUNCHES: Dict[str, int] = {
+    "fabric_sweep": 0,
+    "fabric_sweep_batch": 0,
     "fabric_fused_batch": 0,
     "fabric_fused_run": 0,
     "minplus_step": 0,
     "net_bboxes": 0,
+    "hpwl": 0,
 }
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: C signatures: every pointer and the stream as c_void_p, ints as c_int
 _SIGNATURES = {
+    "canal_fabric_sweep": [_P, _P, _P, _P, _I, _I, _P],
+    "canal_fabric_sweep_batch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "canal_fabric_fused_batch": [_P] * 13 + [_P, _P, _P] + [_I] * 6 + [_P],
     "canal_fabric_fused_run": [_P] * 16 + [_P, _P, _P, _P, _P]
                               + [_I] * 10 + [_P],
     "canal_minplus_step": [_P, _P, _P, _I, _I, _P],
     "canal_net_bboxes": [_P, _P, _P, _I, _I, _P],
+    "canal_hpwl": [_P, _P, _P, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,15 +1,21 @@
-"""Fused fabric fixpoint kernels (counterpart of repro/kernels/fabric_step.py).
+"""Fabric sweep kernels (counterpart of repro/kernels/fabric_step.py).
 
-Two kernels, both hand-written CUDA in ``csrc/fabric_step.cu``:
+Four kernels, all hand-written CUDA:
 
-``fabric_fused_batch``
+``fabric_sweep`` / ``fabric_sweep_batch`` (``csrc/fabric_sweep.cu``)
+    One combinational sweep, ``out[i] = vals[src[i, sel[i]]]``, for one
+    configuration or for B configurations over one shared ``src`` table:
+    the single-config ``step``/``run`` path, the unfused ``step_batch``
+    baseline and the chunked configuration sweep of ``core/verify.py``.
+
+``fabric_fused_batch`` (``csrc/fabric_step.cu``)
     The whole per-cycle fixpoint for B configurations in one launch:
     ``max_depth`` sweeps of gather -> hold undriven (``keep``) -> re-pin
     (``pin_mask`` / ``pin_vals``) -> 14-op PE ALU masked by ``word`` ->
     PE results placed through ``pe_res_idx``; lane b runs exactly
     ``min(depths[b], max_depth)`` sweeps.
 
-``fabric_fused_run``
+``fabric_fused_run`` (``csrc/fabric_step.cu``)
     T fabric cycles in one launch. Each lane's state vector is laid out
     ``[regs | io | mem | 0]``; every cycle starts from the pinned sources
     on a zero background, runs the fused fixpoint, observes ``io_out`` and
@@ -17,8 +23,6 @@ Two kernels, both hand-written CUDA in ``csrc/fabric_step.cu``:
 
 Each wrapper takes the plain PyTorch version beside it only when its
 tensors lie on the CPU; CUDA tensors launch the kernel (or raise).
-``fabric_sweep`` / ``fabric_sweep_batch`` (the single-config and unfused
-sweeps) are not ported yet.
 """
 from __future__ import annotations
 
@@ -62,6 +66,18 @@ def _picked(src: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     n, f = src.shape
     rows = torch.arange(n, device=src.device) * f
     return src.reshape(-1)[rows[None, :] + sel.long()]
+
+
+def fabric_sweep_plain(vals_ext: torch.Tensor, src: torch.Tensor,
+                       sel: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fabric_sweep`."""
+    return vals_ext[_picked(src, sel[None])[0].long()]
+
+
+def fabric_sweep_batch_plain(vals_ext: torch.Tensor, src: torch.Tensor,
+                             sel: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fabric_sweep_batch`."""
+    return torch.gather(vals_ext, 1, _picked(src, sel).long())
 
 
 def _plain_fixpoint(vals0, pin_vals, picked, depths, op, const, imm_mask,
@@ -139,6 +155,69 @@ def fabric_fused_run_plain(sel, ext, depths, op, const, imm_mask, imm_val,
 
 
 # ----------------------------------------------------------------- wrappers
+def _check_sweep(kernel, vals_ext, src, sel, sel_shape):
+    build.require(kernel, vals_ext.device, torch.int32, vals_ext=vals_ext,
+                  src=src, sel=sel)
+    if src.dim() != 2:
+        raise ValueError(f"{kernel}: src has shape {tuple(src.shape)}, "
+                         f"expected (N, F)")
+    build.require_shape(kernel, "sel", sel, sel_shape)
+    if max(vals_ext.shape + sel.shape + src.shape, default=0) >= 2 ** 31:
+        raise ValueError(f"{kernel}: a dimension overflows the kernel's "
+                         f"int32 arguments")
+
+
+def fabric_sweep(vals_ext: torch.Tensor, src: torch.Tensor,
+                 sel: torch.Tensor) -> torch.Tensor:
+    """One sweep of one configuration. vals_ext: (V,) int32 values, the
+    zero sentinel at N (V = N + 1 on the fabric); src: (N, F) int32 with
+    entries in [0, V); sel: (N,) int32 in [0, F). Returns (N,) int32
+    ``vals_ext[src[i, sel[i]]]``."""
+    if vals_ext.device.type == "cpu":
+        return fabric_sweep_plain(vals_ext, src, sel)
+    kernel = "fabric_sweep"
+    n, f = src.shape if src.dim() == 2 else (-1, -1)
+    _check_sweep(kernel, vals_ext, src, sel, (n,))
+    if vals_ext.dim() != 1:
+        raise ValueError(f"{kernel}: vals_ext must be 1-D, got "
+                         f"{tuple(vals_ext.shape)}")
+    out = torch.empty(n, dtype=torch.int32, device=vals_ext.device)
+    if n == 0:
+        return out
+    err = build.library().canal_fabric_sweep(
+        vals_ext.data_ptr(), src.data_ptr(), sel.data_ptr(), out.data_ptr(),
+        n, f, build.stream_ptr(vals_ext.device))
+    build.check(err, kernel)
+    build.LAUNCHES[kernel] += 1
+    return out
+
+
+def fabric_sweep_batch(vals_ext: torch.Tensor, src: torch.Tensor,
+                       sel: torch.Tensor) -> torch.Tensor:
+    """One sweep of B configurations over a shared fan-in table.
+    vals_ext: (B, V) int32 (sentinel column N); src: (N, F) int32 with
+    entries in [0, V); sel: (B, N) int32 in [0, F). Returns (B, N) int32
+    ``vals_ext[b, src[i, sel[b, i]]]``."""
+    if vals_ext.device.type == "cpu":
+        return fabric_sweep_batch_plain(vals_ext, src, sel)
+    kernel = "fabric_sweep_batch"
+    if vals_ext.dim() != 2:
+        raise ValueError(f"{kernel}: vals_ext must be (B, V), got "
+                         f"{tuple(vals_ext.shape)}")
+    b, v_len = vals_ext.shape
+    n, f = src.shape if src.dim() == 2 else (-1, -1)
+    _check_sweep(kernel, vals_ext, src, sel, (b, n))
+    out = torch.empty((b, n), dtype=torch.int32, device=vals_ext.device)
+    if b == 0 or n == 0:
+        return out
+    err = build.library().canal_fabric_sweep_batch(
+        vals_ext.data_ptr(), src.data_ptr(), sel.data_ptr(), out.data_ptr(),
+        b, n, f, v_len, build.stream_ptr(vals_ext.device))
+    build.check(err, kernel)
+    build.LAUNCHES[kernel] += 1
+    return out
+
+
 def _check_fabric(kernel, b, n, p, depths, sel, op, const, imm_mask,
                   imm_val, src, keep, pin_mask, pe_in, pe_res_idx, **lane_nb):
     dev = sel.device

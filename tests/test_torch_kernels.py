@@ -1,4 +1,4 @@
-"""The port's four on-path kernels against the JAX reference.
+"""The port's seven kernels against the JAX reference.
 
 On the CPU every wrapper runs its plain PyTorch version, which must be
 bit-identical to the reference's Pallas kernel run in interpret mode
@@ -210,6 +210,77 @@ def test_net_bboxes_plain_matches_pallas(jref, seed, n, k):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def sweep_case(seed, b=5, n=300, f=6):
+    """Random sweep tables: every src entry in [0, N] (N is the zero
+    sentinel of absent fan-in, so some nodes read it), selects in
+    [0, F)."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n + 1, (n, f)).astype(np.int32)
+    src[rng.random((n, f)) < 0.2] = n                   # sentinel entries
+    vals = _edge_ints(rng, (b, n + 1))
+    vals[:, n] = 0
+    sel = rng.integers(0, f, (b, n)).astype(np.int32)
+    return vals, src, sel
+
+
+@pytest.mark.parametrize("seed,n,f", [(0, 300, 6), (1, 1, 1), (2, 700, 20)])
+def test_fabric_sweep_plain_matches_pallas(jref, seed, n, f):
+    jfs = jref[0]
+    import jax.numpy as jnp
+    vals, src, sel = sweep_case(seed, 1, n, f)
+    want = np.asarray(jfs.fabric_sweep(jnp.asarray(vals[0]),
+                                       jnp.asarray(src),
+                                       jnp.asarray(sel[0]), interpret=True))
+    got = fabric_step.fabric_sweep(torch.as_tensor(vals[0]),
+                                   torch.as_tensor(src),
+                                   torch.as_tensor(sel[0]))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("seed,b,n,f", [(3, 5, 300, 6), (4, 1, 1, 1),
+                                        (5, 9, 513, 20), (6, 16, 64, 3)])
+def test_fabric_sweep_batch_plain_matches_pallas(jref, seed, b, n, f):
+    """B not a multiple of the reference's 8-config blocks, N not a
+    multiple of its 512-node blocks, the sentinel read as zero."""
+    jfs, _, _, jr = jref
+    import jax.numpy as jnp
+    vals, src, sel = sweep_case(seed, b, n, f)
+    args = tuple(map(jnp.asarray, (vals, src, sel)))
+    want = np.asarray(jfs.fabric_sweep_batch(*args, interpret=True))
+    np.testing.assert_array_equal(want,
+                                  np.asarray(jr.fabric_sweep_batch_ref(*args)))
+    got = fabric_step.fabric_sweep_batch(*map(torch.as_tensor,
+                                              (vals, src, sel)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got.numpy()[np.broadcast_to(src, (b, n, f))[
+        np.arange(b)[:, None], np.arange(n)[None], sel] == n] == 0).all()
+
+
+@pytest.mark.parametrize("seed,n,k,wide", [(0, 300, 9, False),
+                                           (1, 1, 1, False),
+                                           (2, 513, 40, False),
+                                           (3, 64, 5, True)])
+def test_hpwl_plain_matches_pallas(jref, seed, n, k, wide):
+    """Empty nets read 0, K = 1, masked-out pins beyond the sentinel are
+    never read; ``wide`` coordinates overflow int32 and wrap as in the
+    reference."""
+    jhp, jr = jref[1], jref[3]
+    import jax.numpy as jnp
+    pins, mask = bbox_case(seed, n, k)
+    if wide:
+        rng = np.random.default_rng(seed)
+        pins = _edge_ints(rng, pins.shape)
+    want = np.asarray(jhp.hpwl(jnp.asarray(pins), jnp.asarray(mask),
+                               interpret=True))
+    np.testing.assert_array_equal(
+        want, np.asarray(jr.hpwl_ref(jnp.asarray(pins), jnp.asarray(mask))))
+    got = hpwl.hpwl(torch.as_tensor(pins), torch.as_tensor(mask))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got.numpy()[mask.sum(axis=1) == 0] == 0).all()
+
+
 def test_cpu_wrappers_launch_nothing():
     """On CPU tensors the wrappers take the plain path: no kernel library
     is built and no launch is counted."""
@@ -218,6 +289,10 @@ def test_cpu_wrappers_launch_nothing():
     minplus.minplus_wavefront(torch.as_tensor(d), torch.as_tensor(w))
     pins, mask = bbox_case(0, 5, 3)
     hpwl.net_bboxes(torch.as_tensor(pins), torch.as_tensor(mask))
+    hpwl.hpwl(torch.as_tensor(pins), torch.as_tensor(mask))
+    vals, src, sel = map(torch.as_tensor, sweep_case(0, 2, 10, 3))
+    fabric_step.fabric_sweep(vals[0], src, sel[0])
+    fabric_step.fabric_sweep_batch(vals, src, sel)
     assert all(v == 0 for v in build.LAUNCHES.values())
 
 
@@ -270,6 +345,48 @@ class TestCudaKernels:
         m_t = torch.as_tensor(mask, device=cuda)
         assert torch.equal(hpwl.net_bboxes(p_t, m_t),
                            hpwl.net_bboxes_plain(p_t, m_t))
+
+    @pytest.mark.parametrize("seed,n,f", [(0, 86288, 20), (1, 1, 1),
+                                          (2, 5000, 7)])
+    def test_fabric_sweep(self, cuda, seed, n, f):
+        vals, src, sel = sweep_case(seed, 1, n, f)
+        v, s, e = (torch.as_tensor(a, device=cuda)
+                   for a in (vals[0], src, sel[0]))
+        before = build.LAUNCHES["fabric_sweep"]
+        got = fabric_step.fabric_sweep(v, s, e)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["fabric_sweep"] == before + 1
+        assert torch.equal(got, fabric_step.fabric_sweep_plain(v, s, e))
+
+    @pytest.mark.parametrize("seed,b,n,f", [(3, 5, 5000, 20), (4, 1, 1, 1),
+                                            (5, 70000, 3, 2),
+                                            (6, 9, 86288, 20)])
+    def test_fabric_sweep_batch(self, cuda, seed, b, n, f):
+        """Includes a batch above the grid's 65,535 rows (the kernel
+        strides over the rest)."""
+        vals, src, sel = sweep_case(seed, b, n, f)
+        v, s, e = (torch.as_tensor(a, device=cuda) for a in (vals, src, sel))
+        before = build.LAUNCHES["fabric_sweep_batch"]
+        got = fabric_step.fabric_sweep_batch(v, s, e)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["fabric_sweep_batch"] == before + 1
+        assert torch.equal(got,
+                           fabric_step.fabric_sweep_batch_plain(v, s, e))
+
+    @pytest.mark.parametrize("seed,n,k,wide", [(5, 3000, 33, False),
+                                               (1, 1, 1, False),
+                                               (3, 257, 5, True)])
+    def test_hpwl(self, cuda, seed, n, k, wide):
+        pins, mask = bbox_case(seed, n, k)
+        if wide:
+            pins = _edge_ints(np.random.default_rng(seed), pins.shape)
+        p_t = torch.as_tensor(pins, device=cuda)
+        m_t = torch.as_tensor(mask, device=cuda)
+        before = build.LAUNCHES["hpwl"]
+        got = hpwl.hpwl(p_t, m_t)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["hpwl"] == before + 1
+        assert torch.equal(got, hpwl.hpwl_plain(p_t, m_t))
 
     def test_cuda_tensor_never_takes_plain_path(self, cuda):
         """A CUDA tensor the kernel does not take raises; it is never

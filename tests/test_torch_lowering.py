@@ -85,6 +85,36 @@ def test_run_batch_unfused_matches_reference():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_run_batch_unfused_kernel_path_matches_reference():
+    """``fused=False`` with ``use_kernels``: one ``fabric_sweep_batch``
+    call per sweep (plain version here) vs the reference's Pallas
+    ``fabric_sweep_batch`` in interpret mode."""
+    got, want, _ = _run_both(True, 6, programs=True, fused=False)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_step_and_run_kernel_path_match_reference():
+    """``step``/``run`` with ``use_kernels``: one ``fabric_sweep`` call
+    per sweep (plain version here) vs the reference's Pallas
+    ``fabric_sweep`` in interpret mode."""
+    ref_fab, fab = _fabrics(True)
+    cfgs, ext, pe = _workload(fab, 7, programs=True, cycles=3)
+    pe_b = {k: v[1] for k, v in pe.items()}
+    want = np.asarray(ref_fab.run(
+        jnp.asarray(cfgs[1]), jnp.asarray(ext[1]),
+        pe_cfg={k: jnp.asarray(v) for k, v in pe_b.items()}))
+    got = fab.run(cfgs[1], ext[1],
+                  pe_cfg={k: torch.as_tensor(v) for k, v in pe_b.items()})
+    np.testing.assert_array_equal(got.numpy(), want)
+    st_ref, obs_ref = ref_fab.step(ref_fab.init_state(),
+                                   jnp.asarray(ext[0, 0]),
+                                   jnp.asarray(cfgs[0]), depth=4)
+    st, obs = fab.step(fab.init_state(), ext[0, 0], cfgs[0], depth=4)
+    np.testing.assert_array_equal(obs.numpy(), np.asarray(obs_ref))
+    for k in st_ref:
+        np.testing.assert_array_equal(st[k].numpy(), np.asarray(st_ref[k]))
+
+
 def test_step_and_run_plain_branch_match_reference():
     ref_fab, fab = _fabrics(False)
     cfgs, ext, pe = _workload(fab, 4, programs=True)
@@ -106,18 +136,37 @@ def test_step_and_run_plain_branch_match_reference():
 
 
 def test_shard_true_and_unported_sweeps_raise_on_cuda(monkeypatch):
-    """``shard=True`` across several GPUs and the unfused sweeps under
-    ``use_kernels`` on CUDA are later slices: they raise instead of
-    falling back."""
+    """``shard=True`` across several GPUs is a later slice: it raises
+    instead of falling back. The sweeps are ported: under ``use_kernels``
+    on CUDA they go to the ``fabric_sweep`` / ``fabric_sweep_batch``
+    wrappers (which launch the kernel or raise), never to a plain
+    PyTorch path of the fabric's own."""
+    from repro_torch.kernels import ops as kops
+
     _, fab = _fabrics(True)
     fab_cuda = object.__new__(FabricModule)
     fab_cuda.__dict__.update(fab.__dict__)
     fab_cuda.device = torch.device("cuda")
-    with pytest.raises(NotImplementedError, match="fabric_sweep"):
-        fab_cuda._sweep_batch(torch.zeros((1, fab.arrays.num_nodes + 1),
-                                          dtype=torch.int32),
-                              torch.zeros((1, fab.arrays.num_nodes),
-                                          dtype=torch.int32))
+    n = fab.arrays.num_nodes
+    calls = []
+
+    def fake(name):
+        def kernel(vals_ext, src, sel):
+            calls.append((name, tuple(vals_ext.shape), src.dtype))
+            raise RuntimeError(f"{name}: no card")
+        return kernel
+
+    monkeypatch.setattr(kops, "fabric_sweep", fake("fabric_sweep"))
+    monkeypatch.setattr(kops, "fabric_sweep_batch",
+                        fake("fabric_sweep_batch"))
+    with pytest.raises(RuntimeError, match="fabric_sweep_batch: no card"):
+        fab_cuda._sweep_batch(torch.zeros((1, n + 1), dtype=torch.int32),
+                              torch.zeros((1, n), dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="fabric_sweep: no card"):
+        fab_cuda._sweep(torch.zeros(n + 1, dtype=torch.int32),
+                        torch.zeros(n, dtype=torch.int32))
+    assert calls == [("fabric_sweep_batch", (1, n + 1), torch.int32),
+                     ("fabric_sweep", (n + 1,), torch.int32)]
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     cfgs, ext, _ = _workload(fab, 5)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
