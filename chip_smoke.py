@@ -43,10 +43,35 @@ after; each must have launched the kernels it exists to drive.
              2-5, ``budget=3``, store-backed (the one phase cut in size:
              every candidate is a whole DSE point); its frontier must not
              be empty.
-8. kernels — every kernel against its plain PyTorch version on the card,
-             at its path's shapes (bit-identical, min-plus included),
-             with the kernel's and the plain version's times and the least
-             time the card could take (``bound``). ``ms`` and
+8. lm_score — the LM substrate's full-sequence forward, ``logits`` of
+             TinyLlama-1.1B and Mamba2-1.3B at their FULL configs (full
+             width and depth, random weights from a seed), B 2, S 2,048,
+             with ``attn_impl="kernel"``: 22 ``flash_attention`` and 48
+             ``ssd_scan`` launches. The same forward with
+             ``attn_impl="plain"`` (the same weights) must pass the
+             ``LM_*`` gate (largest difference, largest per-position
+             relative error, argmax agreement); both must be finite. The
+             kernel path with the kernel's plain version in its place
+             (the witness) must pass the gate too, and with a wrong
+             function in its place (the control), fail it; the kernel
+             rows of phase 10 must likewise reject the control.
+9. lm_serve — ``ServeEngine`` on each FULL model: 8 requests (prompts of
+             3-11 tokens, batch 4, 16 new tokens, ``max_seq`` 128), twice;
+             every request gets a token, every logit is finite, and the
+             second run returns the same tokens. Serving runs the cached
+             forward, which the reference keeps on its plain path (the
+             flash kernel takes queries from position 0; a Mamba-2 cache
+             step takes the stateful SSD), so this phase launches no
+             kernel and must launch none.
+10. kernels — every kernel against its plain PyTorch version on the card,
+             at its path's shapes (bit-identical for the fabric kernels,
+             min-plus included; within a stated tolerance for the two
+             float kernels of the LM path, which must reject
+             ``lm_score``'s controls), with the kernel's and the
+             plain version's times and the least time the card could take
+             (``bound``); for ``flash_attention`` also the time of
+             PyTorch's ``scaled_dot_product_attention`` on the same inputs
+             (``library_ms``, a yardstick the port never calls). ``ms`` and
              ``plain_ms`` are device time: back-to-back calls captured in
              one CUDA graph and timed over a replay (``timing: graph``);
              the two cooperative fused kernels, which are not captured,
@@ -60,6 +85,7 @@ the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``. Without CUDA, or outside a checkout, it exits
 non-zero and prints no result.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -79,6 +105,29 @@ IO_CHUNK = 8
 #: integer and float compare/add work of these kernels
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), the bound of
+#: attention's bf16 products
+TENSOR_BF16_FLOPS_PER_S = 989e12
+
+#: the LM path: batch and sequence of ``lm_score``; the serving run
+LM_ARCHS = ("tinyllama-1.1b", "mamba2-1.3b")
+LM_BATCH, LM_SEQ = 2, 2048
+SERVE = dict(requests=8, batch=4, max_new=16, max_seq=128)
+#: kernel vs plain logits at bf16, at full depth with random weights
+#: (``logit_gap``): max |difference| over the largest |logit|, the
+#: largest per-position relative error, and the share of positions whose
+#: argmax agrees. On an H100 80GB HBM3 at 700 W the sound comparisons
+#: (plain branch, witness) read at most 4.96%, 15.2% and at least 95.2%;
+#: the controls at least 42.5%, 114%, and 49.5% (TinyLlama) or 100%
+#: (Mamba2: its argmax cannot tell a wrong SSD apart). The gate sits
+#: between them.
+LM_TOL, LM_ROW_TOL, LM_ARGMAX = 0.10, 0.40, 0.90
+#: kernel vs plain on random inputs at the path's shapes. Attention:
+#: |got - want| <= atol + rtol |want|, rtol one bf16 ulp at least (both
+#: round an f32 result to bf16 once, summed in another order). The SSD in
+#: f32, summed in another order.
+FLASH_ATOL, FLASH_RTOL = 1e-4, 2.0 ** -7
+SSD_TOL = 1e-4
 
 
 #: the kernels each path exists to launch (phase 8 reads each kernel's
@@ -92,9 +141,13 @@ PHASE_KERNELS = {
     "serve": ("fabric_fused_batch", "minplus_step", "net_bboxes"),
     "engines": ("fabric_sweep", "fabric_sweep_batch", "fabric_fused_batch"),
     "search": (),
+    "lm_score": ("flash_attention", "ssd_scan"),
+    # the cached forward never reaches a kernel (see the docstring)
+    "lm_serve": (),
 }
 KERNEL_PATH = {"fabric_sweep": "emulate", "fabric_sweep_batch": "verify",
-               "hpwl": "smoke"}
+               "hpwl": "smoke", "flash_attention": "lm_score",
+               "ssd_scan": "lm_score"}
 
 
 def log(msg):
@@ -152,11 +205,12 @@ def timings(fn, plain, reps=20, plain_reps=20):
             "call_ms": cuda_ms(fn, reps), "timing": "graph"}
 
 
-def bound(n_bytes, n_ops):
+def bound(n_bytes, n_ops, ops_per_s=CUDA_CORE_OPS_PER_S):
     """Least time (ms) for the work: the larger of bytes over the memory
-    rate and operations over the CUDA-core rate."""
+    rate and operations over the given peak (the CUDA-core rate unless
+    stated)."""
     b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    o_ms = n_ops / CUDA_CORE_OPS_PER_S * 1e3
+    o_ms = n_ops / ops_per_s * 1e3
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
@@ -708,6 +762,295 @@ def hpwl_row(routed, device):
             "shape": {"n_nets": n, "K": k}}
 
 
+# ------------------------------------------------------------ the LM paths
+def lm_models(configs, device, seed=0):
+    """For each config: the model with ``attn_impl="kernel"``, random
+    weights drawn on ``device`` from ``seed``, and the same weights (no
+    copy) under ``attn_impl="plain"``."""
+    from repro_torch.models import build_model
+
+    models = {}
+    for name, cfg in configs.items():
+        model = build_model(cfg.replace(attn_impl="kernel"), device)
+        model.init_params(torch.Generator(device).manual_seed(seed))
+        plain = build_model(cfg.replace(attn_impl="plain"), "meta")
+        plain.load_state_dict(model.state_dict(), assign=True)
+        models[name] = (model, plain)
+    return models
+
+
+def lm_tokens(cfg, batch, seq, device, seed=1):
+    g = torch.Generator(device).manual_seed(seed)
+    return torch.randint(3, cfg.vocab_size - 1, (batch, seq), generator=g,
+                         device=device)
+
+
+def leaky_attention(q, k, v, causal=True):
+    """A wrong ``flash_attention_gqa``: its causal mask is off by one, so
+    each query also sees the key after it (``lm_score``'s control)."""
+    hq, hkv, s, d = q.shape[1], k.shape[1], q.shape[2], q.shape[3]
+    k, v = (t.repeat_interleave(hq // hkv, 1).float() for t in (k, v))
+    scores = (q.float() / d ** 0.5) @ k.transpose(-1, -2)
+    i = torch.arange(s, device=q.device)
+    scores.masked_fill_(i[None, :] > i[:, None] + 1, float("-inf"))
+    return (scores.softmax(-1) @ v).to(q.dtype)
+
+
+def carry_dropped_ssd(x, dt, a, b, c, chunk=128):
+    """A wrong ``ssd_scan``: every chunk starts from a zero state, as if
+    the carry between chunks were lost (``lm_score``'s control)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+
+    return torch.cat([ssd_scan_plain(x[:, i:i + chunk], dt[:, i:i + chunk],
+                                     a, b[:, i:i + chunk], c[:, i:i + chunk],
+                                     chunk)
+                      for i in range(0, x.shape[1], chunk)], dim=1)
+
+
+def kernel_swaps(cfg):
+    """The module attribute through which ``cfg``'s family reaches its
+    kernel, and what ``lm_score`` puts there in its place: the kernel's
+    plain version (the witness) and a wrong function (the control)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+
+    if cfg.family == "dense":
+        return fa, "flash_attention_gqa", {
+            "witness": fa.flash_attention_gqa_plain,
+            "control": leaky_attention}
+    return ssd, "ssd_scan", {"witness": ssd.ssd_scan_plain,
+                             "control": carry_dropped_ssd}
+
+
+@contextlib.contextmanager
+def swapped(module, attr, fn):
+    saved = getattr(module, attr)
+    setattr(module, attr, fn)
+    try:
+        yield
+    finally:
+        setattr(module, attr, saved)
+
+
+def logit_gap(got, want):
+    """How far ``got`` logits are from ``want``: the largest |difference|
+    over the largest |want|, the largest per-position relative error
+    ||got_t - want_t|| / ||want_t||, and the share of positions whose
+    argmax agrees."""
+    got, want = got.float(), want.float()
+    rows = (got - want).norm(dim=-1) / want.norm(dim=-1)
+    return {"rel_err": float((got - want).abs().max() / want.abs().max()),
+            "row_rel_err": float(rows.max()),
+            "argmax_agree": float((got.argmax(-1) == want.argmax(-1))
+                                  .float().mean())}
+
+
+def passes(gap):
+    return (gap["rel_err"] <= LM_TOL and gap["row_rel_err"] <= LM_ROW_TOL
+            and gap["argmax_agree"] >= LM_ARGMAX)
+
+
+def lm_score_phase(models, device, batch, seq):
+    """``logits`` of each model on the kernel path and the plain path:
+    finite, of shape (B, S, padded vocab), within the ``LM_*`` gate. Two
+    more forwards of the kernel path hold the gate to account: with the
+    kernel's plain version in its place (the witness) the logits must
+    pass it too, and with a wrong function in its place (the control),
+    fail it."""
+    out = {}
+    for name, (model, plain) in models.items():
+        cfg = model.cfg
+        tokens = {"tokens": lm_tokens(cfg, batch, seq, device)}
+        rec, logits = {}, {}
+        with torch.inference_mode():
+            for impl, m in (("kernel", model), ("plain", plain)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = m.logits(tokens)
+                torch.cuda.synchronize()
+                rec[f"{impl}_s"] = time.perf_counter() - t0
+                if tuple(got.shape) != (batch, seq, cfg.padded_vocab):
+                    raise AssertionError(f"{name} {impl}: logits shape "
+                                         f"{tuple(got.shape)}")
+                if not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"{name} {impl}: logits not finite")
+                logits[impl] = got
+            gaps = {"plain": logit_gap(logits["kernel"], logits["plain"])}
+            module, attr, swaps = kernel_swaps(cfg)
+            for label, fn in swaps.items():
+                with swapped(module, attr, fn):
+                    got = model.logits(tokens)
+                gaps[label] = (logit_gap(logits["kernel"], got)
+                               if label == "witness"
+                               else logit_gap(got, logits["plain"]))
+            plain_top = int(logits["plain"].argmax(-1).unique().numel())
+        del logits, got
+        log(f"lm_score {name}: {gaps}, {plain_top} distinct argmax tokens")
+        for label, gap in gaps.items():
+            if passes(gap) == (label == "control"):
+                raise AssertionError(f"{name}: the gate misjudges the "
+                                     f"{label} logits: {gap}")
+        out[name] = {**rec, "gaps": gaps, "plain_argmax_tokens": plain_top,
+                     "batch": batch, "seq": seq,
+                     "tokens_per_s": batch * seq / rec["kernel_s"]}
+    return out
+
+
+class CheckedModel:
+    """A model whose cached forward records whether every logit it
+    returned was finite."""
+
+    def __init__(self, model):
+        self.model = model
+        self.device = model.device
+        self.finite = True
+
+    def init_cache(self, batch, max_seq):
+        return self.model.init_cache(batch, max_seq)
+
+    def forward_cached(self, cache, batch):
+        logits, cache = self.model.forward_cached(cache, batch)
+        self.finite &= bool(torch.isfinite(logits).all())
+        return logits, cache
+
+    prefill = decode_step = forward_cached
+
+
+def lm_serve_phase(models, serve):
+    """``ServeEngine.generate`` twice on the same prompts per model."""
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.serve import ServeEngine
+
+    out = {}
+    for name, (model, _) in models.items():
+        checked = CheckedModel(model)
+        engine = ServeEngine(checked, batch_size=serve["batch"],
+                             max_seq=serve["max_seq"])
+        prompts = make_prompts(model.cfg.vocab_size, serve["requests"])
+        runs, seconds = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs.append(engine.generate(prompts,
+                                        max_new_tokens=serve["max_new"]))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        first, second = runs
+        if len(first) != len(prompts) or not all(first):
+            raise AssertionError(f"{name}: a request got no token")
+        if first != second:
+            raise AssertionError(f"{name}: a second generate differs")
+        if not checked.finite:
+            raise AssertionError(f"{name}: non-finite serving logits")
+        n_tok = sum(len(o) for o in second)
+        out[name] = {"requests": len(prompts), "tokens": n_tok,
+                     "seconds": seconds, "tokens_per_s": n_tok / seconds[1],
+                     "first_tokens": first[0][:8]}
+    return out
+
+
+def row_control(name, bad, want, **tol):
+    """A kernel row's check must reject ``bad``, the output of the wrong
+    function that ``lm_score`` uses as its control."""
+    err = float((bad.float() - want.float()).abs().max())
+    if torch.allclose(bad.float(), want.float(), **tol):
+        raise AssertionError(f"{name}: the row check passes its control")
+    log(f"{name} row: the control differs by {err}")
+
+
+def flash_row(device, b=LM_BATCH, hq=32, hkv=4, s=LM_SEQ, d=64):
+    """``flash_attention`` at TinyLlama's shape on the LM path, bf16."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device).manual_seed(5)
+    q = torch.randn((b, hq, s, d), generator=g, device=device).bfloat16()
+    k = torch.randn((b, hkv, s, d), generator=g, device=device).bfloat16()
+    v = torch.randn((b, hkv, s, d), generator=g, device=device).bfloat16()
+    got = fa.flash_attention_gqa(q, k, v, causal=True)
+    want = fa.flash_attention_gqa_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), atol=FLASH_ATOL,
+                          rtol=FLASH_RTOL):
+        raise AssertionError(f"flash_attention differs by {err}")
+    row_control("flash_attention", leaky_attention(q, k, v), want,
+                atol=FLASH_ATOL, rtol=FLASH_RTOL)
+    pairs = s * (s + 1) // 2                    # causal (q, k) pairs
+    b_ms, b_by = bound(nbytes(q, k, v, got), 4 * b * hq * d * pairs,
+                       TENSOR_BF16_FLOPS_PER_S)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:94",
+            "max_abs_err": err,
+            **timings(lambda: fa.flash_attention_gqa(q, k, v, causal=True),
+                      lambda: fa.flash_attention_gqa_plain(q, k, v,
+                                                           causal=True),
+                      reps=10, plain_reps=5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": graph_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                                enable_gqa=True), 10),
+            "shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d,
+                      "dtype": "bfloat16", "causal": True}}
+
+
+def ssd_row(device, bh=LM_BATCH * 64, seq=LM_SEQ, p=64, n=128, chunk=128):
+    """``ssd_scan`` at Mamba2-1.3B's shape on the LM path, float32, with
+    the reference test's input ranges."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    g = torch.Generator(device).manual_seed(6)
+    x = torch.randn((bh, seq, p), generator=g, device=device)
+    dt = 0.1 + 0.5 * torch.rand((bh, seq), generator=g, device=device)
+    a = -0.5 - torch.rand((bh,), generator=g, device=device)
+    b = 0.3 * torch.randn((bh, seq, n), generator=g, device=device)
+    c = 0.3 * torch.randn((bh, seq, n), generator=g, device=device)
+    got = ssd.ssd_scan(x, dt, a, b, c, chunk=chunk)
+    want = ssd.ssd_scan_plain(x, dt, a, b, c, chunk=chunk)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, atol=SSD_TOL, rtol=SSD_TOL):
+        raise AssertionError(f"ssd_scan differs by {err}")
+    row_control("ssd_scan", carry_dropped_ssd(x, dt, a, b, c, chunk), want,
+                atol=SSD_TOL, rtol=SSD_TOL)
+    lens = [min(chunk, seq - s0) for s0 in range(0, seq, chunk)]
+    # per bh: c.b^T and w.x over each chunk's causal (t, u) pairs; c.h0^T
+    # for every chunk after the first (h0 = 0 before it) and the state
+    # update for every chunk before the last (nothing reads the final
+    # state), 2 flops a multiply-add
+    flops = (sum(cl * (cl + 1) * (n + p) for cl in lens)
+             + 2 * n * p * (sum(lens[1:]) + sum(lens[:-1])))
+    b_ms, b_by = bound(nbytes(x, dt, a, b, c, got), bh * flops)
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:96",
+            "max_abs_err": err,
+            **timings(lambda: ssd.ssd_scan(x, dt, a, b, c, chunk=chunk),
+                      lambda: ssd.ssd_scan_plain(x, dt, a, b, c,
+                                                 chunk=chunk),
+                      reps=10, plain_reps=5),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "shape": {"BH": bh, "L": seq, "P": p, "N": n, "chunk": chunk,
+                      "dtype": "float32"}}
+
+
+def lm_paths(phase, device, configs, batch=LM_BATCH, seq=LM_SEQ,
+             serve=SERVE):
+    """The two LM phases on ``configs`` (name -> ModelConfig); each
+    model is freed after its phases."""
+    models = lm_models(configs, device)
+    with torch.inference_mode():          # first-call set-up, off the clock
+        for model, plain in models.values():
+            warm = {"tokens": lm_tokens(model.cfg, 1, 128, device)}
+            model.logits(warm)
+            plain.logits(warm)
+    score = phase("lm_score", lm_score_phase, models, device, batch, seq)
+    served = phase("lm_serve", lm_serve_phase, models, serve)
+    del models
+    torch.cuda.empty_cache()
+    return score, served
+
+
 def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -741,7 +1084,9 @@ def main():
 
 
 def drive(spec, device, t_start):
-    """Phases 2-8 on ``spec`` and ``device``; prints their JSON lines."""
+    """Phases 2-10 on ``spec`` and ``device`` (the LM phases on the FULL
+    models at B 2, S 2,048); prints their JSON lines."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build
 
     phases = {}
@@ -785,12 +1130,28 @@ def drive(spec, device, t_start):
                 not phases["search"]["launches"].get(need):
             raise AssertionError(f"search: {name} ran without {need}")
 
-    # 8. every kernel against its plain version at its path's shapes
+    # 8.-9. the LM substrate at FULL: one kernel launch per layer
+    configs = {name: get_config(name) for name in LM_ARCHS}
+    score, served = lm_paths(phase, device, configs)
+    want = {}
+    for cfg in configs.values():
+        kernel = {"dense": "flash_attention", "ssm": "ssd_scan"}[cfg.family]
+        want[kernel] = want.get(kernel, 0) + cfg.num_layers
+    if phases["lm_score"]["launches"] != want:
+        raise AssertionError(f"lm_score: launches "
+                             f"{phases['lm_score']['launches']} != {want}")
+    if phases["lm_serve"]["launches"]:
+        raise AssertionError(f"lm_serve launched kernels: "
+                             f"{phases['lm_serve']['launches']}")
+
+    # 10. every kernel against its plain version at its path's shapes
     rows = fabric_kernel_rows(fab.fabric(), device, batch=len(routed))
     rows.append(minplus_row(fab, device))
     rows.append(bbox_row(routed, device))
     rows.extend(sweep_rows(fab, routed, device))
     rows.append(hpwl_row(routed, device))
+    rows.append(flash_row(device))
+    rows.append(ssd_row(device))
     for row in rows:
         row["path"] = KERNEL_PATH.get(row["name"], "main")
         row["launches"] = phases[row["path"]]["launches"].get(row["name"],
@@ -823,6 +1184,8 @@ def drive(spec, device, t_start):
                                  "strategies": search["strategies"],
                                  "executor": search["stats"]["executor"]}},
                      default=str))
+    print(json.dumps({"lm_score": score}))
+    print(json.dumps({"lm_serve": served}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"seconds": time.perf_counter() - t_start}))
 

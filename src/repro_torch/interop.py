@@ -1,7 +1,7 @@
 """Carry the reference's state into the port as plain data.
 
-This system has no weights. What the reference computes, and the port
-must accept, is:
+The Canal side has no weights. What the reference computes there, and
+the port must accept, is:
 
 * the lowered tables, as numpy arrays (``TABLE_PATHS`` names them);
 * a placement ``{instance: (x, y)}`` — already plain data, taken as is
@@ -9,6 +9,13 @@ must accept, is:
 * a routing, as lists of node keys: ``Node.node_key()``, the structural
   identity (kind, tile, side/port, track, width) that the two IRs share
   (``Node`` itself hashes on a per-process id, which does not carry).
+
+The LM substrate has weights and configurations:
+
+* a model configuration, as the dict ``dataclasses.asdict`` makes of the
+  reference's ``ModelConfig`` (:func:`lm_config_from_fields`);
+* a parameter tree, as nested dicts of numpy arrays with every layer
+  stacked on a leading axis (:func:`lm_params_from_numpy`).
 
 Everything here takes numpy arrays, dicts and tuples, never objects of
 the reference package, and builds the port's objects from them.
@@ -18,6 +25,7 @@ from __future__ import annotations
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .core.graph import Interconnect
 from .core.pnr.driver import PnRResult
@@ -25,6 +33,8 @@ from .core.pnr.packing import pack
 from .core.pnr.route import (RoutedNet, RoutingResources, RoutingResult,
                              _net_delay)
 from .core.pnr.timing import sta_critical_path
+from .models.config import (EncDecConfig, HybridConfig, ModelConfig,
+                            MoEConfig, SSMConfig, VLMConfig)
 
 NodeKey = Tuple
 #: one routed net: (name, source key, sink keys, tree edges (parent, child))
@@ -116,3 +126,73 @@ def pnr_result(ic: Interconnect, app, placement: Mapping[str, Tuple[int,
     return PnRResult(success=True, placement=placement, packed=packed,
                      routing=routing, timing=timing,
                      wirelength=routing.total_wirelength())
+
+
+# ------------------------------------------------------------ LM substrate
+#: the reference's ``attn_impl`` names -> the port's
+ATTN_IMPL_NAMES = {"xla": "plain", "pallas": "kernel"}
+_SUB_CONFIGS = {"moe": MoEConfig, "ssm": SSMConfig, "hybrid": HybridConfig,
+                "encdec": EncDecConfig, "vlm": VLMConfig}
+#: parameter groups the reference stacks on a leading layer axis
+STACKED_GROUPS = ("dense_layers", "moe_layers", "layers")
+#: reference tree key -> port state key where the two differ
+PARAM_RENAMES = {"unembed": "unembed_w"}
+
+
+def lm_config_from_fields(fields: Mapping) -> ModelConfig:
+    """The port's :class:`ModelConfig` from the reference's as a plain
+    dict (``dataclasses.asdict``); ``attn_impl`` "xla"/"pallas" become
+    "plain"/"kernel"."""
+    kw = dict(fields)
+    for name, cls in _SUB_CONFIGS.items():
+        if kw.get(name) is not None:
+            kw[name] = cls(**kw[name])
+    kw["attn_impl"] = ATTN_IMPL_NAMES[kw["attn_impl"]]
+    return ModelConfig(**kw)
+
+
+def _flatten(tree: Mapping, prefix: str = ""):
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _flatten(value, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", value
+
+
+def lm_params_from_numpy(cfg: ModelConfig,
+                         tree: Mapping) -> Dict[str, torch.Tensor]:
+    """The port model's state (for ``load_state_dict``) from the
+    reference's parameter tree as nested dicts of numpy arrays.
+
+    Stacked groups are unstacked into ``<group>.<i>.`` keys; values go
+    through float32 (numpy holds the reference's bf16 as
+    ``ml_dtypes.bfloat16``), so the cast to the port's dtype is exact.
+    Raises ``ValueError`` on a missing or extra key, or a shape that
+    differs.
+    """
+    from .models import build_model
+
+    template = build_model(cfg, "meta").state_dict()
+    state = {}
+    for key, arr in _flatten(tree):
+        arr = np.asarray(arr)
+        head, _, rest = key.partition(".")
+        if head in STACKED_GROUPS:
+            for i in range(arr.shape[0]):
+                state[f"{head}.{i}.{rest}"] = arr[i]
+        else:
+            state[PARAM_RENAMES.get(key, key)] = arr
+    missing = sorted(template.keys() - state.keys())
+    extra = sorted(state.keys() - template.keys())
+    if missing or extra:
+        raise ValueError(f"parameter tree does not fit {cfg.name}: "
+                         f"missing {missing}, extra {extra}")
+    out = {}
+    for key, want in template.items():
+        arr = state[key]
+        if tuple(arr.shape) != tuple(want.shape):
+            raise ValueError(f"{key}: shape {tuple(arr.shape)}, expected "
+                             f"{tuple(want.shape)}")
+        out[key] = torch.from_numpy(np.array(arr, dtype=np.float32)).to(
+            want.dtype)
+    return out

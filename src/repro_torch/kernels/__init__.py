@@ -7,6 +7,9 @@ versions.
 - minplus: tropical relaxation for batched routing wavefronts
 - hpwl: per-net pin bounding boxes seeding the batched annealer, and
   per-net HPWL (Eq. 2's distance term)
+- flash_attention: causal/full softmax attention with GQA (the LM
+  substrate's full-sequence forward)
+- ssd_scan: the Mamba-2 SSD chunked scan
 - build: nvcc build of ``csrc/`` into ``build/kernels`` and launch counts
 """
 from . import ops, ref  # noqa: F401

@@ -42,6 +42,8 @@ LAUNCHES: Dict[str, int] = {
     "minplus_step": 0,
     "net_bboxes": 0,
     "hpwl": 0,
+    "flash_attention": 0,
+    "ssd_scan": 0,
 }
 
 _P = ctypes.c_void_p
@@ -56,6 +58,8 @@ _SIGNATURES = {
     "canal_minplus_step": [_P, _P, _P, _I, _I, _P],
     "canal_net_bboxes": [_P, _P, _P, _I, _I, _P],
     "canal_hpwl": [_P, _P, _P, _I, _I, _P],
+    "canal_flash_attention": [_P] * 4 + [_I] * 8 + [_P],
+    "canal_ssd_scan": [_P] * 6 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

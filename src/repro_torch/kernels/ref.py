@@ -1,11 +1,13 @@
-"""Scatter-based oracle of the fused engine (counterpart of
-repro/kernels/ref.py:fabric_fused_batch_ref).
+"""Naive oracles (counterpart of repro/kernels/ref.py).
 
 The plain versions that sit beside each kernel (``*_plain`` in
-``fabric_step``, ``minplus`` and ``hpwl``) mirror the kernels' own
-formulation; this oracle places PE results by scatter through ``pe_out``
-instead of the kernels' ``pe_res_idx`` gather, as the reference's
-``use_pallas=False`` fused path does.
+``fabric_step``, ``minplus``, ``hpwl``, ``flash_attention`` and
+``ssd_scan``) mirror the kernels' own formulation. The oracles here do
+not: ``fabric_fused_batch_ref`` places PE results by scatter through
+``pe_out`` instead of the kernels' ``pe_res_idx`` gather, as the
+reference's ``use_pallas=False`` fused path does; ``attention_ref`` is
+one unblocked softmax and ``ssd_ref`` the step-by-step recurrence. The
+two LM oracles compute in float32, or in float64 when given float64.
 """
 from __future__ import annotations
 
@@ -48,3 +50,41 @@ def fabric_fused_batch_ref(vals0, sel, pin_vals, depths, op, const,
                 nv[:, pe_out[:, 1]] = res1[:, :n_pe]
         v = torch.where((t < depths)[:, None], nv, v)
     return v
+
+
+def _oracle_dtype(t: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True) -> torch.Tensor:
+    """Naive softmax attention. q: (BH, Sq, D), k/v: (BH, Skv, D)."""
+    dt = _oracle_dtype(q)
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    s = torch.einsum("bqd,bkd->bqk", q.to(dt), k.to(dt)) * scale
+    if causal:
+        sq, skv = s.shape[-2], s.shape[-1]
+        qi = torch.arange(sq, device=q.device)[:, None]
+        ki = torch.arange(skv, device=q.device)[None, :]
+        s = torch.where(qi >= ki, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.to(dt)).to(q.dtype)
+
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+            b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Naive SSD recurrence (the semantics the chunked kernel must match).
+
+    h_t = exp(dt_t a) h_{t-1} + dt_t x_t B_t^T ;  y_t = h_t C_t
+    x: (BH, L, P), dt: (BH, L), a: (BH,), b/c: (BH, L, N) -> y (BH, L, P)
+    """
+    out_dtype, f = x.dtype, _oracle_dtype(x)
+    x, dt, a, b, c = (t.to(f) for t in (x, dt, a, b, c))
+    bh, l, p = x.shape
+    h = torch.zeros((bh, p, b.shape[-1]), dtype=f, device=x.device)
+    ys = []
+    for t in range(l):
+        h = (torch.exp(dt[:, t] * a)[:, None, None] * h
+             + dt[:, t, None, None] * x[:, t, :, None] * b[:, t, None, :])
+        ys.append(h @ c[:, t, :, None])                  # (BH, P, 1)
+    return torch.cat(ys, dim=-1).transpose(1, 2).to(out_dtype)

@@ -1,0 +1,433 @@
+"""Shared neural blocks of the LM substrate (counterpart of
+repro/models/layers.py): RMSNorm, RoPE, GQA attention (full-sequence and
+cached), the SwiGLU/GELU MLP and the Mamba-2 (SSD) mixer.
+
+Each block is an ``nn.Module`` that owns its parameters under the
+reference's names (``wq``, ``w_in``, ``a_log``, ...) and draws them with
+``init_params(generator)`` at the reference's scales (``init_mamba2``
+builds and draws a mixer in one call, as the reference's does). The
+apply functions (``rms_norm``, ``attention``, ``mlp``, ``mamba2``, ...)
+are plain functions on tensors that take the module as ``p``, as the
+reference's take their parameter dict. MoE, RG-LRU and ``layer_norm`` come with the
+models that use them.
+
+Numerics follow the reference step for step, since bf16 rounds wherever
+a cast sits: ``rms_norm`` normalises in float32, casts to ``x.dtype`` and
+only then multiplies by the scale; RoPE rotates concatenated halves with
+float32 angles; attention scores are float32 and the probabilities are
+cast to the activation dtype before the PV product; the SSD runs in
+float32.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels import ops as kops
+from .config import ModelConfig
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+def _normal_(p: torch.Tensor, scale: float,
+             generator: torch.Generator) -> None:
+    """``p <- (N(0, 1) * scale)`` drawn in float32, cast to p's dtype."""
+    draw = torch.randn(p.shape, generator=generator, dtype=torch.float32,
+                       device=p.device)
+    p.copy_(draw * scale)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, dtype, device):
+        super().__init__()
+        self.scale = _param((d,), dtype, device)
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> None:
+        self.scale.fill_(1.0)
+
+
+def rms_norm(x: torch.Tensor, p: RMSNorm, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * p.scale.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., S, H, D). positions: (..., S). Concatenated halves (not
+    interleaved), frequencies ``exp(-log(theta) * i / half)``."""
+    d = x.shape[-1]
+    half = d // 2
+    freq = torch.exp(-math.log(theta)
+                     * torch.arange(half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., :, None].float() * freq          # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                    # (..., S, 1, h)
+    sin = torch.sin(ang)[..., None, :]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, optional qk-norm, optional sliding window)
+# ---------------------------------------------------------------------------
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.kv_heads, cfg.hd
+        self.wq = _param((d, hq * hd), cfg.pdtype, device)
+        self.wk = _param((d, hkv * hd), cfg.pdtype, device)
+        self.wv = _param((d, hkv * hd), cfg.pdtype, device)
+        self.wo = _param((hq * hd, d), cfg.pdtype, device)
+        if cfg.qk_norm:
+            self.q_norm = RMSNorm(hd, cfg.pdtype, device)
+            self.k_norm = RMSNorm(hd, cfg.pdtype, device)
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> None:
+        d, hqd = self.wq.shape
+        s = 1.0 / math.sqrt(d)
+        for w in (self.wq, self.wk, self.wv):
+            _normal_(w, s, generator)
+        _normal_(self.wo, 1.0 / math.sqrt(hqd), generator)
+        if hasattr(self, "q_norm"):
+            self.q_norm.init_params(generator)
+            self.k_norm.init_params(generator)
+
+
+def _split_heads(x: torch.Tensor, n_heads: int, hd: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, n_heads, hd).transpose(1, 2)      # (B,H,S,D)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * d)
+
+
+def _sdpa(q, k, v, causal: bool, window: int, q_offset: int,
+          impl: str = "plain", chunk: int = 2048,
+          scores_f32: bool = True, gqa_mode: str = "repeat") -> torch.Tensor:
+    """q: (B,Hq,Sq,D); k,v: (B,Hkv,Skv,D).
+
+    ``impl="kernel"`` (full attention, no window) runs the hand-written
+    flash kernel, whose query positions start at 0; the cached path never
+    asks for it. GQA modes: "repeat" expands K/V to Hq heads (kv head
+    ``h // rep`` serves q head ``h``); "grouped" reshapes queries to
+    (B, Hkv, G, Sq, D) against unexpanded K/V. Sequences longer than
+    ``chunk`` attend one query chunk at a time, so the (Sq, Skv) score
+    matrix never materialises whole.
+    """
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    if impl == "kernel" and window <= 0:
+        return kops.flash_attention(q, k, v, causal=causal)
+    grouped = (gqa_mode == "grouped" and hkv != hq)
+    if not grouped and hkv != hq:
+        k = k.repeat_interleave(hq // hkv, dim=1)
+        v = v.repeat_interleave(hq // hkv, dim=1)
+    g = hq // hkv
+    skv = k.shape[2]
+    acc_t = torch.float32 if scores_f32 else q.dtype
+    ka = k.to(acc_t)
+    ki = torch.arange(skv, device=q.device)[None, :]
+
+    def attend(qc, qpos):
+        cq = qc.shape[2]
+        if grouped:
+            qg = qc.reshape(b, hkv, g, cq, d).to(acc_t)
+            scores = torch.einsum("bhgqd,bhkd->bhgqk", qg, ka)
+        else:
+            scores = qc.to(acc_t) @ ka.transpose(-1, -2)
+        scores = scores / math.sqrt(d)
+        qi = qpos[:, None]
+        mask = torch.ones((cq, skv), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= qi >= ki
+        if window > 0:
+            mask &= ki > qi - window
+        big_neg = -1e30 if scores_f32 else -3e38
+        scores = torch.where(mask, scores, torch.full_like(scores, big_neg))
+        probs = torch.softmax(scores.float(), dim=-1).to(qc.dtype)
+        if grouped:
+            out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v)
+            return out.reshape(b, hq, cq, d)
+        return probs @ v
+
+    def positions(start, n):
+        return torch.arange(n, device=q.device) + start + q_offset
+
+    if chunk <= 0 or sq <= chunk:
+        return attend(q, positions(0, sq))
+    if sq % chunk:
+        # largest divisor of sq no bigger than the requested chunk
+        chunk = math.gcd(sq, chunk)
+        if chunk < 128:
+            return attend(q, positions(0, sq))
+    return torch.cat([attend(q[:, :, i:i + chunk], positions(i, chunk))
+                      for i in range(0, sq, chunk)], dim=2)
+
+
+def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
+              positions: torch.Tensor,
+              cache: Optional[Tuple] = None,
+              window: int = 0) -> Tuple[torch.Tensor, Optional[Tuple]]:
+    """Full-sequence (cache=None) or cached decode/prefill attention.
+
+    cache = (k_cache, v_cache, index): k/v (B, Hkv, S_max, D), index an
+    int. The new K/V are written into the cache tensors in place, at
+    ``index`` clamped so that they fit (as ``dynamic_update_slice``
+    clamps); query positions stay unclamped. Returns (out, (k_cache,
+    v_cache, index + S)).
+    """
+    hq, hkv, hd = cfg.num_heads, cfg.kv_heads, cfg.hd
+    q = _split_heads(x @ p.wq, hq, hd)
+    k = _split_heads(x @ p.wk, hkv, hd)
+    v = _split_heads(x @ p.wv, hkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm, cfg.norm_eps)
+        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+    q = rope(q.transpose(1, 2), positions, cfg.rope_theta).transpose(1, 2)
+    k = rope(k.transpose(1, 2), positions, cfg.rope_theta).transpose(1, 2)
+
+    if cache is None:
+        out = _sdpa(q, k, v, causal=True, window=window, q_offset=0,
+                    impl=cfg.attn_impl, chunk=cfg.attn_chunk,
+                    scores_f32=cfg.attn_scores_f32, gqa_mode=cfg.gqa_mode)
+        new_cache = None
+    else:
+        k_c, v_c, idx = cache
+        s, s_max = q.shape[2], k_c.shape[2]
+        if s > s_max:
+            raise ValueError(f"{s} new positions do not fit a cache of "
+                             f"{s_max}")
+        start = min(max(idx, 0), s_max - s)
+        k_c[:, :, start:start + s] = k
+        v_c[:, :, start:start + s] = v
+        # the cached path always runs plain, grouped GQA (the reference's
+        # decode layout: no K/V repeat over the whole cache)
+        decode_gqa = ("grouped" if cfg.gqa_mode == "repeat"
+                      else cfg.gqa_mode)
+        out = _sdpa(q, k_c, v_c, causal=True, window=window, q_offset=idx,
+                    impl="plain", chunk=cfg.attn_chunk,
+                    scores_f32=cfg.attn_scores_f32, gqa_mode=decode_gqa)
+        new_cache = (k_c, v_c, idx + s)
+    return _merge_heads(out) @ p.wo, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / GELU)
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    def __init__(self, cfg: ModelConfig, device, d_ff: Optional[int] = None):
+        super().__init__()
+        d, f = cfg.d_model, d_ff or cfg.d_ff
+        self.w_up = _param((d, f), cfg.pdtype, device)
+        self.w_down = _param((f, d), cfg.pdtype, device)
+        if cfg.activation == "swiglu":
+            self.w_gate = _param((d, f), cfg.pdtype, device)
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> None:
+        d, f = self.w_up.shape
+        _normal_(self.w_up, 1.0 / math.sqrt(d), generator)
+        _normal_(self.w_down, 1.0 / math.sqrt(f), generator)
+        if hasattr(self, "w_gate"):
+            _normal_(self.w_gate, 1.0 / math.sqrt(d), generator)
+
+
+def mlp(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    up = x @ p.w_up
+    if cfg.activation == "swiglu":
+        act = F.silu(x @ p.w_gate) * up
+    else:
+        act = F.gelu(up, approximate="tanh")     # jax.nn.gelu's default
+    return act @ p.w_down
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD) block
+# ---------------------------------------------------------------------------
+
+def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
+    """(d_inner, heads, head dim P, state N) of the mixer."""
+    s_cfg = cfg.ssm
+    d_in = s_cfg.expand * cfg.d_model
+    nh = s_cfg.num_heads or d_in // s_cfg.head_dim
+    return d_in, nh, d_in // nh, s_cfg.state_dim
+
+
+class Mamba2Mixer(nn.Module):
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        d = cfg.d_model
+        d_in, nh, _, n = ssm_dims(cfg)
+        self.w_in = _param((d, 2 * d_in + 2 * n + nh), cfg.pdtype, device)
+        self.conv = _param((cfg.ssm.conv_width, d_in + 2 * n), cfg.pdtype,
+                           device)
+        self.a_log = _param((nh,), torch.float32, device)
+        self.dt_bias = _param((nh,), torch.float32, device)
+        self.d_skip = _param((nh,), torch.float32, device)
+        self.norm = RMSNorm(d_in, cfg.pdtype, device)
+        self.w_out = _param((d_in, d), cfg.pdtype, device)
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> None:
+        d, d_in = self.w_in.shape[0], self.w_out.shape[0]
+        _normal_(self.w_in, 1.0 / math.sqrt(d), generator)
+        _normal_(self.conv, 0.3, generator)
+        _normal_(self.w_out, 1.0 / math.sqrt(d_in), generator)
+        self.a_log.fill_(-0.5)
+        self.dt_bias.zero_()
+        self.d_skip.fill_(1.0)
+        self.norm.init_params(generator)
+
+
+def init_mamba2(cfg: ModelConfig, generator: torch.Generator,
+                device=None) -> Mamba2Mixer:
+    m = Mamba2Mixer(cfg, device)
+    m.init_params(generator)
+    return m
+
+
+def _causal_conv(seq: torch.Tensor, w: torch.Tensor,
+                 state: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv. seq: (B, S, C); w: (K, C). Returns the
+    output and the last K - 1 inputs (the next call's state)."""
+    k = w.shape[0]
+    if state is None:
+        pad = seq.new_zeros((seq.shape[0], k - 1, seq.shape[2]))
+    else:
+        pad = state.to(seq.dtype)
+    full = torch.cat([pad, seq], dim=1)
+    out = sum(full[:, i:i + seq.shape[1]] * w[i][None, None]
+              for i in range(k))
+    return out, full[:, -(k - 1):]
+
+
+def mamba2(p: Mamba2Mixer, x: torch.Tensor, cfg: ModelConfig,
+           state: Optional[Tuple] = None
+           ) -> Tuple[torch.Tensor, Optional[Tuple]]:
+    """SSD mixer. state = (h (B, NH, P, N) float32, conv_state).
+
+    As in the reference, a call with a state and more than one position
+    (a prefill into a cache) starts the SSD from a zero state and ignores
+    ``state[0]``; the conv state is carried. Only a stateless call with
+    ``attn_impl="kernel"`` runs the ``ssd_scan`` kernel.
+    """
+    b, s, _ = x.shape
+    d_in, nh, ph, n = ssm_dims(cfg)
+
+    zxbcdt = x @ p.w_in
+    z, xc, bmat, cmat, dt = torch.tensor_split(
+        zxbcdt, [d_in, 2 * d_in, 2 * d_in + n, 2 * d_in + 2 * n], dim=-1)
+    conv_in = torch.cat([xc, bmat, cmat], dim=-1)
+    conv_state = None if state is None else state[1]
+    conv_out, new_conv = _causal_conv(conv_in, p.conv, conv_state)
+    conv_out = F.silu(conv_out)
+    xc = conv_out[..., :d_in]
+    bmat = conv_out[..., d_in:d_in + n]
+    cmat = conv_out[..., d_in + n:]
+
+    dt = dt.float() + p.dt_bias
+    dt = torch.logaddexp(dt, torch.zeros_like(dt))      # softplus, (B,S,NH)
+    a = -torch.exp(p.a_log)                              # (NH,)
+    xh = xc.reshape(b, s, nh, ph)
+
+    if state is None or s > 1:
+        xf = xh.permute(0, 2, 1, 3).reshape(b * nh, s, ph).float()
+        dtf = dt.permute(0, 2, 1).reshape(b * nh, s).contiguous()
+        af = a.repeat(b)                     # jnp.tile: head h at i*nh + h
+        bf = bmat[:, None].expand(b, nh, s, n).reshape(b * nh, s, n).float()
+        cf = cmat[:, None].expand(b, nh, s, n).reshape(b * nh, s, n).float()
+        if cfg.attn_impl == "kernel" and state is None:
+            y = kops.ssd_scan(xf.contiguous(), dtf, af, bf.contiguous(),
+                              cf.contiguous(), chunk=cfg.ssm.chunk)
+            new_h = None
+        else:
+            y, h_last = _ssd_xla(xf, dtf, af, bf, cf, cfg.ssm.chunk,
+                                 return_state=True)
+            new_h = (None if state is None
+                     else h_last.reshape(b, nh, ph, n))
+        y = y.reshape(b, nh, s, ph).permute(0, 2, 1, 3)
+    else:
+        h = state[0]                                     # (B, NH, P, N)
+        dtb = dt[:, 0]                                   # (B, NH)
+        decay = torch.exp(dtb * a[None])[:, :, None, None]
+        upd = ((dtb[:, :, None] * xh[:, 0].float())[..., None]
+               * bmat[:, 0].float()[:, None, None, :])
+        h = h * decay + upd
+        y = torch.einsum("bhpn,bn->bhp", h, cmat[:, 0].float())
+        y = y.reshape(b, 1, nh, ph)
+        new_h = h
+
+    y = y + xh.float() * p.d_skip[None, None, :, None]
+    y = y.reshape(b, s, d_in).to(x.dtype)
+    y = rms_norm(y, p.norm, cfg.norm_eps) * F.silu(z)
+    out = y @ p.w_out
+    new_state = None if state is None else (new_h, new_conv)
+    return out, new_state
+
+
+def _ssd_xla(x, dt, a, bmat, cmat, chunk: int, return_state: bool = False):
+    """Chunked SSD in plain torch (the reference's ``_ssd_xla``: every
+    chunk's intra part at once, then the carry over chunks).
+    return_state=True also returns the final (BH, P, N) state."""
+    bh, l, p = x.shape
+    n = bmat.shape[-1]
+    pad = (-l) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        dt = F.pad(dt, (0, pad))
+        bmat = F.pad(bmat, (0, 0, 0, pad))
+        cmat = F.pad(cmat, (0, 0, 0, pad))
+    nc = x.shape[1] // chunk
+    xc = x.reshape(bh, nc, chunk, p)
+    dtc = dt.reshape(bh, nc, chunk)
+    bc = bmat.reshape(bh, nc, chunk, n)
+    cc = cmat.reshape(bh, nc, chunk, n)
+    seg = torch.cumsum(dtc * a[:, None, None], dim=-1)     # (BH,NC,C)
+    scores = torch.einsum("bntk,bnuk->bntu", cc, bc)
+    lmat = torch.exp(seg[..., :, None] - seg[..., None, :])
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+    w = (torch.where(tri, scores * lmat, torch.zeros((), device=x.device))
+         * dtc[..., None, :])
+    y_intra = torch.einsum("bntu,bnup->bntp", w, xc)
+
+    # inter-chunk state carry (in order over chunks)
+    decay_tail = torch.exp(seg[..., -1:] - seg)            # (BH,NC,C)
+    xb = torch.einsum("bnc,bncp,bncq->bnpq", dtc * decay_tail, xc, bc)
+    chunk_decay = torch.exp(seg[..., -1])                  # (BH,NC)
+    h = torch.zeros((bh, p, n), dtype=torch.float32, device=x.device)
+    h_prev = []                                            # state BEFORE
+    for i in range(nc):
+        h_prev.append(h)
+        h = h * chunk_decay[:, i, None, None] + xb[:, i]
+    h_prev = torch.stack(h_prev, dim=1)                    # (BH,NC,P,N)
+    y_inter = torch.einsum("bntk,bnpk,bnt->bntp", cc, h_prev,
+                           torch.exp(seg))
+    y = (y_intra + y_inter).reshape(bh, nc * chunk, p)[:, :l]
+    if return_state:
+        return y, h
+    return y

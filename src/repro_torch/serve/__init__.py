@@ -1,4 +1,4 @@
-"""Serving front ends of the port. The DSE service is here; the LM
-serving engine (the reference's ``serve.engine.ServeEngine``) comes with
-the LM slice."""
+"""Serving front ends of the port: the LM serving engine
+(``ServeEngine``, prefill + greedy decode) and the DSE service."""
+from .engine import Request, ServeEngine  # noqa: F401
 from .dse_service import DSEService, serve  # noqa: F401

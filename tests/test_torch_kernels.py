@@ -1,9 +1,12 @@
-"""The port's seven kernels against the JAX reference.
+"""The port's nine kernels against the JAX reference.
 
 On the CPU every wrapper runs its plain PyTorch version, which must be
 bit-identical to the reference's Pallas kernel run in interpret mode
 (min-plus included: every candidate is one rounded add and ``min`` is
-exact). Inputs are made with numpy from a seed and handed to both.
+exact). The two float kernels of the LM substrate (flash attention, the
+SSD scan) agree within the reference tests' own tolerances instead, and
+also with the float64 oracles. Inputs are made with numpy from a seed
+and handed to both.
 
 ``TestCudaKernels`` (marked ``cuda``) holds each CUDA kernel against its
 plain version on the card; it skips on a host without CUDA. The JAX side
@@ -14,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import build, fabric_step, hpwl, minplus, ref
+from repro_torch.kernels import (build, fabric_step, flash_attention, hpwl,
+                                 minplus, ref, ssd_scan)
 
 INT_MIN, INT_MAX = -2 ** 31, 2 ** 31 - 1
 #: operand pool: int32 extremes, shifts around the [0, 15] clip, negatives
@@ -296,6 +300,133 @@ def test_cpu_wrappers_launch_nothing():
     assert all(v == 0 for v in build.LAUNCHES.values())
 
 
+# ------------------------------------------------------- the LM kernels
+@pytest.fixture(scope="module")
+def jlm():
+    """The reference's LM kernel entry points (interpret mode here)."""
+    pytest.importorskip("jax")
+    from repro.kernels import ops as jops
+    return jops
+
+
+def attention_case(sq, skv, hq, hkv, d=64, b=2, seed=None):
+    """The reference test's inputs: N(0, 1) q, k, v (b, h, s, d)."""
+    rng = np.random.default_rng(sq + skv if seed is None else seed)
+    return (rng.standard_normal((b, hq, sq, d)).astype(np.float32),
+            rng.standard_normal((b, hkv, skv, d)).astype(np.float32),
+            rng.standard_normal((b, hkv, skv, d)).astype(np.float32))
+
+
+#: the reference test's shapes (tests/test_kernels.py:177-182)
+FLASH_CASES = [(128, 128, 4, 4, "float32"), (200, 200, 4, 2, "float32"),
+               (256, 256, 8, 1, "bfloat16"), (130, 384, 2, 2, "float32")]
+
+
+@pytest.mark.parametrize("sq,skv,hq,hkv,dtype", FLASH_CASES)
+def test_flash_attention_plain_matches_pallas(jlm, sq, skv, hq, hkv, dtype):
+    """GQA wrapper on the plain path vs the Pallas kernel in interpret
+    mode, and vs the float64 oracle, at the reference test's tolerance
+    (2e-2 in bf16: one bf16 rounding of outputs below 4; 2e-5 in f32)."""
+    import jax.numpy as jnp
+    q, k, v = attention_case(sq, skv, hq, hkv)
+    jdt = getattr(jnp, dtype)
+    want = np.asarray(jlm.flash_attention(
+        jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+        causal=True).astype(jnp.float32))
+    tdt = getattr(torch, dtype)
+    qt, kt, vt = (torch.as_tensor(a).to(tdt) for a in (q, k, v))
+    got = flash_attention.flash_attention_gqa(qt, kt, vt, causal=True)
+    assert got.dtype == tdt and got.shape == qt.shape
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol,
+                               rtol=tol)
+    rep = hq // hkv
+    oracle = ref.attention_ref(
+        qt.double().reshape(-1, sq, 64),
+        kt.double().repeat_interleave(rep, 1).reshape(-1, skv, 64),
+        vt.double().repeat_interleave(rep, 1).reshape(-1, skv, 64))
+    np.testing.assert_allclose(got.float().numpy(),
+                               oracle.reshape(got.shape).numpy(), atol=tol,
+                               rtol=tol)
+
+
+def test_flash_attention_full_matches_pallas(jlm):
+    """Non-causal attention, head dim 128, against the reference's kernel
+    function on batch*heads pre-flattened (as it takes them)."""
+    from repro.kernels import flash_attention as jfa
+    import jax.numpy as jnp
+    q, k, v = attention_case(70, 150, 3, 3, d=128, b=1, seed=9)
+    want = np.asarray(jfa.flash_attention(
+        *(jnp.asarray(a[0]) for a in (q, k, v)), causal=False,
+        interpret=True))
+    got = flash_attention.flash_attention_gqa(
+        *map(torch.as_tensor, (q, k, v)), causal=False)
+    np.testing.assert_allclose(got[0].numpy(), want, atol=2e-5, rtol=2e-5)
+
+
+def ssd_case(bh, l, p, n, seed):
+    """The reference test's inputs: dt in [0.1, 0.6), a in (-1.5, -0.5],
+    b and c 0.3 N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((bh, l, p)).astype(np.float32),
+            (0.1 + rng.random((bh, l)) * 0.5).astype(np.float32),
+            (-0.5 - rng.random(bh)).astype(np.float32),
+            (rng.standard_normal((bh, l, n)) * 0.3).astype(np.float32),
+            (rng.standard_normal((bh, l, n)) * 0.3).astype(np.float32))
+
+
+#: the reference test's shapes (tests/test_kernels.py:205-207), L 100
+#: padded to a multiple of its chunk
+@pytest.mark.parametrize("l,chunk,p,n", [(128, 64, 8, 4), (256, 128, 16, 8),
+                                         (100, 32, 4, 4)])
+def test_ssd_scan_plain_matches_pallas(jlm, l, chunk, p, n):
+    import jax.numpy as jnp
+    args = ssd_case(3, l, p, n, seed=l)
+    want = np.asarray(jlm.ssd_scan(*map(jnp.asarray, args), chunk=chunk))
+    got = ssd_scan.ssd_scan(*map(torch.as_tensor, args), chunk=chunk)
+    assert got.shape == (3, l, p)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-4, rtol=2e-4)
+    oracle = ref.ssd_ref(*(torch.as_tensor(a).double() for a in args))
+    np.testing.assert_allclose(got.numpy(), oracle.numpy(), atol=2e-4,
+                               rtol=2e-4)
+
+
+def test_lm_oracles_match_reference(jlm):
+    """The port's float oracles against the reference's, in float32."""
+    from repro.kernels import ref as jr
+    import jax.numpy as jnp
+    q, k, v = (a.reshape(-1, a.shape[2], 64)
+               for a in attention_case(40, 40, 2, 2))
+    np.testing.assert_allclose(
+        ref.attention_ref(*map(torch.as_tensor, (q, k, v))).numpy(),
+        np.asarray(jr.attention_ref(*map(jnp.asarray, (q, k, v)))),
+        atol=1e-5, rtol=1e-5)
+    args = ssd_case(2, 50, 4, 3, seed=5)
+    np.testing.assert_allclose(
+        ref.ssd_ref(*map(torch.as_tensor, args)).numpy(),
+        np.asarray(jr.ssd_ref(*map(jnp.asarray, args))), atol=1e-5,
+        rtol=1e-5)
+
+
+def test_lm_kernel_wrappers_refuse_what_the_kernels_do_not_take():
+    """The launch paths check before they build or launch anything: the
+    flash kernel takes head dim 64 or 128 in f32/bf16, the SSD kernel
+    (chunk, P, N) in its instantiated set."""
+    q = torch.zeros((1, 2, 4, 32))
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention._launch(q, q, q, True)
+    with pytest.raises(TypeError):
+        flash_attention._launch(q.half(), q.half(), q.half(), True)
+    x, dt, a, b, c = map(torch.as_tensor, ssd_case(2, 16, 8, 4, seed=1))
+    with pytest.raises(ValueError, match="not in"):
+        ssd_scan._launch(x, dt, a, b, c, 32)
+    build.reset_launch_counts()
+    flash_attention.flash_attention_gqa(q[:, :, :0], q[:, :, :0], q[:, :, :0])
+    ssd_scan.ssd_scan(x, dt, a, b, c, chunk=8)
+    assert build.LAUNCHES["flash_attention"] == 0
+    assert build.LAUNCHES["ssd_scan"] == 0
+
+
 # --------------------------------------------------------------- the card
 @pytest.fixture
 def cuda():
@@ -395,3 +526,44 @@ class TestCudaKernels:
         with pytest.raises(TypeError):
             hpwl.net_bboxes(torch.as_tensor(pins, device=cuda).long(),
                             torch.as_tensor(mask, device=cuda))
+
+    @pytest.mark.parametrize("b,hq,hkv,sq,skv,d,dtype,causal", [
+        (2, 32, 4, 2048, 2048, 64, "bfloat16", True),    # the LM path
+        (2, 4, 4, 128, 128, 64, "float32", True),
+        (2, 8, 1, 256, 256, 128, "bfloat16", True),
+        (2, 2, 2, 130, 384, 64, "float32", True),
+        (1, 3, 3, 70, 150, 128, "float32", False),
+        (1, 2, 1, 1, 1, 64, "float32", True),
+    ])
+    def test_flash_attention(self, cuda, b, hq, hkv, sq, skv, d, dtype,
+                             causal):
+        """Within 2e-5 of the plain version in f32 (summation order) and,
+        in bf16, within one bf16 ulp of each output (rtol 2**-7) plus 1e-4:
+        both round an f32 result to bf16 once."""
+        tdt = getattr(torch, dtype)
+        q, k, v = (torch.as_tensor(a, device=cuda).to(tdt)
+                   for a in attention_case(sq, skv, hq, hkv, d=d, b=b))
+        before = build.LAUNCHES["flash_attention"]
+        got = flash_attention.flash_attention_gqa(q, k, v, causal)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["flash_attention"] == before + 1
+        want = flash_attention.flash_attention_gqa_plain(q, k, v, causal)
+        atol, rtol = (1e-4, 2.0 ** -7) if dtype == "bfloat16" else (2e-5,
+                                                                    2e-5)
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+
+    @pytest.mark.parametrize("bh,l,chunk", [(128, 2048, 128), (3, 300, 128),
+                                            (5, 100, 128), (2, 1, 128)])
+    def test_ssd_scan(self, cuda, bh, l, chunk):
+        """Within 1e-4 of the plain version (f32 both, no TF32; the sums
+        run in another order), padded L included."""
+        torch.backends.cuda.matmul.allow_tf32 = False
+        args = [torch.as_tensor(a, device=cuda)
+                for a in ssd_case(bh, l, 64, 128, seed=l)]
+        before = build.LAUNCHES["ssd_scan"]
+        got = ssd_scan.ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["ssd_scan"] == before + 1
+        want = ssd_scan.ssd_scan_plain(*args, chunk=chunk)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
