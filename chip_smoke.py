@@ -68,10 +68,14 @@ after; each must have launched the kernels it exists to drive.
              min-plus included; within a stated tolerance for the two
              float kernels of the LM path, which must reject
              ``lm_score``'s controls), with the kernel's and the
-             plain version's times and the least time the card could take
-             (``bound``); for ``flash_attention`` also the time of
-             PyTorch's ``scaled_dot_product_attention`` on the same inputs
-             (``library_ms``, a yardstick the port never calls). ``ms`` and
+             plain version's times, the least time the card could take
+             (``bound``) and its share of ``ms`` (``bound_share``); for
+             ``flash_attention`` also the time of PyTorch's
+             ``scaled_dot_product_attention`` on the same inputs
+             (``library_ms``, a yardstick the port never calls) and the
+             achieved TFLOP/s by the function's 4 D FLOPs a causal pair
+             (``tflops``); ``minplus_step`` is timed at B 32 (the row)
+             and at B 8 (``by_batch``). ``ms`` and
              ``plain_ms`` are device time: back-to-back calls captured in
              one CUDA graph and timed over a replay (``timing: graph``);
              the two cooperative fused kernels, which are not captured,
@@ -574,7 +578,8 @@ def fabric_kernel_rows(fabric, device, batch):
 
 def minplus_row(fab, device):
     """Exact agreement at N = tiles of the fabric for B in {1, 8, 32}, on
-    the router's own coarse weights; times at B = 32."""
+    the router's own coarse weights; times at B = 32 (the row) and B = 8
+    (the common bucket, in ``by_batch``)."""
     from repro_torch.kernels import minplus as mp
 
     res = fab.resources()
@@ -584,6 +589,7 @@ def minplus_row(fab, device):
     n = w.shape[0]
     rng = np.random.default_rng(2)
     err = 0.0
+    by_b = {}
     for b in (1, 8, 32):
         d0 = np.full((b, n), mp.INF, np.float32)
         live = max(1, (3 * b) // 4)             # the rest: padding lanes
@@ -605,15 +611,19 @@ def minplus_row(fab, device):
                            mp.minplus_step_plain(d0, w)):
             raise AssertionError(f"minplus_step differs at B={b}")
         err = max(err, float((got - want).abs().max()))
-    b_ms, b_by = bound(nbytes(d0, w, d0), 2 * d0.shape[0] * n * n)
+        if b > 1:                      # the common bucket and the largest
+            b_ms, b_by = bound(nbytes(d0, w, d0), 2 * b * n * n)
+            by_b[b] = {**timings(lambda: mp.minplus_step(d0, w),
+                                 lambda: mp.minplus_step_plain(d0, w)),
+                       "bound_ms": b_ms, "bound_by": b_by}
     return {"name": "minplus_step", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/minplus.cu",
             "replaces": "src/repro/kernels/minplus.py:80",
-            "max_abs_err": err,
-            **timings(lambda: mp.minplus_step(d0, w),
-                      lambda: mp.minplus_step_plain(d0, w)),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "shape": {"B": int(d0.shape[0]), "N": n}}
+            "max_abs_err": err, **by_b[32], "library_ms": None,
+            "shape": {"B": 32, "N": n},
+            "by_batch": {str(b): {k: r[k] for k in ("ms", "plain_ms",
+                                                    "call_ms", "bound_ms")}
+                         for b, r in by_b.items()}}
 
 
 def bbox_row(routed, device):
@@ -976,20 +986,21 @@ def flash_row(device, b=LM_BATCH, hq=32, hkv=4, s=LM_SEQ, d=64):
     row_control("flash_attention", leaky_attention(q, k, v), want,
                 atol=FLASH_ATOL, rtol=FLASH_RTOL)
     pairs = s * (s + 1) // 2                    # causal (q, k) pairs
-    b_ms, b_by = bound(nbytes(q, k, v, got), 4 * b * hq * d * pairs,
-                       TENSOR_BF16_FLOPS_PER_S)
+    flops = 4 * b * hq * d * pairs              # the function's 4 D a pair
+    b_ms, b_by = bound(nbytes(q, k, v, got), flops, TENSOR_BF16_FLOPS_PER_S)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = timings(lambda: fa.flash_attention_gqa(q, k, v, causal=True),
+                    lambda: fa.flash_attention_gqa_plain(q, k, v,
+                                                         causal=True),
+                    reps=10, plain_reps=5)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:94",
-            "max_abs_err": err,
-            **timings(lambda: fa.flash_attention_gqa(q, k, v, causal=True),
-                      lambda: fa.flash_attention_gqa_plain(q, k, v,
-                                                           causal=True),
-                      reps=10, plain_reps=5),
+            "max_abs_err": err, **times,
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": graph_ms(lambda: sdpa(q, k, v, is_causal=True,
                                                 enable_gqa=True), 10),
+            "tflops": flops / (times["ms"] * 1e-3) / 1e12,
             "shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d,
                       "dtype": "bfloat16", "causal": True}}
 
@@ -1158,10 +1169,13 @@ def drive(spec, device, t_start):
                                                               0)
     for row in rows:
         row.setdefault("call_ms", row["ms"])
+        row["bound_share"] = row["bound_ms"] / row["ms"]
     keys = ("name", "route", "source", "replaces", "launches", "path",
             "max_abs_err", "ms", "plain_ms", "call_ms", "timing",
-            "bound_ms", "bound_by", "library_ms", "shape")
-    rows = [{k: row[k] for k in keys} for row in rows]
+            "bound_ms", "bound_by", "bound_share", "library_ms", "shape")
+    extra = ("tflops", "by_batch")
+    rows = [{**{k: row[k] for k in keys},
+             **{k: row[k] for k in extra if k in row}} for row in rows]
 
     print(json.dumps({"phases": phases}))
     print(json.dumps({"pnr_seconds": report["pnr_s"],

@@ -8,12 +8,14 @@ are ``NEG_INF = -1e30`` (keys past the query position when causal, with
 0-based positions for queries and keys alike); the output divides by
 ``max(l, 1e-30)`` and is cast back to q's dtype.
 
-CUDA tensors run the hand-written kernel in ``csrc/flash_attention.cu``
-(one block per (batch*head, 64-query tile), K/V tiles staged through
-shared memory, online softmax, causal tiles above the diagonal skipped,
-the GQA kv head ``h // rep`` indexed instead of repeated); CPU tensors the
-plain PyTorch version beside it. The kernel takes float32 or bfloat16
-inputs with head dim 64 or 128 and raises on anything else.
+CUDA tensors run a hand-written kernel in ``csrc/flash_attention.cu``,
+chosen by dtype: bfloat16 the tensor-core kernel (bf16 ``wgmma``, K/V
+tiles through a TMA ring, P carried as two bf16 terms so the output stays
+within one bf16 ulp of the plain version), float32 the CUDA-core kernel
+(full float32). Both run the online softmax, skip causal tiles above the
+diagonal and index the GQA kv head ``h // rep`` instead of repeating it.
+CPU tensors run the plain PyTorch version beside it. The kernels take
+head dim 64 or 128 and raise on anything else; nothing falls back.
 """
 from __future__ import annotations
 

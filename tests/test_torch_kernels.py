@@ -364,6 +364,56 @@ def test_flash_attention_full_matches_pallas(jlm):
     np.testing.assert_allclose(got[0].numpy(), want, atol=2e-5, rtol=2e-5)
 
 
+def tensor_core_model(q, k, v, causal, keys=128, split=True):
+    """The bf16 tensor-core kernel's rounding, in float32 torch: per tile
+    of ``keys`` keys, S = Q K^T of the bf16 values with float32 sums, then
+    scaled; the online softmax in float32; P carried as two bf16 terms
+    hi = bf16(p), lo = bf16(p - hi) (only hi with ``split=False``), each
+    multiplied by V with float32 sums; the output divided by
+    max(l, 1e-30) and rounded to bf16."""
+    b, hq, sq, d = q.shape
+    rep = hq // k.shape[1]
+    k, v = (t.repeat_interleave(rep, 1).float() for t in (k, v))
+    skv = k.shape[2]
+    q = q.float()
+    m = torch.full((b, hq, sq, 1), flash_attention.NEG_INF)
+    den = torch.zeros((b, hq, sq, 1))
+    acc = torch.zeros((b, hq, sq, d))
+    qi = torch.arange(sq)[:, None]
+    for k0 in range(0, skv, keys):
+        kt, vt = k[:, :, k0:k0 + keys], v[:, :, k0:k0 + keys]
+        s = (q @ kt.transpose(-1, -2)) * (1.0 / d ** 0.5)
+        if causal:
+            ki = torch.arange(k0, k0 + kt.shape[2])[None, :]
+            s = s.masked_fill(qi < ki, flash_attention.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        den = den * alpha + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        lo = (p - hi).bfloat16().float() if split else torch.zeros_like(p)
+        acc = acc * alpha + hi @ vt + lo @ vt
+        m = m_new
+    return (acc / den.clamp_min(1e-30)).bfloat16()
+
+
+def test_flash_attention_hi_lo_probabilities_keep_the_tolerance():
+    """The precision argument of the bf16 tensor-core kernel, without the
+    card: its rounding (bf16 products summed in float32, P as bf16
+    hi + lo) stays within the card tests' bf16 tolerance of the plain
+    version (1e-4 + 2^-7 |want|: one bf16 ulp of the output), at a mid
+    shape with GQA; P rounded once to bf16 does not."""
+    q, k, v = (torch.as_tensor(a).bfloat16()
+               for a in attention_case(512, 512, 4, 2, b=1, seed=14))
+    want = flash_attention.flash_attention_gqa_plain(q, k, v, causal=True)
+    got = tensor_core_model(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-4,
+                               rtol=2.0 ** -7)
+    one_term = tensor_core_model(q, k, v, causal=True, split=False)
+    assert not torch.allclose(one_term.float(), want.float(), atol=1e-4,
+                              rtol=2.0 ** -7)
+
+
 def ssd_case(bh, l, p, n, seed):
     """The reference test's inputs: dt in [0.1, 0.6), a in (-1.5, -0.5],
     b and c 0.3 N(0, 1)."""
@@ -462,7 +512,9 @@ class TestCudaKernels:
         torch.cuda.synchronize()
         assert torch.equal(got, want)
 
-    @pytest.mark.parametrize("b,n", [(1, 1024), (8, 1000), (32, 257)])
+    @pytest.mark.parametrize("b,n", [(1, 1024), (8, 1000), (32, 257),
+                                     (32, 1024), (33, 1000), (64, 129),
+                                     (1, 1)])
     def test_minplus(self, cuda, b, n):
         d, w = minplus_case(b, b, n)
         d_t, w_t = torch.as_tensor(d, device=cuda), torch.as_tensor(
@@ -534,6 +586,19 @@ class TestCudaKernels:
         (2, 2, 2, 130, 384, 64, "float32", True),
         (1, 3, 3, 70, 150, 128, "float32", False),
         (1, 2, 1, 1, 1, 64, "float32", True),
+        # bf16 runs the tensor-core kernel: 128-row query tiles, 128-key
+        # (D 64) or 64-key (D 128) tiles; these reach its edges
+        (1, 4, 2, 130, 130, 64, "bfloat16", True),
+        (2, 4, 4, 70, 70, 64, "bfloat16", True),
+        (1, 4, 2, 130, 384, 64, "bfloat16", True),
+        (1, 2, 2, 300, 100, 64, "bfloat16", True),
+        (2, 4, 2, 200, 333, 64, "bfloat16", False),
+        (1, 3, 3, 70, 150, 128, "bfloat16", False),
+        (1, 4, 4, 256, 256, 128, "bfloat16", True),
+        (1, 8, 2, 300, 300, 128, "bfloat16", True),
+        (1, 16, 2, 190, 190, 128, "bfloat16", True),
+        (1, 2, 1, 1, 1, 64, "bfloat16", True),
+        (1, 2, 2, 1, 1, 128, "bfloat16", True),
     ])
     def test_flash_attention(self, cuda, b, hq, hkv, sq, skv, d, dtype,
                              causal):
