@@ -77,11 +77,14 @@ after; each must have launched the kernels it exists to drive.
              (``tflops``); ``minplus_step`` is timed at B 32 (the row)
              and at B 8 (``by_batch``). ``ms`` and
              ``plain_ms`` are device time: back-to-back calls captured in
-             one CUDA graph and timed over a replay (``timing: graph``);
-             the two cooperative fused kernels, which are not captured,
-             are timed by CUDA events around back-to-back calls
-             (``timing: events``). ``call_ms`` is the cost of one call
-             from Python, wrapper included, by CUDA events.
+             one CUDA graph and timed over a replay (``timing: graph``;
+             the fused kernels' plain versions, thousands of small
+             launches, by CUDA events). ``call_ms`` is the cost of one
+             call from Python, wrapper included, by CUDA events. The two
+             fused rows also give their variant (cluster size or
+             ``global``), the clusters the card holds at once, the sweeps
+             a launch runs, the microseconds a sweep and the share of a
+             sweep's shared-memory reads that stay in the reading block.
 
 Before the last line it prints each phase's seconds and launches, the
 per-app PnR seconds, the emulation times, the ``kernels`` JSON line and
@@ -491,7 +494,10 @@ def random_workload(fabric, batch, seed):
     return cfgs, ext, depths
 
 
-def fabric_kernel_rows(fabric, device, batch):
+def fused_workload(fabric, device, batch):
+    """The fused kernels' inputs at ``fabric``'s size: ``batch`` random
+    configurations (``random_workload``), random PE programs, cycle 0's
+    pinned values. Returns (batch_args, run_args, run_kw, depths)."""
     from repro_torch.core.lowering import WORD
     from repro_torch.kernels import fabric_step as fs
 
@@ -524,32 +530,100 @@ def fabric_kernel_rows(fabric, device, batch):
                 i32(s["io_out"]))
     run_kw = dict(n_reg=s["n_reg"], n_io=fabric.num_io,
                   n_mem=fabric.num_mem, max_depth=max_depth, word=WORD)
+    return batch_args, run_args, run_kw, depths_np
+
+
+def local_share(batch_args, cluster, ordered=True):
+    """Share of a sweep's shared-memory reads that land in the reading
+    block, for lanes split over ``cluster`` blocks in contiguous ranges
+    of ceil((N + 1) / cluster) node slots, nodes placed by
+    ``fused_order`` (``ordered``) or in IR order: one read per node that
+    is not a PE output, one per operand of a PE output that is neither an
+    immediate nor absent fan-in (three for res0, one for res1)."""
+    from repro_torch.kernels import fabric_step as fs
+
+    (_, sel, _, _, _, _, imm_mask, _, src, keep, pin_mask, pe_in,
+     pe_res_idx) = batch_args
+    n = sel.shape[1]
+    p = pe_in.shape[0]
+    chunk = -(-(n + 1) // cluster)
+    slot = (fs.fused_order(src)[1].long() if ordered else
+            torch.arange(n + 1, device=sel.device))
+    i = torch.arange(n, device=sel.device)
+    own = (pin_mask > 0) | (keep > 0)
+    reads = torch.where(own[None], i[None], fs._picked(src, sel).long())
+    res = pe_res_idx.long()
+    is_pe = res < 2 * p
+    home = slot[:n] // chunk
+    same = (slot[reads] // chunk == home[None])[:, ~is_pe]
+    local, total = int(same.sum()), same.numel()
+    node, k = i[is_pe], res[is_pe] // 2
+    for j in range(3):
+        u = pe_in[k, j].long()
+        live = (((j == 0) | (res[is_pe] % 2 == 0)) & (u < n))[None] \
+            & (imm_mask[:, k, j] <= 0)
+        hit = slot[reads[:, u.clamp(max=n - 1)]] // chunk == home[node][None]
+        local += int((hit & live).sum())
+        total += int(live.sum())
+    return local / total
+
+
+def fused_shape(kernel, n, p, depths, max_depth, cycles, ms):
+    """The fused rows' variant and sweep counts: ``sweeps`` is the
+    deepest lane's sweeps a launch (lanes run side by side), ``lane_sweeps``
+    their sum."""
+    from repro_torch.kernels import fabric_step as fs
+
+    cluster = fs.fused_cluster(n, p)
+    run = np.minimum(np.maximum(depths, 0), max_depth)
+    sweeps = cycles * int(run.max())
+    return {"variant": cluster or "global",
+            "active_clusters": (fs.active_clusters(kernel, n, p, cluster)
+                                if cluster else None),
+            "sweeps": sweeps, "lane_sweeps": cycles * int(run.sum()),
+            "us_per_sweep": ms * 1e3 / max(sweeps, 1)}
+
+
+def fabric_kernel_rows(fabric, device, batch):
+    from repro_torch.kernels import fabric_step as fs
+
+    batch_args, run_args, run_kw, depths_np = fused_workload(fabric, device,
+                                                             batch)
+    max_depth = run_kw["max_depth"]
+    n = fabric.arrays.num_nodes
+    p = fabric.fused_tables["num_pe_slots"]
+    cluster = fs.fused_cluster(n, p)
+    share = ({"ordered": local_share(batch_args, cluster),
+              "ir_order": local_share(batch_args, cluster, ordered=False)}
+             if cluster else None)
+    bkw = dict(max_depth=max_depth, word=run_kw["word"])
 
     rows = []
-    got = fs.fabric_fused_batch(*batch_args, max_depth=max_depth, word=WORD)
-    want = fs.fabric_fused_batch_plain(*batch_args, max_depth=max_depth,
-                                       word=WORD)
+    got = fs.fabric_fused_batch(*batch_args, **bkw)
+    want = fs.fabric_fused_batch_plain(*batch_args, **bkw)
     torch.cuda.synchronize()
     err = int((got.long() - want.long()).abs().max())
     if not torch.equal(got, want):
         raise AssertionError(f"fabric_fused_batch differs (max {err})")
     sweeps = int(np.minimum(depths_np, max_depth).sum())
-    b_ms, b_by = bound(nbytes(*batch_args[1:]) + nbytes(got),
-                       sweeps * fabric.arrays.num_nodes)
+    b_ms, b_by = bound(nbytes(*batch_args[1:]) + nbytes(got), sweeps * n)
+    ms = graph_ms(lambda: fs.fabric_fused_batch(*batch_args, **bkw), 20)
     rows.append({
         "name": "fabric_fused_batch", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fabric_step.cu",
         "replaces": "src/repro/kernels/fabric_step.py:324",
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: fs.fabric_fused_batch(
-            *batch_args, max_depth=max_depth, word=WORD)),
+        "max_abs_err": err, "ms": ms,
+        "call_ms": cuda_ms(lambda: fs.fabric_fused_batch(*batch_args,
+                                                         **bkw)),
         "plain_ms": cuda_ms(lambda: fs.fabric_fused_batch_plain(
-            *batch_args, max_depth=max_depth, word=WORD), reps=2),
-        "timing": "events",
+            *batch_args, **bkw), reps=2),
+        "timing": "graph",
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "shape": {"B": batch, "N": fabric.arrays.num_nodes,
-                  "F": fabric.arrays.max_fanin, "P": p,
-                  "max_depth": max_depth, "depths": depths_np.tolist()}})
+        "shape": {"B": batch, "N": n, "F": fabric.arrays.max_fanin,
+                  "P": p, "max_depth": max_depth,
+                  "depths": depths_np.tolist(), "local_share": share,
+                  **fused_shape("fabric_fused_batch", n, p, depths_np,
+                                max_depth, 1, ms)}})
 
     got = fs.fabric_fused_run(*run_args, chunk=IO_CHUNK, **run_kw)
     want = fs.fabric_fused_run_plain(*run_args, chunk=IO_CHUNK, **run_kw)
@@ -557,22 +631,25 @@ def fabric_kernel_rows(fabric, device, batch):
     err = int((got.long() - want.long()).abs().max())
     if not torch.equal(got, want):
         raise AssertionError(f"fabric_fused_run differs (max {err})")
-    b_ms, b_by = bound(nbytes(*run_args) + nbytes(got),
-                       T * sweeps * fabric.arrays.num_nodes)
+    b_ms, b_by = bound(nbytes(*run_args) + nbytes(got), T * sweeps * n)
+    ms = graph_ms(lambda: fs.fabric_fused_run(*run_args, chunk=IO_CHUNK,
+                                              **run_kw), 5)
     rows.append({
         "name": "fabric_fused_run", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fabric_step.cu",
         "replaces": "src/repro/kernels/fabric_step.py:519",
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: fs.fabric_fused_run(*run_args, chunk=IO_CHUNK,
-                                                  **run_kw)),
+        "max_abs_err": err, "ms": ms,
+        "call_ms": cuda_ms(lambda: fs.fabric_fused_run(
+            *run_args, chunk=IO_CHUNK, **run_kw)),
         "plain_ms": cuda_ms(lambda: fs.fabric_fused_run_plain(
             *run_args, chunk=IO_CHUNK, **run_kw), reps=1),
-        "timing": "events",
+        "timing": "graph",
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "shape": {"B": batch, "T": T, "N": fabric.arrays.num_nodes,
-                  "n_io": fabric.num_io, "R": s["n_reg"],
-                  "M": fabric.num_mem, "max_depth": max_depth}})
+        "shape": {"B": batch, "T": T, "N": n, "n_io": fabric.num_io,
+                  "R": run_kw["n_reg"], "M": fabric.num_mem,
+                  "max_depth": max_depth, "local_share": share,
+                  **fused_shape("fabric_fused_run", n, p, depths_np,
+                                max_depth, T, ms)}})
     return rows
 
 

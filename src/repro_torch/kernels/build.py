@@ -52,9 +52,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "canal_fabric_sweep": [_P, _P, _P, _P, _I, _I, _P],
     "canal_fabric_sweep_batch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "canal_fabric_fused_batch": [_P] * 13 + [_P, _P, _P] + [_I] * 6 + [_P],
-    "canal_fabric_fused_run": [_P] * 16 + [_P, _P, _P, _P, _P]
-                              + [_I] * 10 + [_P],
+    "canal_fabric_fused_batch": [_P] * 15 + [_P] * 3 + [_I] * 7 + [_P],
+    "canal_fabric_fused_run": [_P] * 18 + [_P] * 5 + [_I] * 11 + [_P],
+    "canal_fabric_fused_clusters": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)],
     "canal_minplus_step": [_P, _P, _P, _I, _I, _P],
     "canal_net_bboxes": [_P, _P, _P, _I, _I, _P],
     "canal_hpwl": [_P, _P, _P, _I, _I, _P],

@@ -14,26 +14,61 @@
 //   nv[i] = PE ALU  : res[pe_res_idx[i]]         where pe_res_idx[i] < 2P
 //
 // A PE output node evaluates its PE from the gathered-and-pinned values of
-// the PE's input nodes, which it recomputes from the previous vector
-// itself. Every new value is then a function of the previous vector
-// alone, so one grid-wide barrier per sweep suffices and no PE scratch is
-// needed (the TPU kernel's "read all PE inputs before placing outputs").
+// the PE's input nodes, which it reads from the previous vector itself.
+// Every new value is then a function of the previous vector alone, so one
+// barrier per sweep suffices and no PE scratch is needed (the TPU kernel's
+// "read all PE inputs before placing outputs"). Lane b runs exactly
+// min(depths[b], max_depth) sweeps.
 //
-// Memory: at the Amber FULL size one lane's vector is 86,288 int32, so
-// v/nv for a lane (690 KB) exceed a block's 227 KB of shared memory. The
-// double-buffered (2, B, N+1) value matrices live in device memory (3.5 MB
-// at B = 5, L2-resident on a 50 MB L2) and every block walks the whole
-// (B, N) index space grid-stride. The grid is one cooperative launch,
-// sized to be co-resident, with grid.sync() between sweeps.
+// Bound. chip_smoke.py bounds fabric_fused_batch by bytes (every input
+// read once) and fabric_fused_run by operations (one per node update, at
+// the CUDA-core rate). Neither counts that a lane's sweeps run one after
+// another: what bounds both on this card is sweeps x (one barrier + one
+// dependent load of the previous vector).
 //
-// Bound: bytes. Per sweep a node reads its flags, its picked source index
-// and one gathered value; the least traffic of a call is the src table
-// plus B x N x (sel + out) (see PERF.md).
+// Two variants, chosen by the wrapper's size rule (fabric_step.py,
+// fused_cluster), never on a failure:
 //
-// Per-lane depth: lane b runs min(depths[b], max_depth) sweeps. A lane
-// that is done still reaches every grid.sync() (a return would deadlock
-// the grid); it just stops swapping buffers, so its result sits in
-// buffer (sweeps & 1).
+// Cluster (a lane fits a cluster's shared memory: 16 ceil((N + 1) / C) +
+// 64 P + 16 <= 227 KB with C <= 8 blocks on an H100). One thread block
+// cluster per lane, launched with cudaLaunchKernelEx; clusters that do not
+// fit the card at once queue, as no cluster waits on another. The lane's
+// N + 1 node slots are split over the cluster's blocks in contiguous
+// ranges of `chunk`. The wrapper's node order (node_of / slot_of) puts
+// each node beside the nodes it reads, so most reads stay in the reading
+// block (the IR numbers switch-box, register and register-mux nodes in
+// separate runs, and contiguous ranges of IR order kept only ~54% of reads
+// at home at FULL). Each block keeps in
+// shared memory, for its slots, four arrays of 32-bit words (16 B a slot),
+// and a table of 2P PE records (32 B each): 172.6 + 49.9 KB a block at the
+// Amber FULL size (N 86,288, P 780, 8 blocks):
+//   val[0], val[1]  the double-buffered value vector (sentinel N is 0 in
+//                   both and never written),
+//   pin             the pinned values (fabric_fused_run rewrites them
+//                   every cycle from its state; nothing else is kept of
+//                   the state),
+//   desc            each node's descriptor, resolved once per launch from
+//                   the global tables (pe_res_idx, pin_mask, keep, sel,
+//                   src): where its value comes from, as (block rank,
+//                   slot) of the vector or of `pin`, or a PE record,
+//   rec             the records of the PE outputs among its slots, packed
+//                   (room for all 2P): the slot, the op, the constant and
+//                   three operands (an immediate, or a resolved (rank,
+//                   slot)). Kept in global memory, their dependent loads
+//                   took ~60% of a sweep at FULL; evaluated inside the
+//                   node loop, a warp walked the PE path for one lane.
+// A sweep then costs a node one shared-memory descriptor read, one read of
+// the vector (ld.shared in its own block; mapa + ld.shared::cluster through
+// the cluster's distributed shared memory when the descriptor flags it
+// remote) and one store, with kUnroll slots' loads in flight a thread;
+// between sweeps one cluster barrier (barrier.cluster), not a grid
+// barrier. fabric_fused_run keeps the whole cycle loop in the cluster: pin
+// from the state on a zero background, the fixpoint, observe io_out, clock
+// registers and memories, load the next stimulus.
+//
+// Global (larger fabrics). One cooperative launch walks double-buffered
+// (2, B, N+1) value matrices in device memory with grid.sync() between
+// sweeps; every node update re-reads its chain of tables from L2.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,8 +76,6 @@
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int kThreads = 256;
 
 struct Fabric {
     // shared node / PE tables
@@ -58,11 +91,26 @@ struct Fabric {
     const int* cst;         // (B, P)
     const int* imm_mask;    // (B, P, 4)
     const int* imm_val;     // (B, P, 4)
-    // scratch
+    // cluster variant's node order
+    const int* node_of;     // (N,) node in each slot
+    const int* slot_of;     // (N + 1,) slot of each node, slot_of[N] == N
+    // global variant's scratch
     int* buf;               // (2, B, N + 1) value vectors, [N] == 0
     int* picked;            // (B, N) selected source per node
     const int* pinv;        // (B, N) pinned values
     int B, N, F, P, max_depth, word;
+};
+
+struct Stream {
+    const int* ext;         // (B, T, n_io)
+    const int* pin_src;     // (N,) node -> state slot
+    const int* reg_src;     // (R,)
+    const int* mem_in;      // (M,)
+    const int* io_out;      // (n_io,)
+    int* obs;               // (B, T, n_io)
+    int* pinv;              // (B, N)  global variant's scratch
+    int* state;             // (B, S): [regs | io | mem | 0], global variant
+    int T, n_reg, n_io, n_mem;
 };
 
 __device__ __forceinline__ int lane_sweeps(const Fabric& f, int b) {
@@ -71,35 +119,364 @@ __device__ __forceinline__ int lane_sweeps(const Fabric& f, int b) {
     return d < f.max_depth ? d : f.max_depth;
 }
 
-__device__ __forceinline__ int* lane_buf(const Fabric& f, int which, int b) {
-    return f.buf + ((size_t)which * f.B + b) * (size_t)(f.N + 1);
-}
-
-// PE ALU in PE_OPS order. Wrapping ops run in uint32 (signed overflow is
-// undefined in C++); >> is arithmetic; shift amounts clip to [0, 15].
+// PE ALU in PE_OPS order; any other op passes a through (res1 is op -1).
+// Wrapping ops run in uint32 (signed overflow is undefined in C++); >> is
+// arithmetic; shift amounts clip to [0, 15]. Every
+// op is computed and the result selected, with no branch: the PEs of one
+// warp run different ops, and a switch would run them one after another.
 __device__ __forceinline__ int32_t pe_alu(int op, int32_t a, int32_t b,
                                           int32_t c, int32_t k) {
     const uint32_t ua = (uint32_t)a, ub = (uint32_t)b;
     const int s = b < 0 ? 0 : (b > 15 ? 15 : b);
-    switch (op) {
-        case 0: return (int32_t)(ua + ub);                 // add
-        case 1: return (int32_t)(ua - ub);                 // sub
-        case 2: return (int32_t)(ua * ub);                 // mul
-        case 3: return a & b;                              // and
-        case 4: return a | b;                              // or
-        case 5: return a ^ b;                              // xor
-        case 6: return (int32_t)(ua << s);                 // shl
-        case 7: return a >> s;                             // shr
-        case 8: return a < b ? a : b;                      // min
-        case 9: return a > b ? a : b;                      // max
-        case 10: {                                         // abs(a - b)
-            const uint32_t d = ua - ub;
-            return (int32_t)d < 0 ? (int32_t)(0u - d) : (int32_t)d;
-        }
-        case 11: return (a & 1) ? b : c;                   // sel
-        case 12: return k;                                 // const
-        default: return a;                                 // pass
+    const uint32_t d = ua - ub;
+    int32_t r = a;                                          // pass
+    r = op == 0 ? (int32_t)(ua + ub) : r;                   // add
+    r = op == 1 ? (int32_t)d : r;                           // sub
+    r = op == 2 ? (int32_t)(ua * ub) : r;                   // mul
+    r = op == 3 ? (a & b) : r;                              // and
+    r = op == 4 ? (a | b) : r;                              // or
+    r = op == 5 ? (a ^ b) : r;                              // xor
+    r = op == 6 ? (int32_t)(ua << s) : r;                   // shl
+    r = op == 7 ? (a >> s) : r;                             // shr
+    r = op == 8 ? (a < b ? a : b) : r;                      // min
+    r = op == 9 ? (a > b ? a : b) : r;                      // max
+    r = op == 10 ? ((int32_t)d < 0 ? (int32_t)(0u - d) : (int32_t)d)
+                 : r;                                       // abs(a - b)
+    r = op == 11 ? ((a & 1) ? b : c) : r;                   // sel
+    r = op == 12 ? k : r;                                   // const
+    return r;
+}
+
+// ------------------------------------------------------ the cluster variant
+constexpr int kClusterThreads = 1024;
+constexpr int kUnroll = 4;                  // slots a thread loads at once
+// A descriptor or operand is one 32-bit word:
+constexpr uint32_t kSpecial = 0x80000000u;  // node: PE output; operand: const
+constexpr uint32_t kRemote = 0x40000000u;   // in another block of the cluster
+constexpr uint32_t kPin = 0x20000000u;      // read `pin`, not the vector
+constexpr uint32_t kSlot = 0x00FFFFFFu;     // bits 0-23: slot in its block
+constexpr int kRankShift = 24;              // bits 24-28: the block's rank
+constexpr uint32_t kRankMask = 31u;
+
+// This block's part of its lane.
+struct Lane {
+    int b;                  // the lane (cluster index)
+    int rank;               // this block's rank in the cluster
+    int lo;                 // first node slot of this block
+    int nodes;              // nodes < N among its slots
+    int chunk;              // slots a block
+    int* val0;
+    int* val1;
+    int* pin;
+    uint32_t* desc;
+    uint32_t sval0, sval1, spin;  // shared-window addresses of the arrays
+    int4* rec;              // PE records of this block's outputs, 2 each
+    int* n_pe;              // their count
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ Lane make_lane(const Fabric& f, int* smem) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int c = (int)cluster.num_blocks();
+    Lane l;
+    l.b = blockIdx.x / c;
+    l.chunk = (f.N + c) / c;                         // ceil((N + 1) / c)
+    l.rank = (int)cluster.block_rank();
+    l.lo = l.rank * l.chunk;
+    const int hi = min(f.N, l.lo + l.chunk);
+    l.nodes = hi > l.lo ? hi - l.lo : 0;
+    l.val0 = smem;
+    l.val1 = smem + l.chunk;
+    l.pin = smem + 2 * l.chunk;
+    l.desc = reinterpret_cast<uint32_t*>(smem + 3 * l.chunk);
+    l.sval0 = smem_addr(l.val0);
+    l.sval1 = smem_addr(l.val1);
+    l.spin = smem_addr(l.pin);
+    l.rec = reinterpret_cast<int4*>(smem + 4 * l.chunk);
+    l.n_pe = smem + 4 * l.chunk + 16 * f.P;
+    return l;
+}
+
+// The node in slot `pos` (< N) and the slot of node x (0..N; N stays N).
+__device__ __forceinline__ int node_at(const Fabric& f, int pos) {
+    return __ldg(f.node_of + pos);
+}
+
+// Node x (0..N) as (rank, slot in that block), flagged when it lies in
+// another block than this one.
+__device__ __forceinline__ uint32_t locate(const Fabric& f, const Lane& l,
+                                           int x) {
+    const int pos = __ldg(f.slot_of + x);
+    const int rank = pos / l.chunk;
+    return ((uint32_t)rank << kRankShift) | (uint32_t)(pos % l.chunk) |
+           (rank != l.rank ? kRemote : 0u);
+}
+
+// The operand that reads node u's value after gather, hold and re-pin
+// (before PE placement); u == N (absent fan-in) is the constant 0.
+__device__ uint32_t gathered_operand(const Fabric& f, const Lane& l, int u) {
+    if (u >= f.N) return kSpecial;
+    if (__ldg(f.pin_mask + u) > 0) return kPin | locate(f, l, u);
+    if (__ldg(f.keep + u) > 0) return locate(f, l, u);
+    const int s = __ldg(f.sel + (size_t)l.b * f.N + u);
+    return locate(f, l, __ldg(f.src + (size_t)u * f.F + s));
+}
+
+// Node `node`'s descriptor: where its value comes from, or kSpecial for a
+// PE output, which the block's PE records compute.
+__device__ __forceinline__ uint32_t describe(const Fabric& f, const Lane& l,
+                                             int node) {
+    if (__ldg(f.pe_res_idx + node) < 2 * f.P) return kSpecial;
+    return gathered_operand(f, l, node);
+}
+
+// The record of PE result r, placed in this block's `slot`: (slot and op
+// + 1 in bits 24-31, op -1 for res1 = a & word; the PE's constant) then
+// (operand, constant) for a, b and c.
+__device__ void pe_record(const Fabric& f, const Lane& l, int r, int slot,
+                          int4* rec) {
+    const int k = r >> 1;
+    const size_t pk = (size_t)l.b * f.P + k;
+    uint32_t o[3] = {kSpecial, kSpecial, kSpecial};
+    int c[3] = {0, 0, 0};
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+        if (j > 0 && (r & 1)) break;          // res1 needs input a only
+        if (__ldg(f.imm_mask + pk * 4 + j) > 0)
+            c[j] = __ldg(f.imm_val + pk * 4 + j);
+        else
+            o[j] = gathered_operand(f, l, __ldg(f.pe_in + k * 4 + j));
     }
+    const int op = (r & 1) ? -1 : __ldg(f.op + pk);
+    rec[0] = make_int4(slot | ((op + 1) << kRankShift), __ldg(f.cst + pk),
+                       (int)o[0], c[0]);
+    rec[1] = make_int4((int)o[1], c[1], (int)o[2], c[2]);
+}
+
+// Slot k's descriptor; a PE output also appends its record to the block's.
+__device__ __forceinline__ uint32_t prepare(const Fabric& f, const Lane& l,
+                                            int node, int k) {
+    const uint32_t d = describe(f, l, node);
+    if (d == kSpecial)
+        pe_record(f, l, __ldg(f.pe_res_idx + node), k,
+                  l.rec + 2 * atomicAdd(l.n_pe, 1));
+    return d;
+}
+
+// Read a (rank, slot) of the vector at `sval` or, with kPin, of `pin`:
+// from this block's shared memory, or with kRemote through the cluster's
+// distributed shared memory. Both loads are predicated in one asm block:
+// a branch would keep a thread's kUnroll loads from being in flight at
+// once.
+__device__ __forceinline__ int32_t load(uint32_t d, uint32_t sval,
+                                        uint32_t spin) {
+    const uint32_t addr = ((d & kPin) ? spin : sval) + ((d & kSlot) << 2);
+    int32_t v;
+    asm volatile(
+        "{\n\t.reg .pred far;\n\t.reg .b32 ra;\n\t"
+        "setp.ne.b32 far, %2, 0;\n\t"
+        "mapa.shared::cluster.u32 ra, %1, %3;\n\t"
+        "@far ld.shared::cluster.u32 %0, [ra];\n\t"
+        "@!far ld.shared.u32 %0, [%1];\n\t}"
+        : "=r"(v)
+        : "r"(addr), "r"(d & kRemote), "r"((d >> kRankShift) & kRankMask));
+    return v;
+}
+
+// A PE operand: the constant c (kSpecial), else the value o locates. The
+// load runs either way (kSpecial's own bits locate slot 0 of this
+// block), so that no branch holds the PE's three loads apart.
+__device__ __forceinline__ int32_t operand(int o, int c, uint32_t sval,
+                                           uint32_t spin) {
+    const int32_t v = load((uint32_t)o, sval, spin);
+    return ((uint32_t)o & kSpecial) ? c : v;
+}
+
+// `sweeps` Jacobi sweeps from val0: every block reads the previous vector
+// of the whole cluster and writes its own slots of the other buffer: its
+// PE outputs from their records first (packed, so a warp evaluates up to
+// 32 PEs at once rather than one among 31 idle lanes, while the other
+// warps start on the nodes), then the other nodes; one cluster barrier a
+// sweep. Returns the buffer that holds the result.
+__device__ int fixpoint(const Fabric& f, const Lane& l, int sweeps) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int step = kUnroll * (int)blockDim.x;
+    const int n_pe = *l.n_pe;
+    for (int t = 0; t < sweeps; ++t) {
+        const uint32_t sv = (t & 1) ? l.sval1 : l.sval0;
+        int* to = (t & 1) ? l.val0 : l.val1;
+        for (int j = threadIdx.x; j < n_pe; j += blockDim.x) {
+            const int4 h = l.rec[2 * j];       // slot | op, const, a
+            const int4 g = l.rec[2 * j + 1];   // b, c
+            const int op = ((uint32_t)h.x >> kRankShift) - 1;  // -1: res1
+            to[h.x & kSlot] = pe_alu(op, operand(h.z, h.w, sv, l.spin),
+                                     operand(g.x, g.y, sv, l.spin),
+                                     operand(g.z, g.w, sv, l.spin), h.y) &
+                              f.word;
+        }
+        for (int k0 = threadIdx.x; k0 < l.nodes; k0 += step) {
+            uint32_t d[kUnroll];
+            int32_t v[kUnroll];
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+                const int k = k0 + u * (int)blockDim.x;
+                d[u] = k < l.nodes ? l.desc[k] : kSpecial;
+            }
+            // every slot loads (a PE output's kSpecial reads slot 0 of this
+            // block) and only the others store: a thread's kUnroll loads
+            // are in flight at once, with no branch between
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) v[u] = load(d[u], sv, l.spin);
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u)
+                if (!(d[u] & kSpecial)) to[k0 + u * (int)blockDim.x] = v[u];
+        }
+        cluster.sync();
+    }
+    return sweeps & 1;
+}
+
+__global__ void __launch_bounds__(kClusterThreads, 1)
+cluster_batch_kernel(Fabric f, const int* vals0, int* out) {
+    extern __shared__ int smem[];
+    cg::cluster_group cluster = cg::this_cluster();
+    const Lane l = make_lane(f, smem);
+    const size_t row = (size_t)l.b * f.N;
+    if (threadIdx.x == 0) *l.n_pe = 0;
+    __syncthreads();
+#pragma unroll 4
+    for (int k = threadIdx.x; k < l.chunk; k += blockDim.x) {
+        const int pos = l.lo + k;
+        if (pos < f.N) {
+            const int node = node_at(f, pos);
+            l.desc[k] = prepare(f, l, node, k);
+            l.val0[k] = vals0[row + node];
+            l.pin[k] = f.pinv[row + node];
+        } else if (pos == f.N) {
+            l.val0[k] = 0;
+            l.val1[k] = 0;
+        }
+    }
+    cluster.sync();
+    const int* res = fixpoint(f, l, lane_sweeps(f, l.b)) ? l.val1 : l.val0;
+    // after the last barrier only this block's own slots are read
+    for (int k = threadIdx.x; k < l.nodes; k += blockDim.x)
+        out[row + node_at(f, l.lo + k)] = res[k];
+}
+
+// State slot `slot` ([regs | io | mem | 0]) at the start of cycle c:
+// registers and memories are zero in cycle 0 and later take the previous
+// cycle's result vector (at `sres`); the io slots take cycle c's stimulus.
+__device__ __forceinline__ int32_t slot_value(const Fabric& f,
+                                              const Stream& s, const Lane& l,
+                                              int c, int slot,
+                                              uint32_t sres) {
+    const int j = slot - s.n_reg, m = j - s.n_io;
+    if (slot < s.n_reg)
+        return c == 0 ? 0
+                      : load(locate(f, l, __ldg(s.reg_src + slot)), sres, 0);
+    if (j < s.n_io)
+        return __ldg(s.ext + ((size_t)l.b * s.T + c) * s.n_io + j);
+    if (m < s.n_mem)
+        return c == 0 ? 0
+                      : load(locate(f, l, __ldg(s.mem_in + m)), sres, 0);
+    return 0;
+}
+
+__global__ void __launch_bounds__(kClusterThreads, 1)
+cluster_run_kernel(Fabric f, Stream s) {
+    extern __shared__ int smem[];
+    cg::cluster_group cluster = cg::this_cluster();
+    const Lane l = make_lane(f, smem);
+    const int first = (int)cluster.block_rank() * blockDim.x + threadIdx.x;
+    const int stride = (int)cluster.num_blocks() * blockDim.x;
+    if (threadIdx.x == 0) *l.n_pe = 0;
+    __syncthreads();
+#pragma unroll 4
+    for (int k = threadIdx.x; k < l.chunk; k += blockDim.x) {
+        const int pos = l.lo + k;
+        if (pos < f.N) {
+            l.desc[k] = prepare(f, l, node_at(f, pos), k);
+        } else if (pos == f.N) {
+            l.val0[k] = 0;
+            l.val1[k] = 0;
+        }
+    }
+    const int sweeps = lane_sweeps(f, l.b);
+    uint32_t sres = l.sval0;
+    for (int c = 0; c < s.T; ++c) {
+        // each cycle starts from the pinned sources on a zero background
+        for (int k = threadIdx.x; k < l.nodes; k += blockDim.x) {
+            const int node = node_at(f, l.lo + k);
+            l.pin[k] = __ldg(f.pin_mask + node) > 0
+                           ? slot_value(f, s, l, c, __ldg(s.pin_src + node),
+                                        sres)
+                           : 0;
+        }
+        if (c > 0) cluster.sync();        // the last vector is read out
+        for (int k = threadIdx.x; k < l.nodes; k += blockDim.x)
+            l.val0[k] = l.pin[k];
+        cluster.sync();
+        sres = fixpoint(f, l, sweeps) ? l.sval1 : l.sval0;
+        for (int j = first; j < s.n_io; j += stride)
+            s.obs[((size_t)l.b * s.T + c) * s.n_io + j] =
+                load(locate(f, l, __ldg(s.io_out + j)), sres, 0);
+    }
+    cluster.sync();      // no block leaves while another reads its slots
+}
+
+// Shared memory of one block: four words a slot, 32 B a PE record (room
+// for all 2P), the record count.
+size_t cluster_smem(int n, int p, int cluster) {
+    return (size_t)16 * (size_t)((n + cluster) / cluster) + (size_t)64 * p +
+           16;
+}
+
+template <typename... Params>
+cudaError_t cluster_config(void (*kernel)(Params...), int B, int N, int P,
+                           int cluster, cudaStream_t stream,
+                           cudaLaunchConfig_t* cfg,
+                           cudaLaunchAttribute* attr) {
+    const size_t smem = cluster_smem(N, P, cluster);
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess && cluster > 8)
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    attr->id = cudaLaunchAttributeClusterDimension;
+    attr->val.clusterDim.x = (unsigned)cluster;
+    attr->val.clusterDim.y = 1;
+    attr->val.clusterDim.z = 1;
+    *cfg = cudaLaunchConfig_t{};
+    cfg->gridDim = dim3((unsigned)B * (unsigned)cluster);
+    cfg->blockDim = dim3(kClusterThreads);
+    cfg->dynamicSmemBytes = smem;
+    cfg->stream = stream;
+    cfg->attrs = attr;
+    cfg->numAttrs = 1;
+    return err;
+}
+
+template <typename... Params, typename... Args>
+int launch_cluster(void (*kernel)(Params...), int B, int N, int P,
+                   int cluster, cudaStream_t stream, Args... args) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cudaError_t err = cluster_config(kernel, B, N, P, cluster, stream, &cfg,
+                                     &attr);
+    if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, kernel, args...);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------- the global variant
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ int* lane_buf(const Fabric& f, int which, int b) {
+    return f.buf + ((size_t)which * f.B + b) * (size_t)(f.N + 1);
 }
 
 // Node value after gather, hold and re-pin (before PE placement).
@@ -141,12 +518,12 @@ __device__ void pick_sources(const Fabric& f) {
     }
 }
 
-// The fixpoint, written once for both kernels: buffer 0 holds the start
-// vector of every lane; lane b's result ends in buffer (sweeps(b) & 1).
-// Threads stride over the flat (lane, node) space, so the lanes' node
-// updates (each a chain of dependent loads) run side by side rather than
-// one lane after another in the same thread.
-__device__ void fixpoint(cg::grid_group& grid, const Fabric& f) {
+// The fixpoint, written once for both global kernels: buffer 0 holds the
+// start vector of every lane; lane b's result ends in buffer
+// (sweeps(b) & 1). Threads stride over the flat (lane, node) space. A lane
+// that is done still reaches every grid.sync() (a return would deadlock
+// the grid); it just stops swapping buffers.
+__device__ void grid_fixpoint(cg::grid_group& grid, const Fabric& f) {
     const int total = f.B * f.N;
     const int stride = gridDim.x * blockDim.x;
     const int first = blockIdx.x * blockDim.x + threadIdx.x;
@@ -164,7 +541,7 @@ __device__ void fixpoint(cg::grid_group& grid, const Fabric& f) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-fused_batch_kernel(Fabric f, const int* vals0, int* out) {
+grid_batch_kernel(Fabric f, const int* vals0, int* out) {
     cg::grid_group grid = cg::this_grid();
     const size_t stride = (size_t)gridDim.x * blockDim.x;
     const size_t first = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -176,7 +553,7 @@ fused_batch_kernel(Fabric f, const int* vals0, int* out) {
     }
     pick_sources(f);
     grid.sync();
-    fixpoint(grid, f);
+    grid_fixpoint(grid, f);
     for (size_t idx = first; idx < (size_t)f.B * f.N; idx += stride) {
         const int b = (int)(idx / f.N);
         const int i = (int)(idx % f.N);
@@ -184,20 +561,8 @@ fused_batch_kernel(Fabric f, const int* vals0, int* out) {
     }
 }
 
-struct Stream {
-    const int* ext;         // (B, T, n_io)
-    const int* pin_src;     // (N,) node -> state slot
-    const int* reg_src;     // (R,)
-    const int* mem_in;      // (M,)
-    const int* io_out;      // (n_io,)
-    int* obs;               // (B, T, n_io)
-    int* pinv;              // (B, N)
-    int* state;             // (B, S): [regs | io | mem | 0]
-    int T, n_reg, n_io, n_mem;
-};
-
 __global__ void __launch_bounds__(kThreads)
-fused_run_kernel(Fabric f, Stream s) {
+grid_run_kernel(Fabric f, Stream s) {
     cg::grid_group grid = cg::this_grid();
     const size_t stride = (size_t)gridDim.x * blockDim.x;
     const size_t first = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -227,7 +592,7 @@ fused_run_kernel(Fabric f, Stream s) {
             lane_buf(f, 0, b)[i] = pv;
         }
         grid.sync();
-        fixpoint(grid, f);
+        grid_fixpoint(grid, f);
         // observe, then clock registers / memories and load the next
         // cycle's stimulus
         for (size_t idx = first; idx < (size_t)f.B * S; idx += stride) {
@@ -269,10 +634,12 @@ int cooperative_grid(Kernel kernel, size_t work, int* blocks) {
 Fabric make_fabric(const int* depths, const int* sel, const int* op,
                    const int* cst, const int* imm_mask, const int* imm_val,
                    const int* src, const int* keep, const int* pin_mask,
-                   const int* pe_in, const int* pe_res_idx, int* buf,
+                   const int* pe_in, const int* pe_res_idx,
+                   const int* node_of, const int* slot_of, int* buf,
                    int* picked, const int* pinv, int B, int N, int F, int P,
                    int max_depth, int word) {
     Fabric f;
+    f.node_of = node_of; f.slot_of = slot_of;
     f.src = src; f.keep = keep; f.pin_mask = pin_mask; f.pe_in = pe_in;
     f.pe_res_idx = pe_res_idx; f.depths = depths; f.sel = sel; f.op = op;
     f.cst = cst; f.imm_mask = imm_mask; f.imm_val = imm_val; f.buf = buf;
@@ -283,48 +650,86 @@ Fabric make_fabric(const int* depths, const int* sel, const int* op,
 
 }  // namespace
 
+// cluster > 0: the cluster variant with `cluster` blocks a lane, nodes
+// placed in slots by node_of / slot_of (no scratch); cluster == 0: the
+// global variant (scratch: buf, picked).
 extern "C" int canal_fabric_fused_batch(
     const int* depths, const int* vals0, const int* sel, const int* pin_vals,
     const int* op, const int* cst, const int* imm_mask, const int* imm_val,
     const int* src, const int* keep, const int* pin_mask, const int* pe_in,
-    const int* pe_res_idx, int* out, int* buf, int* picked, int B, int N,
-    int F, int P, int max_depth, int word, void* stream) {
+    const int* pe_res_idx, const int* node_of, const int* slot_of, int* out,
+    int* buf, int* picked, int B, int N, int F, int P,
+    int max_depth, int word, int cluster, void* stream) {
     Fabric f = make_fabric(depths, sel, op, cst, imm_mask, imm_val, src, keep,
-                           pin_mask, pe_in, pe_res_idx, buf, picked, pin_vals,
-                           B, N, F, P, max_depth, word);
+                           pin_mask, pe_in, pe_res_idx, node_of, slot_of, buf,
+                           picked, pin_vals, B, N, F, P, max_depth, word);
+    if (cluster > 0)
+        return launch_cluster(cluster_batch_kernel, B, N, P, cluster,
+                              (cudaStream_t)stream, f, vals0, out);
     int blocks = 0;
-    int err = cooperative_grid(fused_batch_kernel,
+    int err = cooperative_grid(grid_batch_kernel,
                                (size_t)B * (N + 1), &blocks);
     if (err) return err;
     void* args[] = {&f, &vals0, &out};
-    cudaLaunchCooperativeKernel((void*)fused_batch_kernel, dim3(blocks),
+    cudaLaunchCooperativeKernel((void*)grid_batch_kernel, dim3(blocks),
                                 dim3(kThreads), args, 0,
                                 (cudaStream_t)stream);
     return (int)cudaGetLastError();
 }
 
+// cluster > 0: the cluster variant, nodes placed by node_of / slot_of (no
+// scratch); cluster == 0: the global variant (scratch: buf, picked, pinv,
+// state).
 extern "C" int canal_fabric_fused_run(
     const int* depths, const int* sel, const int* op, const int* cst,
     const int* imm_mask, const int* imm_val, const int* ext, const int* src,
     const int* keep, const int* pin_mask, const int* pin_src,
     const int* pe_in, const int* pe_res_idx, const int* reg_src,
-    const int* mem_in, const int* io_out, int* obs, int* buf, int* picked,
-    int* pinv, int* state, int B, int N, int F, int P, int T, int n_reg,
-    int n_io, int n_mem, int max_depth, int word, void* stream) {
+    const int* mem_in, const int* io_out, const int* node_of,
+    const int* slot_of, int* obs, int* buf, int* picked, int* pinv,
+    int* state, int B, int N, int F, int P, int T, int n_reg,
+    int n_io, int n_mem, int max_depth, int word, int cluster,
+    void* stream) {
     Fabric f = make_fabric(depths, sel, op, cst, imm_mask, imm_val, src, keep,
-                           pin_mask, pe_in, pe_res_idx, buf, picked, pinv,
-                           B, N, F, P, max_depth, word);
+                           pin_mask, pe_in, pe_res_idx, node_of, slot_of, buf,
+                           picked, pinv, B, N, F, P, max_depth, word);
     Stream s;
     s.ext = ext; s.pin_src = pin_src; s.reg_src = reg_src; s.mem_in = mem_in;
     s.io_out = io_out; s.obs = obs; s.pinv = pinv; s.state = state; s.T = T;
     s.n_reg = n_reg; s.n_io = n_io; s.n_mem = n_mem;
+    if (cluster > 0)
+        return launch_cluster(cluster_run_kernel, B, N, P, cluster,
+                              (cudaStream_t)stream, f, s);
     int blocks = 0;
-    int err = cooperative_grid(fused_run_kernel, (size_t)B * (N + 1),
+    int err = cooperative_grid(grid_run_kernel, (size_t)B * (N + 1),
                                &blocks);
     if (err) return err;
     void* args[] = {&f, &s};
-    cudaLaunchCooperativeKernel((void*)fused_run_kernel, dim3(blocks),
+    cudaLaunchCooperativeKernel((void*)grid_run_kernel, dim3(blocks),
                                 dim3(kThreads), args, 0,
                                 (cudaStream_t)stream);
     return (int)cudaGetLastError();
+}
+
+// How many clusters of `cluster` blocks of the batch (run == 0) or run
+// (run == 1) kernel at N nodes and P PEs the card holds at once (0: none).
+extern "C" int canal_fabric_fused_clusters(int run, int N, int P, int cluster,
+                                           int* active) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cudaError_t err;
+    if (run) {
+        err = cluster_config(cluster_run_kernel, 1, N, P, cluster, 0, &cfg,
+                             &attr);
+        if (err == cudaSuccess)
+            err = cudaOccupancyMaxActiveClusters(
+                active, (const void*)cluster_run_kernel, &cfg);
+    } else {
+        err = cluster_config(cluster_batch_kernel, 1, N, P, cluster, 0,
+                             &cfg, &attr);
+        if (err == cudaSuccess)
+            err = cudaOccupancyMaxActiveClusters(
+                active, (const void*)cluster_batch_kernel, &cfg);
+    }
+    return (int)err;
 }

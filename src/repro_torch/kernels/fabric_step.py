@@ -21,10 +21,20 @@ Four kernels, all hand-written CUDA:
     on a zero background, runs the fused fixpoint, observes ``io_out`` and
     clocks registers (``reg_src``) and memories (``mem_in``).
 
+The two fused kernels come in two variants, chosen by
+:func:`fused_cluster` from N and P alone: one thread block cluster per
+lane with the lane's vector in the cluster's shared memory, or, for
+fabrics too large for that, one cooperative grid over value vectors in
+device memory.
+
 Each wrapper takes the plain PyTorch version beside it only when its
 tensors lie on the CPU; CUDA tensors launch the kernel (or raise).
 """
 from __future__ import annotations
+
+import ctypes
+import functools
+import weakref
 
 import torch
 
@@ -34,6 +44,17 @@ from . import build
 # (repro_torch.core.lowering asserts the correspondence at import time).
 PE_OPS = ("add", "sub", "mul", "and", "or", "xor", "shl", "shr", "min",
           "max", "abs", "sel", "const", "pass")
+
+#: shared memory one block may opt into on an H100 (227 KB), and what the
+#: fused kernels' cluster variant keeps there: for each node slot two value
+#: buffers, the pinned value and the node's descriptor, 4 B each; for each
+#: PE its two outputs' records, 32 B each; the records' count
+BLOCK_SMEM_BYTES = 232_448
+SLOT_BYTES = 16
+PE_BYTES = 64
+COUNT_BYTES = 16
+#: the largest portable cluster
+MAX_CLUSTER = 8
 
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -241,6 +262,106 @@ def _check_fabric(kernel, b, n, p, depths, sel, op, const, imm_mask,
                          f"kernel's int32 indexing")
 
 
+def fused_cluster(n: int, p: int) -> int:
+    """The fused kernels' size rule: the number of blocks in the cluster
+    that holds one lane of N nodes and P PEs, or 0 for the global-memory
+    variant.
+
+    A block of the cluster variant keeps ``SLOT_BYTES`` of shared memory
+    per node slot, the N + 1 slots (the zero sentinel included) split
+    evenly over the cluster's blocks, ``PE_BYTES`` per PE and
+    ``COUNT_BYTES``. The rule takes the smallest cluster of 1, 2, 4 or
+    ``MAX_CLUSTER`` blocks with ``SLOT_BYTES * ceil((N + 1) / C) +
+    PE_BYTES * P + COUNT_BYTES <= BLOCK_SMEM_BYTES``: at the Amber FULL
+    size (N 86,288, P 780) 8 blocks of 222,528 B. Past 8 blocks (at P 780,
+    N + 1 > 8 x 11,407 = 91,256) a fabric takes the global-memory variant
+    (0). The rule reads N and P only: it never depends on a launch's
+    outcome."""
+    room = BLOCK_SMEM_BYTES - PE_BYTES * p - COUNT_BYTES
+    c = 1
+    while c <= MAX_CLUSTER:
+        if SLOT_BYTES * -(-(n + 1) // c) <= room:
+            return c
+        c *= 2
+    return 0
+
+
+#: the node orders computed so far: id(src) -> (weak reference to src, its
+#: version counter, (node_of, slot_of))
+_ORDERS: dict = {}
+
+
+def fused_order(src: torch.Tensor):
+    """The cluster variant's node order: ``node_of`` (N,) int32, the node
+    in each slot, and ``slot_of`` (N + 1,) int32, its inverse with the
+    sentinel N kept at slot N. Computed once per ``src`` tensor (a few
+    small launches on its device) and kept while that tensor lives and
+    is not modified in place.
+
+    Each node goes beside the lowest-numbered node it may read, key
+    ``min(i, src[i, :])``, ties in node order. Nodes read their own tile
+    and its neighbours, and the IR numbers each kind of node (switch-box
+    and port, register, register mux) tile by tile, so the key moves a
+    tile's registers and muxes next to its switch box: the contiguous
+    slot ranges of a cluster's blocks then hold rows of whole tiles. The
+    order changes where values live, never what they are."""
+    hit = _ORDERS.get(id(src))
+    if hit is not None and hit[0]() is src and hit[1] == src._version:
+        return hit[2]
+    n = src.shape[0]
+    idx = torch.arange(n, dtype=torch.int32, device=src.device)
+    key = torch.minimum(idx, src.amin(1)) if src.shape[1] else idx
+    node_of = torch.argsort(key, stable=True).to(torch.int32)
+    slot_of = torch.empty(n + 1, dtype=torch.int32, device=src.device)
+    slot_of[node_of.long()] = idx
+    slot_of[n:] = n
+    for key_id in [k for k, (ref, _, _) in _ORDERS.items() if ref() is None]:
+        del _ORDERS[key_id]
+    _ORDERS[id(src)] = (weakref.ref(src), src._version, (node_of, slot_of))
+    return node_of, slot_of
+
+
+@functools.lru_cache(maxsize=None)
+def active_clusters(kernel: str, n: int, p: int, cluster: int) -> int:
+    """How many clusters of ``cluster`` blocks of the fused ``kernel``
+    (``"fabric_fused_batch"`` or ``"fabric_fused_run"``) at N nodes and P
+    PEs the card holds at once (``cudaOccupancyMaxActiveClusters``); a
+    launch of more lanes queues the rest."""
+    out = ctypes.c_int(0)
+    err = build.library().canal_fabric_fused_clusters(
+        int(kernel == "fabric_fused_run"), n, p, cluster, ctypes.byref(out))
+    build.check(err, kernel)
+    return out.value
+
+
+def _fused_scratch(kernel, src, b, p, cluster, state_words=0):
+    """Device tables of the variant ``cluster`` selects: the cluster
+    variant's node order (:func:`fused_order` of ``src``); the global
+    variant's value buffers and picked sources (and, for the run kernel,
+    pinned values and the state). Raises when no cluster of that size
+    fits the card."""
+    dev = src.device
+    n = src.shape[0]
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+
+    if cluster:
+        if active_clusters(kernel, n, p, cluster) < 1:
+            raise RuntimeError(f"{kernel}: no cluster of {cluster} blocks "
+                               f"at N {n}, P {p} fits this card")
+        return dict(zip(("node_of", "slot_of"), fused_order(src)))
+    out = {"buf": empty(2 * b * (n + 1)), "picked": empty(b, n)}
+    if state_words:
+        out.update(pinv=empty(b, n), state=empty(b, state_words))
+    return out
+
+
+def _ptr(scratch, name):
+    t = scratch.get(name)
+    return None if t is None else t.data_ptr()
+
+
 def fabric_fused_batch(vals0: torch.Tensor, sel: torch.Tensor,
                        pin_vals: torch.Tensor, depths: torch.Tensor,
                        op: torch.Tensor, const: torch.Tensor,
@@ -255,33 +376,38 @@ def fabric_fused_batch(vals0: torch.Tensor, sel: torch.Tensor,
     pin_mask: (N,) flags; pe_in: (P, 4) node ids (sentinel N);
     pe_res_idx: (N,) index into the flattened (res0, res1) PE results, 2P
     for non-PE-output nodes. ``sel`` must lie in [0, F) and ``op`` in
-    [0, 14). Returns the (B, N) values after the fixpoint."""
+    [0, 14). Returns the (B, N) values after the fixpoint.
+
+    On the card the variant follows :func:`fused_cluster` (N and P): where
+    a lane fits the shared memory of a cluster of 1-8 blocks, one cluster
+    per lane keeps it there; past that, the global-memory variant."""
     if vals0.device.type == "cpu":
         return fabric_fused_batch_plain(
             vals0, sel, pin_vals, depths, op, const, imm_mask, imm_val, src,
             keep, pin_mask, pe_in, pe_res_idx, max_depth, word)
+    kernel = "fabric_fused_batch"
     b, n = vals0.shape
     p = pe_in.shape[0]
-    _check_fabric("fabric_fused_batch", b, n, p, depths, sel, op, const,
-                  imm_mask, imm_val, src, keep, pin_mask, pe_in, pe_res_idx,
-                  vals0=vals0, pin_vals=pin_vals)
-    build.require_shape("fabric_fused_batch", "pin_vals", pin_vals, (b, n))
+    _check_fabric(kernel, b, n, p, depths, sel, op, const, imm_mask, imm_val,
+                  src, keep, pin_mask, pe_in, pe_res_idx, vals0=vals0,
+                  pin_vals=pin_vals)
+    build.require_shape(kernel, "pin_vals", pin_vals, (b, n))
     out = torch.empty((b, n), dtype=torch.int32, device=vals0.device)
     if b == 0 or n == 0:
         return out
-    buf = torch.empty(2 * b * (n + 1), dtype=torch.int32, device=vals0.device)
-    picked = torch.empty((b, n), dtype=torch.int32, device=vals0.device)
-    lib = build.library()
-    err = lib.canal_fabric_fused_batch(
+    cluster = fused_cluster(n, p)
+    scratch = _fused_scratch(kernel, src, b, p, cluster)
+    err = build.library().canal_fabric_fused_batch(
         depths.data_ptr(), vals0.data_ptr(), sel.data_ptr(),
         pin_vals.data_ptr(), op.data_ptr(), const.data_ptr(),
         imm_mask.data_ptr(), imm_val.data_ptr(), src.data_ptr(),
         keep.data_ptr(), pin_mask.data_ptr(), pe_in.data_ptr(),
-        pe_res_idx.data_ptr(), out.data_ptr(), buf.data_ptr(),
-        picked.data_ptr(), b, n, src.shape[1], p, int(max_depth), int(word),
-        build.stream_ptr(vals0.device))
-    build.check(err, "fabric_fused_batch")
-    build.LAUNCHES["fabric_fused_batch"] += 1
+        pe_res_idx.data_ptr(), _ptr(scratch, "node_of"),
+        _ptr(scratch, "slot_of"), out.data_ptr(), _ptr(scratch, "buf"),
+        _ptr(scratch, "picked"), b, n, src.shape[1], p,
+        int(max_depth), int(word), cluster, build.stream_ptr(vals0.device))
+    build.check(err, kernel)
+    build.LAUNCHES[kernel] += 1
     return out
 
 
@@ -306,7 +432,9 @@ def fabric_fused_run(sel: torch.Tensor, ext: torch.Tensor,
     :func:`fabric_fused_batch` cycle by cycle. ``chunk`` (>= 1) is the
     stimulus block of the streamed contract; the kernel reads each
     cycle's stimulus straight from device memory, so it does not change
-    the launch."""
+    the launch. The variant follows :func:`fused_cluster`, as in
+    :func:`fabric_fused_batch`; the cluster variant runs the whole cycle
+    loop inside each lane's cluster."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     if sel.device.type == "cpu":
@@ -332,21 +460,20 @@ def fabric_fused_run(sel: torch.Tensor, ext: torch.Tensor,
     obs = torch.empty((b, t_len, n_io), dtype=torch.int32, device=dev)
     if b == 0 or n == 0 or t_len == 0:
         return obs
-    buf = torch.empty(2 * b * (n + 1), dtype=torch.int32, device=dev)
-    picked = torch.empty((b, n), dtype=torch.int32, device=dev)
-    pinv = torch.empty((b, n), dtype=torch.int32, device=dev)
-    state = torch.empty((b, n_reg + n_io + n_mem + 1), dtype=torch.int32,
-                        device=dev)
-    lib = build.library()
-    err = lib.canal_fabric_fused_run(
+    cluster = fused_cluster(n, p)
+    scratch = _fused_scratch(kernel, src, b, p, cluster,
+                             state_words=n_reg + n_io + n_mem + 1)
+    err = build.library().canal_fabric_fused_run(
         depths.data_ptr(), sel.data_ptr(), op.data_ptr(), const.data_ptr(),
         imm_mask.data_ptr(), imm_val.data_ptr(), ext.data_ptr(),
         src.data_ptr(), keep.data_ptr(), pin_mask.data_ptr(),
         pin_src.data_ptr(), pe_in.data_ptr(), pe_res_idx.data_ptr(),
         reg_src.data_ptr(), mem_in.data_ptr(), io_out.data_ptr(),
-        obs.data_ptr(), buf.data_ptr(), picked.data_ptr(), pinv.data_ptr(),
-        state.data_ptr(), b, n, src.shape[1], p, t_len, n_reg, n_io, n_mem,
-        int(max_depth), int(word), build.stream_ptr(dev))
+        _ptr(scratch, "node_of"), _ptr(scratch, "slot_of"), obs.data_ptr(),
+        _ptr(scratch, "buf"), _ptr(scratch, "picked"), _ptr(scratch, "pinv"),
+        _ptr(scratch, "state"),
+        b, n, src.shape[1], p, t_len, n_reg, n_io, n_mem, int(max_depth),
+        int(word), cluster, build.stream_ptr(dev))
     build.check(err, kernel)
     build.LAUNCHES[kernel] += 1
     return obs

@@ -300,6 +300,76 @@ def test_cpu_wrappers_launch_nothing():
     assert all(v == 0 for v in build.LAUNCHES.values())
 
 
+def test_fused_cluster_size_rule():
+    """The fused kernels' variant follows N and P alone: the smallest
+    cluster (1, 2, 4, 8 blocks) whose blocks hold 16 B x ceil((N + 1) / C)
+    + 64 B x P + 16 B in 227 KB, the global-memory variant (0) past 8
+    blocks."""
+    rule = fabric_step.fused_cluster
+    assert [rule(n, 0) for n in (0, 1, 5000, 14526, 14527, 29053, 29054,
+                                 58107, 58108, 86288, 116215, 116216,
+                                 10 ** 6)] == [1, 1, 1, 1, 2, 2, 4, 4, 8, 8,
+                                               8, 0, 0]
+    # the Amber FULL size and the limit at its P
+    assert [rule(n, 780) for n in (86288, 91255, 91256)] == [8, 8, 0]
+    assert rule(5000, 3632) == 0                 # no room for one slot
+    for n, p in ((5000, 200), (60000, 200), (86288, 780), (116215, 0)):
+        c = rule(n, p)
+        assert fabric_step.SLOT_BYTES * -(-(n + 1) // c) + \
+            fabric_step.PE_BYTES * p + fabric_step.COUNT_BYTES <= \
+            fabric_step.BLOCK_SMEM_BYTES
+
+
+@pytest.mark.parametrize("seed,n,f", [(0, 300, 6), (1, 1, 1), (2, 700, 20)])
+def test_fused_order_is_a_permutation(seed, n, f):
+    """The cluster variant's node order: ``node_of`` a permutation of the
+    nodes, ``slot_of`` its inverse with the sentinel N kept at slot N, and
+    every node placed by its key min(i, src[i, :]) in ascending order."""
+    _, src, _ = sweep_case(seed, 1, n, f)
+    node_of, slot_of = fabric_step.fused_order(torch.as_tensor(src))
+    node_of, slot_of = node_of.numpy(), slot_of.numpy()
+    assert node_of.dtype == np.int32 and slot_of.dtype == np.int32
+    assert sorted(node_of.tolist()) == list(range(n))
+    assert slot_of[n] == n
+    np.testing.assert_array_equal(slot_of[node_of], np.arange(n))
+    key = np.minimum(np.arange(n), src.min(axis=1))[node_of]
+    assert (np.diff(key) >= 0).all()
+
+
+
+def test_fused_order_is_kept_per_source_table():
+    """The order is computed once per ``src`` tensor, and again after the
+    tensor is modified in place."""
+    _, src, _ = sweep_case(3, 1, 200, 5)
+    src = torch.as_tensor(src)
+    first = fabric_step.fused_order(src)
+    assert fabric_step.fused_order(src)[0] is first[0]
+    src[:, :] = torch.flip(src, [0])
+    again = fabric_step.fused_order(src)
+    assert again[0] is not first[0]
+    key = torch.minimum(torch.arange(200), src.amin(1))[again[0].long()]
+    assert bool((key[1:] >= key[:-1]).all())
+
+
+def test_cpu_fused_wrappers_launch_nothing():
+    """The fused wrappers take their plain versions on CPU tensors: no
+    library is built, no launch is counted, and the results equal the
+    plain versions called directly."""
+    build.reset_launch_counts()
+    case = fabric_case(11, b=3, n=200, t_len=3)
+    kw = {k: case[k] for k in RUN_KW}
+    got = fabric_step.fabric_fused_batch(*_t(case, BATCH_ARGS), max_depth=5)
+    want = fabric_step.fabric_fused_batch_plain(*_t(case, BATCH_ARGS),
+                                                max_depth=5)
+    assert torch.equal(got, want)
+    got = fabric_step.fabric_fused_run(*_t(case, RUN_ARGS), **kw,
+                                       max_depth=5)
+    want = fabric_step.fabric_fused_run_plain(*_t(case, RUN_ARGS), **kw,
+                                              max_depth=5)
+    assert torch.equal(got, want)
+    assert all(v == 0 for v in build.LAUNCHES.values())
+
+
 # ------------------------------------------------------- the LM kernels
 @pytest.fixture(scope="module")
 def jlm():
@@ -477,6 +547,24 @@ def test_lm_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     assert build.LAUNCHES["ssd_scan"] == 0
 
 
+def mixed_depths(b, max_depth, seed=0):
+    """Per-lane depths mixing 0, 1, ``max_depth`` and more than it."""
+    rng = np.random.default_rng(seed)
+    d = rng.integers(0, max_depth + 4, b)
+    d[:4] = [0, 1, max_depth, max_depth + 3][:b]
+    return d.astype(np.int32)
+
+
+#: (N, B, word, cluster): the fused kernels' cluster variant at 1, 2, 4 and
+#: 8 blocks a lane (at N 60,000 a lane spans every block of its cluster
+#: and reads the others' shared memory), B 40 above the clusters the card
+#: holds at once (the rest queue), and N 120,000 past the size rule's
+#: limit (the global-memory variant, 0)
+FUSED_SIZES = [(5000, 5, 0xFFFF, 1), (20000, 3, -1, 2),
+               (40000, 3, 0xFFFF, 4), (60000, 5, 0xFFFF, 8),
+               (60000, 40, -1, 8), (120000, 3, -1, 0)]
+
+
 # --------------------------------------------------------------- the card
 @pytest.fixture
 def cuda():
@@ -510,6 +598,49 @@ class TestCudaKernels:
         got = fabric_step.fabric_fused_run(*_t(case, RUN_ARGS, cuda), **kw,
                                            max_depth=7, word=-1)
         torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+    @pytest.mark.parametrize("n,b,word,cluster", FUSED_SIZES)
+    def test_fused_batch_variants(self, cuda, n, b, word, cluster):
+        """Bit-identical to the plain version in both variants, with lane
+        depths of 0, 1, ``max_depth`` and beyond it."""
+        assert fabric_step.fused_cluster(n, 200) == cluster
+        if b > 16:
+            assert fabric_step.active_clusters("fabric_fused_batch", n, 200,
+                                               cluster) < b
+        case = fabric_case(20 + b, b=b, n=n, f=20, p=200)
+        case["depths"] = mixed_depths(b, 7)
+        want = fabric_step.fabric_fused_batch_plain(
+            *_t(case, BATCH_ARGS, cuda), max_depth=7, word=word)
+        before = build.LAUNCHES["fabric_fused_batch"]
+        got = fabric_step.fabric_fused_batch(*_t(case, BATCH_ARGS, cuda),
+                                             max_depth=7, word=word)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["fabric_fused_batch"] == before + 1
+        assert torch.equal(got, want)
+
+    @pytest.mark.parametrize("n,b,word,cluster,t_len", [
+        (5000, 5, -1, 1, 6), (40000, 3, 0xFFFF, 4, 4),
+        (60000, 5, 0xFFFF, 8, 6), (60000, 40, -1, 8, 3),
+        (60000, 3, -1, 8, 1), (120000, 3, 0xFFFF, 0, 4),
+        (120000, 2, -1, 0, 1)])
+    def test_fused_run_variants(self, cuda, n, b, word, cluster, t_len):
+        """T cycles in one launch, bit-identical to the plain version in
+        both variants (T 1 included), with mixed lane depths."""
+        assert fabric_step.fused_cluster(n, 200) == cluster
+        if b > 16:
+            assert fabric_step.active_clusters("fabric_fused_run", n, 200,
+                                               cluster) < b
+        case = fabric_case(30 + b, b=b, n=n, f=20, p=200, t_len=t_len)
+        case["depths"] = mixed_depths(b, 7, seed=1)
+        kw = {k: case[k] for k in RUN_KW}
+        want = fabric_step.fabric_fused_run_plain(
+            *_t(case, RUN_ARGS, cuda), **kw, max_depth=7, word=word)
+        before = build.LAUNCHES["fabric_fused_run"]
+        got = fabric_step.fabric_fused_run(*_t(case, RUN_ARGS, cuda), **kw,
+                                           max_depth=7, word=word)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["fabric_fused_run"] == before + 1
         assert torch.equal(got, want)
 
     @pytest.mark.parametrize("b,n", [(1, 1024), (8, 1000), (32, 257),

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time variants of two hand-written CUDA kernels of the port beside the
+"""Time variants of hand-written CUDA kernels of the port beside the
 committed ones, on one CUDA card.
 
-    python3 tools/torch_kernel_ablations.py [--only flash,minplus]
+    python3 tools/torch_kernel_ablations.py [--only flash,minplus,fused]
 
 Each variant is the committed source (``src/repro_torch/kernels/csrc/``)
 with one change made by text substitution. Every variant is compiled by
@@ -12,7 +12,23 @@ its own ``nvcc`` process (all started together) into a library under
 - ``flash_attention`` at the LM path's shape (B 2, Hq 32, Hkv 4, S 2,048,
   D 64, bf16, causal; the committed kernel also non-causal), beside
   PyTorch's ``scaled_dot_product_attention``;
-- ``minplus_step`` at the router's FULL shape (N 1,024) for B 1, 8, 32.
+- ``minplus_step`` at the router's FULL shape (N 1,024) for B 1, 8, 32;
+- ``fabric_fused_batch`` and ``fabric_fused_run`` at ``cgra_amber.FULL``
+  (B 5, N 86,288, T 16; ``chip_smoke.fused_workload``). Launch arguments
+  of the committed library: its cluster kernel (8 blocks a lane, nodes in
+  ``fused_order``), the same in IR node order (identity tables), its
+  global-memory variant (cooperative, ``grid.sync()``) and a cluster of
+  16 blocks (where the card schedules 16). Variants: the node
+  descriptors and PE records resolved again every sweep from the global
+  tables (the dependent-load chain), each thread's descriptors (16 slots)
+  held in registers across the sweeps with all its loads in flight at once
+  instead of read from shared memory four slots at a time, 1 or 8 slots
+  at a time, every read through the cluster's distributed shared memory
+  (no local path), the PE ALU as a switch, 512 threads a block instead
+  of 1,024, the sweep's barrier built from mbarriers; and, computing
+  another result on purpose, no node update (PE outputs and barriers),
+  no PE evaluation, the barriers alone, every read taken from the
+  reading block, and the barrier without its memory ordering.
 
 Each result carries its error against the plain version; a variant marked
 ``changes_result`` computes another function on purpose (it shows what a
@@ -34,8 +50,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import card_line, graph_ms  # noqa: E402
+from chip_smoke import card_line, fused_workload, graph_ms  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import fabric_step as fs  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import minplus as mp  # noqa: E402
 
@@ -95,6 +112,158 @@ def soft_exp(cond):
             "                             : ex2(fmaf(x, c, neg));"))
 
 
+SWITCH_ALU = """
+// The PE ALU as a switch (a variant: the committed one selects).
+__device__ __forceinline__ int32_t pe_alu_switch(int op, int32_t a, int32_t b,
+                                                 int32_t c, int32_t k) {
+    const uint32_t ua = (uint32_t)a, ub = (uint32_t)b;
+    const int s = b < 0 ? 0 : (b > 15 ? 15 : b);
+    switch (op) {
+        case 0: return (int32_t)(ua + ub);
+        case 1: return (int32_t)(ua - ub);
+        case 2: return (int32_t)(ua * ub);
+        case 3: return a & b;
+        case 4: return a | b;
+        case 5: return a ^ b;
+        case 6: return (int32_t)(ua << s);
+        case 7: return a >> s;
+        case 8: return a < b ? a : b;
+        case 9: return a > b ? a : b;
+        case 10: {
+            const uint32_t d = ua - ub;
+            return (int32_t)d < 0 ? (int32_t)(0u - d) : (int32_t)d;
+        }
+        case 11: return (a & 1) ? b : c;
+        case 12: return k;
+        default: return a;
+    }
+}
+
+"""
+
+SWEEP_SMEM = """            uint32_t d[kUnroll];
+            int32_t v[kUnroll];
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+                const int k = k0 + u * (int)blockDim.x;
+                d[u] = k < l.nodes ? l.desc[k] : kSpecial;
+            }
+"""
+#: each thread's descriptors (at most 16 slots at 1,024 threads) loaded
+#: into registers once a fixpoint, every slot's load in flight at once
+SWEEP_REGISTERS = """            uint32_t (&d)[16] = held;
+            int32_t v[16];
+"""
+REGISTERS_PROLOGUE = """    const int n_pe = *l.n_pe;
+    uint32_t held[16];
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+        const int k = threadIdx.x + u * (int)blockDim.x;
+        held[u] = k < l.nodes ? l.desc[k] : kSpecial;
+    }
+"""
+SLOTS_IN_REGISTERS = chain(
+    sub("    const int n_pe = *l.n_pe;\n", REGISTERS_PROLOGUE),
+    sub("        for (int k0 = threadIdx.x; k0 < l.nodes; k0 += step) {",
+        "        for (int k0 = threadIdx.x; k0 < threadIdx.x + 1; ++k0) {"),
+    sub(SWEEP_SMEM, SWEEP_REGISTERS),
+    sub("for (int u = 0; u < kUnroll; ++u) v[u] = load(",
+        "for (int u = 0; u < 16; ++u) v[u] = load("),
+    sub("            for (int u = 0; u < kUnroll; ++u)\n"
+        "                if (!(d[u] & kSpecial))",
+        "            for (int u = 0; u < 16; ++u)\n"
+        "                if (!(d[u] & kSpecial))"))
+RESOLVE_EACH_SWEEP = """                d[u] = k < l.nodes
+                    ? describe(f, l, node_at(f, l.lo + k)) : kSpecial;"""
+#: the sweep's cluster barrier, and two others in its place: one built from
+#: mbarriers (a block's thread 0 arrives on every block's barrier, two
+#: barriers alternating by sweep; a wait that never ends traps), and
+#: barrier.cluster without its release / acquire ordering (no longer a
+#: correct kernel, whatever it returns)
+SWEEP_END = "        cluster.sync();\n    }\n    return sweeps & 1;"
+MBAR_SYNC = r"""        __syncthreads();
+        {
+            const uint32_t bar = smem_addr(l.n_pe) + 8 + 8 * (tick & 1);
+            if (threadIdx.x == 0) {
+                const int nb = (int)cluster.num_blocks();
+                for (int r = 0; r < nb; ++r) {
+                    uint32_t remote;
+                    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                                 : "=r"(remote) : "r"(bar), "r"(r));
+                    asm volatile("mbarrier.arrive.release.cluster"
+                                 ".shared::cluster.b64 _, [%0];"
+                                 :: "r"(remote) : "memory");
+                }
+            }
+            const uint32_t parity = (tick >> 1) & 1;
+            uint32_t done = 0;
+            long long spins = 0;
+            while (!done) {
+                asm volatile("{\n\t.reg .pred p;\n\t"
+                             "mbarrier.try_wait.parity.acquire.cluster"
+                             ".shared::cta.b64 p, [%1], %2;\n\t"
+                             "selp.u32 %0, 1, 0, p;\n\t}"
+                             : "=r"(done) : "r"(bar), "r"(parity)
+                             : "memory");
+                if (++spins > (1ll << 22)) __trap();
+            }
+            ++tick;
+        }
+    }
+    return sweeps & 1;"""
+MBAR_INIT = r"""    if (threadIdx.x == 0) {
+        *l.n_pe = 0;
+        const int nb = (int)cluster.num_blocks();
+        for (int i = 0; i < 2; ++i)
+            asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                         :: "r"(smem_addr(l.n_pe) + 8 + 8 * i), "r"(nb)
+                         : "memory");
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }"""
+
+
+def replace_all(old, new):
+    def apply(src):
+        if old not in src:
+            raise ValueError(f"variant text not found: {old[:60]!r}")
+        return src.replace(old, new)
+    return apply
+
+
+MBAR = chain(
+    sub(SWEEP_END, MBAR_SYNC),
+    sub("int fixpoint(const Fabric& f, const Lane& l, int sweeps) {",
+        "int fixpoint(const Fabric& f, const Lane& l, int sweeps,\n"
+        "             int& tick) {"),
+    sub("    const int* res = fixpoint(f, l, lane_sweeps(f, l.b)) ?",
+        "    int tick = 0;\n"
+        "    const int* res = fixpoint(f, l, lane_sweeps(f, l.b), tick) ?"),
+    sub("        sres = fixpoint(f, l, sweeps) ?",
+        "        sres = fixpoint(f, l, sweeps, tick) ?"),
+    sub("    uint32_t sres = l.sval0;",
+        "    uint32_t sres = l.sval0;\n    int tick = 0;"),
+    replace_all("    if (threadIdx.x == 0) *l.n_pe = 0;", MBAR_INIT),
+    sub("(size_t)64 * p +\n           16;",
+        "(size_t)64 * p +\n           32;"))
+RELAXED = sub(SWEEP_END,
+              '        asm volatile("barrier.cluster.arrive.relaxed.aligned;'
+              '\\n\\t"\n                     "barrier.cluster.wait.aligned;"'
+              ' ::: "memory");\n    }\n    return sweeps & 1;')
+NO_NODE_UPDATES = sub("for (int k0 = threadIdx.x; k0 < l.nodes;",
+                      "for (int k0 = threadIdx.x; k0 < 0;")
+NO_PE_EVAL = sub("for (int j = threadIdx.x; j < n_pe;",
+                 "for (int j = threadIdx.x; j < 0;")
+
+REFRESH = """
+// Resolve PE record j again from the global tables, in place.
+__device__ void refresh_record(const Fabric& f, const Lane& l, int j) {
+    const int slot = l.rec[2 * j].x & kSlot;
+    const int node = node_at(f, l.lo + slot);
+    pe_record(f, l, __ldg(f.pe_res_idx + node), slot, l.rec + 2 * j);
+}
+
+"""
+
 #: name -> (source, substitution, changes_result)
 VARIANTS = {
     "flash": {
@@ -120,14 +289,55 @@ VARIANTS = {
                                             r"launch<\1, 1>", s), False),
         "compare_select_min": (min_by_compare, False),
     },
+    "fused": {
+        "committed": (None, False),
+        "chain": (chain(
+            sub("                d[u] = k < l.nodes ? l.desc[k] : kSpecial;",
+                RESOLVE_EACH_SWEEP),
+            sub("// `sweeps` Jacobi sweeps from val0", REFRESH
+                + "// `sweeps` Jacobi sweeps from val0"),
+            sub("            const int4 h = l.rec[2 * j];",
+                "            refresh_record(f, l, j);\n"
+                "            const int4 h = l.rec[2 * j];")), False),
+        "slots_in_registers": (SLOTS_IN_REGISTERS, False),
+        "unroll1": (sub("constexpr int kUnroll = 4;",
+                        "constexpr int kUnroll = 1;"), False),
+        "unroll8": (sub("constexpr int kUnroll = 4;",
+                        "constexpr int kUnroll = 8;"), False),
+        "no_local_path": (sub('"setp.ne.b32 far, %2, 0;',
+                              '"setp.eq.b32 far, %2, %2;'), False),
+        "mbarrier_barrier": (MBAR, False),
+        "switch_alu": (chain(
+            sub("// PE ALU in PE_OPS order;",
+                SWITCH_ALU + "// PE ALU in PE_OPS order;"),
+            sub("            to[h.x & kSlot] = pe_alu(",
+                "            to[h.x & kSlot] = pe_alu_switch(")), False),
+        "threads512": (sub("constexpr int kClusterThreads = 1024;",
+                           "constexpr int kClusterThreads = 512;"), False),
+        "no_node_updates": (NO_NODE_UPDATES, True),
+        "no_pe_eval": (NO_PE_EVAL, True),
+        "barriers_only": (chain(NO_NODE_UPDATES, NO_PE_EVAL), True),
+        "all_local": (sub('"setp.ne.b32 far, %2, 0;',
+                          '"setp.ne.b32 far, %2, %2;'), True),
+        "unordered_barrier": (RELAXED, True),
+    },
 }
-SOURCES = {"flash": "flash_attention.cu", "minplus": "minplus.cu"}
+SOURCES = {"flash": "flash_attention.cu", "minplus": "minplus.cu",
+           "fused": "fabric_step.cu"}
 ENTRY = {"flash": "canal_flash_attention", "minplus": "canal_minplus_step"}
+
+
+def entry(lib, name):
+    fn = getattr(lib, name)
+    fn.argtypes = build._SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def build_all(kernels):
     """Compile every variant of ``kernels`` in parallel; returns
-    {(kernel, variant): ctypes function}."""
+    {(kernel, variant): ctypes function} (the library for ``fused``,
+    which has two entry points)."""
     os.makedirs(OUT, exist_ok=True)
     nvcc = build._nvcc()
     procs = {}
@@ -147,10 +357,9 @@ def build_all(kernels):
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {kernel}/{name}:\n{out}")
-        fn = getattr(ctypes.CDLL(lib), ENTRY[kernel])
-        fn.argtypes = build._SIGNATURES[ENTRY[kernel]]
-        fn.restype = ctypes.c_int
-        fns[kernel, name] = fn
+        lib = ctypes.CDLL(lib)
+        fns[kernel, name] = lib if kernel == "fused" else entry(
+            lib, ENTRY[kernel])
     return fns
 
 
@@ -216,9 +425,80 @@ def minplus_rows(fns, device):
     return rows
 
 
+def fused_rows(libs, device):
+    """Both fused kernels at FULL, B 5, for every variant and launch
+    argument; each result is held bit for bit to the plain version."""
+    import canal_torch
+    from repro_torch.configs.cgra_amber import FULL
+
+    fabric = canal_torch.compile(FULL, device=device,
+                                 use_kernels=True).fabric()
+    bargs, rargs, rkw, depths = fused_workload(fabric, device, 5)
+    b, n = bargs[1].shape
+    p = bargs[11].shape[0]
+    f = bargs[8].shape[1]
+    t_len = rargs[1].shape[1]
+    md, word = rkw["max_depth"], rkw["word"]
+    want_b = fs.fabric_fused_batch_plain(*bargs, max_depth=md, word=word)
+    want_r = fs.fabric_fused_run_plain(*rargs, **rkw)
+    out_b = torch.empty_like(want_b)
+    out_r = torch.empty_like(want_r)
+    state = rkw["n_reg"] + rkw["n_io"] + rkw["n_mem"] + 1
+    ir_order = {"node_of": torch.arange(n, dtype=torch.int32, device=device),
+                "slot_of": torch.arange(n + 1, dtype=torch.int32,
+                                        device=device)}
+    launches = ([("committed", 8, "slots"), ("committed", 8, "ir"),
+                 ("committed", 0, "ir"), ("committed", 16, "slots")]
+                + [(name, 8, "slots") for name in VARIANTS["fused"]
+                   if name != "committed"])
+    rows = []
+    for name, cluster, placed in launches:
+        if cluster and fs.active_clusters("fabric_fused_batch", n, p,
+                                          cluster) < 1:
+            rows.append({"kernel": "fabric_fused_*", "variant": name,
+                         "cluster": cluster, "scheduled": False})
+            continue
+        lib = libs["fused", name]
+        # the tables stay referenced by ``sc`` while the calls run
+        sc = fs._fused_scratch("fabric_fused_run", bargs[8], b, p, cluster,
+                               state_words=state)
+        ptr = [fs._ptr(sc, k) for k in ("buf", "picked", "pinv", "state")]
+        nodes = [fs._ptr(sc if placed == "slots" else ir_order, k)
+                 for k in ("node_of", "slot_of")]
+
+        def call_b():
+            build.check(entry(lib, "canal_fabric_fused_batch")(
+                *[a.data_ptr() for a in (bargs[3], bargs[0], bargs[1],
+                                         bargs[2], *bargs[4:])],
+                *nodes, out_b.data_ptr(), ptr[0], ptr[1], b, n, f, p, md,
+                word, cluster, build.stream_ptr(device)), name)
+
+        def call_r():
+            build.check(entry(lib, "canal_fabric_fused_run")(
+                *[a.data_ptr() for a in (rargs[2], rargs[0], *rargs[3:7],
+                                         rargs[1], *rargs[7:])],
+                *nodes, out_r.data_ptr(), *ptr, b, n, f, p, t_len,
+                rkw["n_reg"], rkw["n_io"], rkw["n_mem"], md, word, cluster,
+                build.stream_ptr(device)), name)
+
+        for kernel, call, out, want, reps in (
+                ("fabric_fused_batch", call_b, out_b, want_b, 20),
+                ("fabric_fused_run", call_r, out_r, want_r, 3)):
+            out.fill_(-7)
+            call()
+            torch.cuda.synchronize()
+            rows.append({"kernel": kernel, "variant": name,
+                         "cluster": cluster or "global", "order": placed,
+                         "ms": graph_ms(call, reps),
+                         "equal": bool(torch.equal(out, want)),
+                         "changes_result": VARIANTS["fused"][name][1]})
+    rows.append({"kernel": "fabric_fused_*", "B": b, "N": n, "T": t_len,
+                 "max_depth": md, "depths": depths.tolist()})
+    return rows
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", default="flash,minplus")
+    parser.add_argument("--only", default="flash,minplus,fused")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_ablations: CUDA is not available",
@@ -232,6 +512,8 @@ def main():
         rows += flash_rows(fns, device)
     if "minplus" in kernels:
         rows += minplus_rows(fns, device)
+    if "fused" in kernels:
+        rows += fused_rows(fns, device)
     print(card_line())
     print(json.dumps({"ablations": rows,
                       "device": torch.cuda.get_device_name(0)}))
