@@ -9,7 +9,10 @@ phase zeroes the launch counts just before it runs and reads them just
 after; each must have launched the kernels it exists to drive.
 
 1. build   — nvcc builds ``src/repro_torch/kernels/csrc/*.cu`` into
-             ``build/kernels/`` (one process per source, in parallel).
+             ``build/kernels/`` and, beside them, the two kernels kept as
+             they were before their redesign
+             (``tools/ablation_kernels/*_first.cu``) into
+             ``build/earlier/`` (one process per source, in parallel).
 2. main    — one design point at the full size of the paper's artifact,
              ``cgra_amber.FULL`` (32x32, 5 tracks, 86,288 IR nodes):
              ``canal_torch.compile(FULL, use_kernels=True)`` on the card,
@@ -85,6 +88,11 @@ after; each must have launched the kernels it exists to drive.
              ``global``), the clusters the card holds at once, the sweeps
              a launch runs, the microseconds a sweep and the share of a
              sweep's shared-memory reads that stay in the reading block.
+             ``fabric_sweep_batch`` and ``ssd_scan`` also give the time
+             of the kernel as it stood before its redesign, built from
+             ``tools/ablation_kernels/`` beside the library, held to the
+             same plain version and timed on the same inputs
+             (``earlier_ms``).
 
 Before the last line it prints each phase's seconds and launches, the
 per-app PnR seconds, the emulation times, the ``kernels`` JSON line and
@@ -93,6 +101,7 @@ the card's name and power limit; the last line is ``{"ok": true,
 non-zero and prints no result.
 """
 import contextlib
+import ctypes
 import json
 import os
 import subprocess
@@ -135,6 +144,13 @@ LM_TOL, LM_ROW_TOL, LM_ARGMAX = 0.10, 0.40, 0.90
 #: f32, summed in another order.
 FLASH_ATOL, FLASH_RTOL = 1e-4, 2.0 ** -7
 SSD_TOL = 1e-4
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: the kernels as they stood before their redesign, kept unchanged in
+#: ``tools/ablation_kernels/`` and timed beside the committed ones
+#: (``earlier_ms``): kernel -> (source, C signature)
+EARLIER = {"fabric_sweep_batch": ("fabric_sweep_first.cu",
+                                  [_P] * 4 + [_I] * 4 + [_P]),
+           "ssd_scan": ("ssd_scan_first.cu", [_P] * 6 + [_I] * 5 + [_P])}
 
 
 #: the kernels each path exists to launch (phase 8 reads each kernel's
@@ -756,12 +772,61 @@ def sweep_bytes(src, sel):
     return 4 * words
 
 
-def sweep_rows(fab, routed, device):
+def start_earlier():
+    """Start one nvcc process for each ``EARLIER`` source, into
+    ``build/earlier/``; returns {kernel: (library path, process)}."""
+    from repro_torch.kernels import build
+
+    out = os.path.join(ROOT, "build", "earlier")
+    os.makedirs(out, exist_ok=True)
+    procs = {}
+    for name, (src, _) in EARLIER.items():
+        lib = os.path.join(out, src[:-3] + ".so")
+        procs[name] = (lib, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-shared",
+             os.path.join(ROOT, "tools", "ablation_kernels", src), "-o",
+             lib], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    return procs
+
+
+def finish_earlier(procs):
+    """Wait for ``start_earlier``'s builds; returns {kernel: its C entry
+    point}."""
+    fns = {}
+    for name, (lib, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the earlier {name}:\n{out}")
+        fn = getattr(ctypes.CDLL(lib), "canal_" + name)
+        fn.argtypes = EARLIER[name][1]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def earlier_ms(name, launch, got, want, reps, **tol):
+    """Device ms of the earlier kernel ``name`` (``launch()`` writes
+    ``got``), after holding its result to ``want`` as the committed
+    kernel's is held (bit for bit unless ``tol`` is given)."""
+    launch()
+    torch.cuda.synchronize()
+    same = (torch.allclose(got, want, **tol) if tol
+            else torch.equal(got, want))
+    if not same:
+        raise AssertionError(f"the earlier {name} differs from the plain "
+                             f"version")
+    return graph_ms(launch, reps)
+
+
+def sweep_rows(fab, routed, device, earlier):
     """``fabric_sweep`` at FULL on a routed app's configuration, and
     ``fabric_sweep_batch`` at the configuration sweep's chunk shape
-    (2,048 cases x N + 1)."""
+    (2,048 cases x N + 1), beside ``earlier`` (its kernel before the
+    redesign)."""
     from repro_torch.core import verify
     from repro_torch.fabric import AppEmulator
+    from repro_torch.kernels import build
     from repro_torch.kernels import fabric_step as fs
 
     fabric = fab.fabric()
@@ -805,6 +870,14 @@ def sweep_rows(fab, routed, device):
     if not torch.equal(got, want):
         raise AssertionError(f"fabric_sweep_batch differs (max {err})")
     b_ms, b_by = bound(sweep_bytes(src, sel_b), b * n)
+    old = torch.empty_like(want)
+    f = a.max_fanin
+
+    def launch_earlier():
+        build.check(earlier(vals_b.data_ptr(), src.data_ptr(),
+                            sel_b.data_ptr(), old.data_ptr(), b, n, f,
+                            n + 1, build.stream_ptr(device)),
+                    "earlier fabric_sweep_batch")
     rows.append({
         "name": "fabric_sweep_batch", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fabric_sweep.cu",
@@ -813,8 +886,13 @@ def sweep_rows(fab, routed, device):
         **timings(lambda: fs.fabric_sweep_batch(vals_b, src, sel_b),
                   lambda: fs.fabric_sweep_batch_plain(vals_b, src, sel_b),
                   reps=5, plain_reps=3),
+        "earlier_ms": earlier_ms("fabric_sweep_batch", launch_earlier, old,
+                                 want, reps=5),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "shape": {"B": b, "N": n, "F": a.max_fanin}})
+        "shape": {"B": b, "N": n, "F": f,
+                  "tiles": dict(zip(("TN", "lanes", "BB", "grid_y",
+                                     "smem"),
+                                    fs.sweep_batch_tiles(b, n, f)))}})
     return rows
 
 
@@ -1082,9 +1160,12 @@ def flash_row(device, b=LM_BATCH, hq=32, hkv=4, s=LM_SEQ, d=64):
                       "dtype": "bfloat16", "causal": True}}
 
 
-def ssd_row(device, bh=LM_BATCH * 64, seq=LM_SEQ, p=64, n=128, chunk=128):
+def ssd_row(device, earlier, bh=LM_BATCH * 64, seq=LM_SEQ, p=64, n=128,
+            chunk=128):
     """``ssd_scan`` at Mamba2-1.3B's shape on the LM path, float32, with
-    the reference test's input ranges."""
+    the reference test's input ranges, beside ``earlier`` (its kernel
+    before the redesign)."""
+    from repro_torch.kernels import build
     from repro_torch.kernels import ssd_scan as ssd
 
     g = torch.Generator(device).manual_seed(6)
@@ -1109,6 +1190,12 @@ def ssd_row(device, bh=LM_BATCH * 64, seq=LM_SEQ, p=64, n=128, chunk=128):
     flops = (sum(cl * (cl + 1) * (n + p) for cl in lens)
              + 2 * n * p * (sum(lens[1:]) + sum(lens[:-1])))
     b_ms, b_by = bound(nbytes(x, dt, a, b, c, got), bh * flops)
+    old = torch.empty_like(want)
+
+    def launch_earlier():
+        build.check(earlier(*(t.data_ptr() for t in (x, dt, a, b, c, old)),
+                            bh, seq, p, n, chunk, build.stream_ptr(device)),
+                    "earlier ssd_scan")
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:96",
@@ -1117,6 +1204,8 @@ def ssd_row(device, bh=LM_BATCH * 64, seq=LM_SEQ, p=64, n=128, chunk=128):
                       lambda: ssd.ssd_scan_plain(x, dt, a, b, c,
                                                  chunk=chunk),
                       reps=10, plain_reps=5),
+            "earlier_ms": earlier_ms("ssd_scan", launch_earlier, old, want,
+                                     reps=10, atol=SSD_TOL, rtol=SSD_TOL),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "shape": {"BH": bh, "L": seq, "P": p, "N": n, "chunk": chunk,
                       "dtype": "float32"}}
@@ -1158,12 +1247,16 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # 1. build
+    # 1. build (the earlier kernels beside the library)
     t0 = time.perf_counter()
-    build.library()
+    procs = start_earlier()
+    try:
+        build.library()
+    finally:
+        earlier = finish_earlier(procs)
     log(f"kernel library built in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {build.build_seconds:.1f} s)")
-    drive(FULL, device, t_start)
+    drive(FULL, device, t_start, earlier)
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1171,9 +1264,10 @@ def main():
     return 0
 
 
-def drive(spec, device, t_start):
+def drive(spec, device, t_start, earlier):
     """Phases 2-10 on ``spec`` and ``device`` (the LM phases on the FULL
-    models at B 2, S 2,048); prints their JSON lines."""
+    models at B 2, S 2,048), with ``earlier`` the entry points of the
+    kernels before their redesign; prints their JSON lines."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
 
@@ -1236,10 +1330,11 @@ def drive(spec, device, t_start):
     rows = fabric_kernel_rows(fab.fabric(), device, batch=len(routed))
     rows.append(minplus_row(fab, device))
     rows.append(bbox_row(routed, device))
-    rows.extend(sweep_rows(fab, routed, device))
+    rows.extend(sweep_rows(fab, routed, device,
+                           earlier["fabric_sweep_batch"]))
     rows.append(hpwl_row(routed, device))
     rows.append(flash_row(device))
-    rows.append(ssd_row(device))
+    rows.append(ssd_row(device, earlier["ssd_scan"]))
     for row in rows:
         row["path"] = KERNEL_PATH.get(row["name"], "main")
         row["launches"] = phases[row["path"]]["launches"].get(row["name"],
@@ -1250,7 +1345,7 @@ def drive(spec, device, t_start):
     keys = ("name", "route", "source", "replaces", "launches", "path",
             "max_abs_err", "ms", "plain_ms", "call_ms", "timing",
             "bound_ms", "bound_by", "bound_share", "library_ms", "shape")
-    extra = ("tflops", "by_batch")
+    extra = ("tflops", "by_batch", "earlier_ms")
     rows = [{**{k: row[k] for k in keys},
              **{k: row[k] for k in extra if k in row}} for row in rows]
 

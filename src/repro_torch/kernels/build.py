@@ -51,7 +51,7 @@ _I = ctypes.c_int
 #: C signatures: every pointer and the stream as c_void_p, ints as c_int
 _SIGNATURES = {
     "canal_fabric_sweep": [_P, _P, _P, _P, _I, _I, _P],
-    "canal_fabric_sweep_batch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "canal_fabric_sweep_batch": [_P] * 4 + [_I] * 10 + [_P],
     "canal_fabric_fused_batch": [_P] * 15 + [_P] * 3 + [_I] * 7 + [_P],
     "canal_fabric_fused_run": [_P] * 18 + [_P] * 5 + [_I] * 11 + [_P],
     "canal_fabric_fused_clusters": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)],
@@ -59,7 +59,7 @@ _SIGNATURES = {
     "canal_net_bboxes": [_P, _P, _P, _I, _I, _P],
     "canal_hpwl": [_P, _P, _P, _I, _I, _P],
     "canal_flash_attention": [_P] * 4 + [_I] * 8 + [_P],
-    "canal_ssd_scan": [_P] * 6 + [_I] * 5 + [_P],
+    "canal_ssd_scan": [_P] * 8 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

@@ -2,256 +2,458 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/ssd_scan.py:96 (ssd_scan,
 // _ssd_kernel): x (BH, L, P), dt (BH, L), a (BH,), b and c (BH, L, N),
-// all float32, give y (BH, L, P). L is walked in chunks of C, zero-padded
-// at the end (a padded dt of 0 leaves the state alone). Per chunk, as the
-// reference kernel computes it:
+// all float32, give y (BH, L, P). L is walked in K chunks of C,
+// zero-padded at the end (a padded dt of 0 leaves the state alone). Per
+// chunk k, as the reference kernel computes it:
 //   seg  = cumsum(dt * a)
-//   y    = (c h0^T) * exp(seg)  +  ((c b^T) * tril(exp(seg_t - seg_u))
-//                                   * dt_u) x
-//   h    = exp(seg_last) h0 + (x * (dt * exp(seg_last - seg)))^T b
+//   y    = (c h_k^T) * exp(seg)  +  ((c b^T) * tril(exp(seg_t - seg_u))
+//                                    * dt_u) x
+//   h_k+1 = exp(seg_last) h_k + s_k,
+//   s_k   = (x * (dt * exp(seg_last - seg)))^T b
 // all in float32 on the CUDA cores (no TF32).
 //
 // Design: the TPU kernel carries the (P, N) state in VMEM along a
-// sequential grid axis. Blocks do not run in order here, so one block of
-// 256 threads owns one batch*head and walks its chunks in order, with the
-// state in shared memory (transposed, N x P). A chunk's x and b (b
-// transposed, N x C) sit in shared memory too; c is streamed in tiles of
-// 32 state dims, which accumulate the (C x C) scores c b^T and the
-// (C x P) inter-chunk term c h0^T in registers (16 x 16 threads, each an
-// (C/16) x (C/16) and (C/16) x (P/16) block). The masked, decayed weights
-// go through shared memory for the intra-chunk product, and each thread
-// then updates a (P/16) x (N/16) block of the state. At C 128, P 64,
-// N 128 that is 211 KB of shared memory, one block per SM; BH = 128 at the
-// LM path's B = 2 is one wave on 132 SMs.
+// sequential grid axis. Here the chunks run in parallel and only the
+// state is carried, in three launches on one stream:
+//   1. ssd_state_kernel, one block per (batch*head, chunk) but the last:
+//      seg by a warp-shuffle scan, the chunk's own state contribution s_k
+//      (N x P, a C-deep product) into a float32 scratch (BH, K, N, P), and
+//      exp(seg_last) into (BH, K).
+//   2. ssd_carry_kernel, one thread per (batch*head, 4 state elements):
+//      h_0 = 0, h_k = exp(seg_last_k-1) h_k-1 + s_k-1, sequential over the
+//      K chunks but with every chunk's load issued first, written over
+//      s_k in place (slot k ends holding h_k).
+//   3. ssd_output_kernel, one block per (batch*head, chunk): the scores
+//      c b^T and c h_k^T over state tiles of kNT dims, then the weights,
+//      then y. Only the causal triangle of c b^T and of w x is computed:
+//      a thread owns rows t = ty + 16 i and columns u = tx + 16 j (i, j <
+//      8), so the blocks i < j, wholly above the diagonal, are skipped at
+//      compile time (28 of 64).
+// Passes 1 and 3 move as many bytes from device memory as their FLOPs
+// take on the CUDA cores, so each streams its operands into shared
+// memory through a cp.async ring of kStages stages (pass 1: 32 chunk
+// rows of x and b a stage; pass 3: kNT state dims of c, b and h_k a
+// stage), the next in flight while the block computes on one. Pass 3
+// takes ~105 KB of shared memory (two blocks an SM), pass 1 ~50 KB
+// (three). Threads keep 8 x 4 (pass 1: state dims x head dims) or
+// 8 x 8 + 8 x 4 (pass 3) accumulators in registers and read their
+// operands from shared memory with 8- and 16-B loads that a warp shares
+// or that fall in distinct banks.
 //
-// Bound: ~10.5 MFLOP per (batch*head, chunk) against ~0.2 MB moved, so
-// the float32 CUDA-core rate bounds it. With one block an SM and 8 warps,
-// latency is hidden only by each thread's independent accumulators; a
-// split into parallel per-chunk passes and a short carry is the speed
-// work of a later change.
+// Bound: operations. Per (batch*head, chunk) the causal work is ~5.2
+// MFLOP in pass 3 and 2.1 MFLOP in pass 1, against ~0.2 MB of inputs: the
+// float32 CUDA-core rate bounds it. The split costs device-memory
+// traffic: b and x are read twice, and a chunk's 32 KB of state scratch
+// is written, read, rewritten and read again.
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
 constexpr int kThreads = 256;    // 16 x 16
-constexpr int kNT = 32;          // state dims of c per streamed tile
+constexpr int kUT = 32;          // chunk rows of x and b per pass-1 stage
+constexpr int kNT = 16;          // state dims of c, b, h_k per pass-3 stage
+constexpr int kCarry = 16;       // chunk states in flight a pass-2 thread
+constexpr int kStages = 2;       // ring depth of passes 1 and 3
 
 template <int C, int P, int N>
-struct Layout {
-    static_assert(C % 16 == 0 && P % 16 == 0 && N % 16 == 0,
-                  "chunk, P and N must be multiples of 16");
-    static_assert(N % kNT == 0, "N must be a multiple of the c tile");
-    static constexpr int LDB = C + 1;     // bt [N][LDB]
-    static constexpr int LDC = kNT + 1;   // ct [C][LDC]
-    static constexpr int LDW = C + 1;     // ws [C][LDW]
-    static constexpr int floats =
-        N * P + C * P + N * LDB + C * LDC + C * LDW + 3 * C;
-    static constexpr size_t bytes = (size_t)floats * sizeof(float);
+struct Shape {
+    static_assert(C == 128 && P == 64 && N == 128,
+                  "the thread maps take (chunk, P, N) = (128, 64, 128)");
+    static_assert(C % kUT == 0 && N % kNT == 0, "whole stages");
+    static constexpr int LDN = kNT + 2;    // c, b stages [C][LDN]
+    static constexpr int LDW = C + 16;     // weights [C][LDW]
+    // pass 1: kStages stages of x [kUT][P] and b [kUT][N]; coef, seg,
+    // dt, warp sums
+    static constexpr int rows = kUT * (P + N);
+    static constexpr int state_floats = kStages * rows + 3 * C + 32;
+    // pass 3: kStages stages of c, b [C][LDN] and h_k [kNT][P], later the
+    // weights; x [C][P]; seg, dt, warp sums
+    static constexpr int stage = 2 * C * LDN + kNT * P;
+    static constexpr int ring = kStages * stage;
+    static constexpr int region = ring > C * LDW ? ring : C * LDW;
+    static constexpr int output_floats = region + C * P + 2 * C + 32;
+    static_assert(rows % 4 == 0 && stage % 4 == 0 && region % 4 == 0 &&
+                  (C * LDN) % 4 == 0, "float4 arrays start on 16 B");
 };
 
+// kBytes (8 or 16) from device memory into shared memory without
+// registers, or zeros where !valid (src is then not read).
+template <int kBytes>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool valid) {
+    const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+    const int n = valid ? kBytes : 0;
+    if constexpr (kBytes == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                     :: "r"(d), "l"(src), "r"(n) : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                     :: "r"(d), "l"(src), "n"(kBytes), "r"(n)
+                     : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `pending` of this thread's groups are in flight.
+template <int pending>
+__device__ __forceinline__ void cp_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(pending) : "memory");
+}
+
+// seg = cumsum(dt * a) over the chunk (dt 0 past len), by a shuffle scan
+// in each warp plus the earlier warps' totals; also dts = dt. Ends with a
+// barrier.
+template <int C>
+__device__ __forceinline__ void chunk_seg(const float* __restrict__ dt,
+                                          int len, float av, float* seg,
+                                          float* dts, float* wsum) {
+    static_assert(C % 32 == 0 && C <= kThreads, "one thread a step");
+    const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+    float v = 0.f;
+    if (tid < C) {
+        const float d = tid < len ? dt[tid] : 0.f;
+        dts[tid] = d;
+        v = d * av;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const float up = __shfl_up_sync(0xffffffffu, v, o);
+            if (lane >= o) v += up;
+        }
+        if (lane == 31) wsum[w] = v;
+    }
+    __syncthreads();
+    if (tid < C) {
+        float off = 0.f;
+        for (int i = 0; i < w; ++i) off += wsum[i];
+        seg[tid] = v + off;
+    }
+    __syncthreads();
+}
+
+// Rows u0 .. u0 + rows - 1 of a chunk's (rows past len zero) [*][W]
+// float32 matrix at g (row 0 of the chunk) into shared memory at s.
+template <int W>
+__device__ __forceinline__ void stage_rows(float* s, const float* g, int u0,
+                                           int rows, int len) {
+    for (int v = threadIdx.x; v < rows * W / 4; v += kThreads) {
+        const int u = u0 + v / (W / 4);
+        const bool ok = u < len;
+        cp_async<16>(s + 4 * v,
+                     g + (size_t)(ok ? u : 0) * W + 4 * (v % (W / 4)), ok);
+    }
+}
+
+// Pass 1, block (bh, k < K - 1): s_k[n][p] = sum_u b[u][n] x[u][p]
+// dt_u exp(seg_last - seg_u); decay[bh, k] = exp(seg_last). Thread (ty,
+// tx) owns n = 8 ty + i, p = 4 tx + jp.
 template <int C, int P, int N>
-__global__ void __launch_bounds__(kThreads, 1)
-ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-           const float* __restrict__ a, const float* __restrict__ b,
-           const float* __restrict__ c, float* __restrict__ y, int L) {
-    using Lay = Layout<C, P, N>;
-    constexpr int LDB = Lay::LDB, LDC = Lay::LDC, LDW = Lay::LDW;
-    constexpr int RT = C / 16;   // chunk rows t per thread
-    constexpr int RU = C / 16;   // chunk columns u per thread
-    constexpr int RP = P / 16;   // head dims p per thread
-    constexpr int RN = N / 16;   // state dims n per thread
-    extern __shared__ float smem[];
-    float* ht = smem;               // [N][P]   carried state, transposed
-    float* xs = ht + N * P;         // [C][P]   x chunk
-    float* bt = xs + C * P;         // [N][LDB] b chunk, transposed
-    float* ct = bt + N * LDB;       // [C][LDC] c tile (kNT state dims)
-    float* ws = ct + C * LDC;       // [C][LDW] intra-chunk weights
-    float* seg = ws + C * LDW;      // [C]
-    float* dts = seg + C;           // [C]
-    float* coef = dts + C;          // [C] dt * exp(seg_last - seg)
+__global__ void __launch_bounds__(kThreads, 3)
+ssd_state_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                 const float* __restrict__ a, const float* __restrict__ b,
+                 float* __restrict__ states, float* __restrict__ decay,
+                 int L, int K) {
+    using S = Shape<C, P, N>;
+    extern __shared__ float4 smem4[];
+    float* ring = reinterpret_cast<float*>(smem4);  // kStages x (x, b)
+    float* coef = ring + kStages * S::rows;         // dt exp(seg_last - seg)
+    float* seg = coef + C;
+    float* dts = seg + C;
+    float* wsum = dts + C;
+    const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+    const int bh = blockIdx.x, k = blockIdx.y;
+    const int c0 = k * C, len = min(C, L - c0);
+    const size_t row0 = (size_t)bh * L + c0;
+    const float* xg = x + row0 * P;
+    const float* bg = b + row0 * N;
 
-    const int tid = threadIdx.x;
-    const int tx = tid & 15, ty = tid >> 4;
-    const size_t bh = blockIdx.x;
-    const float av = a[bh];
-    x += bh * L * P;
-    dt += bh * L;
-    b += bh * L * N;
-    c += bh * L * N;
-    y += bh * L * P;
-
-    for (int i = tid; i < N * P; i += kThreads) ht[i] = 0.f;
-
-    for (int c0 = 0; c0 < L; c0 += C) {
-        const int len = min(C, L - c0);
-        __syncthreads();     // the last chunk's readers are done
-        for (int i = tid; i < C * P; i += kThreads)
-            xs[i] = i / P < len ? x[(size_t)c0 * P + i] : 0.f;
-        for (int i = tid; i < C * N; i += kThreads) {
-            const int u = i / N, n = i % N;
-            bt[n * LDB + u] = u < len ? b[(size_t)c0 * N + i] : 0.f;
+    auto load_rows = [&](int st) {      // chunk rows st kUT .. of x, b
+        if (st < C / kUT) {
+            float* to = ring + (st % kStages) * S::rows;
+            stage_rows<P>(to, xg, st * kUT, kUT, len);
+            stage_rows<N>(to + kUT * P, bg, st * kUT, kUT, len);
         }
-        for (int u = tid; u < C; u += kThreads)
-            dts[u] = u < len ? dt[c0 + u] : 0.f;
+        cp_commit();
+    };
+    for (int st = 0; st < kStages - 1; ++st) load_rows(st);
+    chunk_seg<C>(dt + row0, len, a[bh], seg, dts, wsum);
+    const float seg_last = seg[C - 1];
+    if (tid < C) coef[tid] = dts[tid] * expf(seg_last - seg[tid]);
+
+    float acc[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int jp = 0; jp < 4; ++jp) acc[i][jp] = 0.f;
+    for (int it = 0; it < C / kUT; ++it) {
+        load_rows(it + kStages - 1);
+        cp_wait<kStages - 1>();
         __syncthreads();
-        if (tid == 0) {
-            float s = 0.f;
-            for (int u = 0; u < C; ++u) {
-                s += dts[u] * av;
-                seg[u] = s;
-            }
-        }
-        __syncthreads();
-        const float seg_last = seg[C - 1];
-        for (int u = tid; u < C; u += kThreads)
-            coef[u] = dts[u] * expf(seg_last - seg[u]);
-
-        // scores (t = ty + 16 i, u = tx + 16 j) and c h0^T (t, p = tx+16 j)
-        float sacc[RT][RU], yacc[RT][RP];
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-#pragma unroll
-            for (int j = 0; j < RU; ++j) sacc[i][j] = 0.f;
-#pragma unroll
-            for (int j = 0; j < RP; ++j) yacc[i][j] = 0.f;
-        }
-        for (int n0 = 0; n0 < N; n0 += kNT) {
-            __syncthreads();     // the last tile's readers are done
-            for (int i = tid; i < C * kNT; i += kThreads) {
-                const int t = i / kNT, nn = i % kNT;
-                ct[t * LDC + nn] =
-                    t < len ? c[(size_t)(c0 + t) * N + n0 + nn] : 0.f;
-            }
-            __syncthreads();
+        const float* xs = ring + (it % kStages) * S::rows;  // [kUT][P]
+        const float* bs = xs + kUT * P;                // [kUT][N]
 #pragma unroll 4
-            for (int nn = 0; nn < kNT; ++nn) {
-                const float* brow = bt + (n0 + nn) * LDB;
-                const float* hrow = ht + (n0 + nn) * P;
-                float cv[RT];
+        for (int uu = 0; uu < kUT; ++uu) {
+            const float cf = coef[it * kUT + uu];
+            const float* brow = bs + uu * N + 8 * ty;
+            const float4 b0 = *reinterpret_cast<const float4*>(brow);
+            const float4 b1 = *reinterpret_cast<const float4*>(brow + 4);
+            float4 xv = *reinterpret_cast<const float4*>(xs + uu * P + 4 * tx);
+            xv = make_float4(xv.x * cf, xv.y * cf, xv.z * cf, xv.w * cf);
+            const float bv[8] = {b0.x, b0.y, b0.z, b0.w,
+                                 b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-                for (int i = 0; i < RT; ++i)
-                    cv[i] = ct[(ty + 16 * i) * LDC + nn];
+            for (int i = 0; i < 8; ++i) {
+                acc[i][0] = fmaf(bv[i], xv.x, acc[i][0]);
+                acc[i][1] = fmaf(bv[i], xv.y, acc[i][1]);
+                acc[i][2] = fmaf(bv[i], xv.z, acc[i][2]);
+                acc[i][3] = fmaf(bv[i], xv.w, acc[i][3]);
+            }
+        }
+        __syncthreads();     // every reader done before the stage refills
+    }
+    float* out = states + ((size_t)bh * K + k) * N * P;
 #pragma unroll
-                for (int j = 0; j < RU; ++j) {
-                    const float bv = brow[tx + 16 * j];
+    for (int i = 0; i < 8; ++i)
+        *reinterpret_cast<float4*>(out + (8 * ty + i) * P + 4 * tx) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    if (tid == 0) decay[(size_t)bh * K + k] = expf(seg_last);
+}
+
+// Pass 2, one thread per (bh, 4 state elements): slot k of the scratch
+// goes from s_k to h_k, h_0 = 0 (slot 0, never read, is left as it is),
+// h_k = decay_k-1 h_k-1 + s_k-1.
+__global__ void __launch_bounds__(kThreads)
+ssd_carry_kernel(float4* states, const float* __restrict__ decay, int K,
+                 int per_bh, long long total) {
+    const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
+    if (idx >= total) return;
+    const long long bh = idx / per_bh;
+    float4* s = states + bh * K * per_bh + (idx - bh * per_bh);
+    const float* d = decay + bh * K;
+    float4 h = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k0 = 0; k0 < K - 1; k0 += kCarry) {
+        float4 in[kCarry];
 #pragma unroll
-                    for (int i = 0; i < RT; ++i)
-                        sacc[i][j] = fmaf(cv[i], bv, sacc[i][j]);
+        for (int j = 0; j < kCarry; ++j)
+            if (k0 + j < K - 1) in[j] = __ldcs(s + (size_t)(k0 + j) * per_bh);
+#pragma unroll
+        for (int j = 0; j < kCarry; ++j) {
+            if (k0 + j < K - 1) {
+                if (k0 + j > 0) s[(size_t)(k0 + j) * per_bh] = h;
+                const float dk = d[k0 + j];
+                h = make_float4(dk * h.x + in[j].x, dk * h.y + in[j].y,
+                                dk * h.z + in[j].z, dk * h.w + in[j].w);
+            }
+        }
+    }
+    if (K > 1) s[(size_t)(K - 1) * per_bh] = h;
+}
+
+// Pass 3, block (bh, k): y for the chunk's rows. Thread (ty, tx) owns
+// rows t = ty + 16 i, score columns u = tx + 16 j and head dims
+// p = 4 tx + jp.
+template <int C, int P, int N>
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_output_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                  const float* __restrict__ a, const float* __restrict__ b,
+                  const float* __restrict__ c,
+                  const float* __restrict__ states, float* __restrict__ y,
+                  int L, int K) {
+    using S = Shape<C, P, N>;
+    constexpr int LDN = S::LDN, LDW = S::LDW;
+    extern __shared__ float4 smem4[];
+    float* smem = reinterpret_cast<float*>(smem4);
+    float* ws = smem;                 // [C][LDW] weights, over the stages
+    float* xs = smem + S::region;     // [C][P]
+    float* seg = xs + C * P;
+    float* dts = seg + C;
+    float* wsum = dts + C;
+    const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+    const int bh = blockIdx.x, k = blockIdx.y;
+    const int c0 = k * C, len = min(C, L - c0);
+    const size_t row0 = (size_t)bh * L + c0;
+    const bool carried = k > 0;       // h_0 = 0
+    const float* hg = states + ((size_t)bh * K + k) * N * P;
+
+    // stage: c [C][LDN], b [C][LDN], h_k [kNT][P] of state dims n0 ..
+    auto load_stage = [&](int n0, float* st) {
+        for (int v = tid; v < C * kNT / 2; v += kThreads) {
+            const int t = v / (kNT / 2), q = v % (kNT / 2);
+            const bool ok = t < len;
+            const size_t g = (row0 + (ok ? t : 0)) * N + n0 + 2 * q;
+            cp_async<8>(st + t * LDN + 2 * q, c + g, ok);
+            cp_async<8>(st + C * LDN + t * LDN + 2 * q, b + g, ok);
+        }
+        if (carried)
+            for (int v = tid; v < kNT * P / 4; v += kThreads)
+                cp_async<16>(st + 2 * C * LDN + 4 * v, hg + n0 * P + 4 * v,
+                             true);
+    };
+    // one cp.async group a stage; x (first read after the last stage)
+    // rides with the last stage of the prologue
+    for (int st = 0; st < kStages - 1; ++st) {
+        load_stage(st * kNT, smem + st * S::stage);
+        if (st == kStages - 2) stage_rows<P>(xs, x + row0 * P, 0, C, len);
+        cp_commit();
+    }
+    chunk_seg<C>(dt + row0, len, a[bh], seg, dts, wsum);
+
+    float sacc[8][8], yacc[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) sacc[i][j] = 0.f;
+#pragma unroll
+        for (int jp = 0; jp < 4; ++jp) yacc[i][jp] = 0.f;
+    }
+    for (int it = 0; it < N / kNT; ++it) {
+        const int next = it + kStages - 1;
+        if (next < N / kNT)
+            load_stage(next * kNT, smem + (next % kStages) * S::stage);
+        cp_commit();
+        cp_wait<kStages - 1>();
+        __syncthreads();
+        const float* cs = smem + (it % kStages) * S::stage;  // [C][LDN]
+        const float* bs = cs + C * LDN;                // [C][LDN]
+        const float* hs = bs + C * LDN;                // [kNT][P]
+#pragma unroll 2
+        for (int nn = 0; nn < kNT; nn += 2) {
+            float2 cv[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+                cv[i] = *reinterpret_cast<const float2*>(
+                    cs + (ty + 16 * i) * LDN + nn);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                const float2 bv = *reinterpret_cast<const float2*>(
+                    bs + (tx + 16 * j) * LDN + nn);
+#pragma unroll
+                for (int i = 0; i < 8; ++i)
+                    if (i >= j)
+                        sacc[i][j] = fmaf(cv[i].y, bv.y,
+                                          fmaf(cv[i].x, bv.x, sacc[i][j]));
+            }
+            if (carried) {
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const float4 hv = *reinterpret_cast<const float4*>(
+                        hs + (nn + e) * P + 4 * tx);
+#pragma unroll
+                    for (int i = 0; i < 8; ++i) {
+                        const float ce = e ? cv[i].y : cv[i].x;
+                        yacc[i][0] = fmaf(ce, hv.x, yacc[i][0]);
+                        yacc[i][1] = fmaf(ce, hv.y, yacc[i][1]);
+                        yacc[i][2] = fmaf(ce, hv.z, yacc[i][2]);
+                        yacc[i][3] = fmaf(ce, hv.w, yacc[i][3]);
+                    }
                 }
+            }
+        }
+        __syncthreads();     // every reader done before the stage refills
+    }
+
+    // w[t][u] = (c b^T)[t][u] exp(seg_t - seg_u) dt_u for t >= u, else 0;
+    // y_inter = (c h_k^T) exp(seg_t)
 #pragma unroll
-                for (int j = 0; j < RP; ++j) {
-                    const float hv = hrow[tx + 16 * j];
+    for (int i = 0; i < 8; ++i) {
+        const int t = ty + 16 * i;
+        const float seg_t = seg[t];
 #pragma unroll
-                    for (int i = 0; i < RT; ++i)
-                        yacc[i][j] = fmaf(cv[i], hv, yacc[i][j]);
+        for (int j = 0; j < 8; ++j) {
+            if (i < j) continue;
+            const int u = tx + 16 * j;
+            ws[t * LDW + u] =
+                t >= u ? sacc[i][j] * expf(seg_t - seg[u]) * dts[u] : 0.f;
+        }
+        const float decay_in = expf(seg_t);
+#pragma unroll
+        for (int jp = 0; jp < 4; ++jp) yacc[i][jp] *= decay_in;
+    }
+    __syncthreads();
+
+    // y += w x over u <= t: rows block i meets columns blocks jb <= i
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb) {
+#pragma unroll 1
+        for (int uu = 0; uu < 16; uu += 4) {
+            const int u = 16 * jb + uu;
+            float4 xv[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                xv[e] = *reinterpret_cast<const float4*>(
+                    xs + (u + e) * P + 4 * tx);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+                if (i < jb) continue;
+                const float4 wv = *reinterpret_cast<const float4*>(
+                    ws + (ty + 16 * i) * LDW + u);
+                const float w4[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    yacc[i][0] = fmaf(w4[e], xv[e].x, yacc[i][0]);
+                    yacc[i][1] = fmaf(w4[e], xv[e].y, yacc[i][1]);
+                    yacc[i][2] = fmaf(w4[e], xv[e].z, yacc[i][2]);
+                    yacc[i][3] = fmaf(w4[e], xv[e].w, yacc[i][3]);
                 }
             }
         }
-
-        // weights (scores * L) * dt_u, lower triangle; y_inter * exp(seg)
+    }
 #pragma unroll
-        for (int i = 0; i < RT; ++i) {
-            const int t = ty + 16 * i;
-            const float seg_t = seg[t];
-#pragma unroll
-            for (int j = 0; j < RU; ++j) {
-                const int u = tx + 16 * j;
-                ws[t * LDW + u] =
-                    t >= u ? sacc[i][j] * expf(seg_t - seg[u]) * dts[u] : 0.f;
-            }
-            const float decay_in = expf(seg_t);
-#pragma unroll
-            for (int j = 0; j < RP; ++j) yacc[i][j] *= decay_in;
-        }
-        __syncthreads();
-
-        // y_intra = w x; y = y_inter + y_intra
-        float iacc[RT][RP];
-#pragma unroll
-        for (int i = 0; i < RT; ++i)
-#pragma unroll
-            for (int j = 0; j < RP; ++j) iacc[i][j] = 0.f;
-#pragma unroll 4
-        for (int u = 0; u < C; ++u) {
-            float wv[RT];
-#pragma unroll
-            for (int i = 0; i < RT; ++i) wv[i] = ws[(ty + 16 * i) * LDW + u];
-#pragma unroll
-            for (int j = 0; j < RP; ++j) {
-                const float xv = xs[u * P + tx + 16 * j];
-#pragma unroll
-                for (int i = 0; i < RT; ++i)
-                    iacc[i][j] = fmaf(wv[i], xv, iacc[i][j]);
-            }
-        }
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-            const int t = ty + 16 * i;
-            if (t < len) {
-#pragma unroll
-                for (int j = 0; j < RP; ++j)
-                    y[(size_t)(c0 + t) * P + tx + 16 * j] =
-                        yacc[i][j] + iacc[i][j];
-            }
-        }
-
-        // state: h[p, n] = exp(seg_last) h[p, n] + sum_u x~[u, p] b[u, n]
-        // with p = tx + 16 i, n = ty + 16 j (every reader of ht finished
-        // before the barrier above)
-        float hacc[RP][RN];
-#pragma unroll
-        for (int i = 0; i < RP; ++i)
-#pragma unroll
-            for (int j = 0; j < RN; ++j) hacc[i][j] = 0.f;
-#pragma unroll 4
-        for (int u = 0; u < C; ++u) {
-            const float cu = coef[u];
-            float xv[RP];
-#pragma unroll
-            for (int i = 0; i < RP; ++i) xv[i] = xs[u * P + tx + 16 * i] * cu;
-#pragma unroll
-            for (int j = 0; j < RN; ++j) {
-                const float bv = bt[(ty + 16 * j) * LDB + u];
-#pragma unroll
-                for (int i = 0; i < RP; ++i)
-                    hacc[i][j] = fmaf(xv[i], bv, hacc[i][j]);
-            }
-        }
-        const float decay = expf(seg_last);
-#pragma unroll
-        for (int j = 0; j < RN; ++j)
-#pragma unroll
-            for (int i = 0; i < RP; ++i) {
-                float* hp = &ht[(ty + 16 * j) * P + tx + 16 * i];
-                *hp = decay * *hp + hacc[i][j];
-            }
+    for (int i = 0; i < 8; ++i) {
+        const int t = ty + 16 * i;
+        if (t < len)
+            *reinterpret_cast<float4*>(y + (row0 + t) * P + 4 * tx) =
+                make_float4(yacc[i][0], yacc[i][1], yacc[i][2], yacc[i][3]);
     }
 }
 
 template <int C, int P, int N>
 int launch(const float* x, const float* dt, const float* a, const float* b,
-           const float* c, float* y, int bh, int L, cudaStream_t stream) {
-    const size_t smem = Layout<C, P, N>::bytes;
+           const float* c, float* y, float* states, float* decay, int bh,
+           int L, cudaStream_t stream) {
+    using S = Shape<C, P, N>;
+    const int K = (L + C - 1) / C;
+    if (K > 65535) return (int)cudaErrorInvalidValue;
+    const size_t smem1 = S::state_floats * sizeof(float);
+    const size_t smem3 = S::output_floats * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
-        ssd_kernel<C, P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        ssd_state_kernel<C, P, N>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(
+            ssd_output_kernel<C, P, N>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem3);
     if (err != cudaSuccess) return (int)err;
-    ssd_kernel<C, P, N><<<bh, kThreads, smem, stream>>>(x, dt, a, b, c, y,
-                                                        L);
+    if (K > 1) {
+        ssd_state_kernel<C, P, N><<<dim3(bh, K - 1), kThreads, smem1,
+                                    stream>>>(x, dt, a, b, states, decay, L,
+                                              K);
+        const long long total = (long long)bh * (N * P / 4);
+        ssd_carry_kernel<<<(unsigned)((total + kThreads - 1) / kThreads),
+                           kThreads, 0, stream>>>(
+            reinterpret_cast<float4*>(states), decay, K, N * P / 4, total);
+    }
+    ssd_output_kernel<C, P, N><<<dim3(bh, K), kThreads, smem3, stream>>>(
+        x, dt, a, b, c, states, y, L, K);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // (chunk, P, N) = (128, 64, 128), Mamba2's; anything else is refused
-// with cudaErrorInvalidValue (the wrapper checks first). Another shape is
-// one more instantiation of the template.
+// with cudaErrorInvalidValue (the wrapper checks first). states: float32
+// scratch of BH x K x N x P, decay: BH x K (K = ceil(L / chunk)), both
+// allocated by the wrapper; x, b and c start on 16 B.
 extern "C" int canal_ssd_scan(const float* x, const float* dt, const float* a,
                               const float* b, const float* c, float* y,
-                              int bh, int L, int P, int N, int chunk,
-                              void* stream) {
+                              float* states, float* decay, int bh, int L,
+                              int P, int N, int chunk, void* stream) {
     const cudaStream_t st = (cudaStream_t)stream;
     if (P == 64 && N == 128 && chunk == 128)
-        return launch<128, 64, 128>(x, dt, a, b, c, y, bh, L, st);
+        return launch<128, 64, 128>(x, dt, a, b, c, y, states, decay, bh, L,
+                                    st);
     return (int)cudaErrorInvalidValue;
 }

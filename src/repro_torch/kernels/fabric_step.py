@@ -55,6 +55,16 @@ PE_BYTES = 64
 COUNT_BYTES = 16
 #: the largest portable cluster
 MAX_CLUSTER = 8
+#: ``fabric_sweep_batch``'s node tile (4 nodes a thread) and the least it
+#: halves to for more blocks, its configuration lanes a block and largest
+#: configuration group, and the blocks it keeps in its grid where B and N
+#: allow (two for each of an H100's 132 SMs); see sweep_batch_tiles
+SWEEP_TILE = 256
+SWEEP_FILL_TILE = 128
+SWEEP_LANES = 4
+SWEEP_GROUP = 16
+SWEEP_MIN_BLOCKS = 2 * 132
+MAX_GRID_Y = 65535
 
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -213,6 +223,44 @@ def fabric_sweep(vals_ext: torch.Tensor, src: torch.Tensor,
     return out
 
 
+def sweep_batch_tiles(b: int, n: int, f: int):
+    """``fabric_sweep_batch``'s size rule: ``(TN, lanes, BB, grid_y,
+    smem)``.
+
+    A block owns a tile of TN nodes and groups of BB configurations
+    (blocks ``y``, ``y + grid_y``, ...); its TN / 4 x ``lanes`` threads
+    each take 4 nodes of the tile for every ``lanes``-th configuration
+    of a group. It stages the tile's src rows in ``smem`` bytes of shared
+    memory, 4 B a word with rows padded to an odd length: ``4 TN (F |
+    1)``. TN starts at ``SWEEP_TILE`` and halves (down to 4) until the
+    tile fits ``BLOCK_SMEM_BYTES``; a fan-in too wide for 4 nodes raises
+    ValueError. Above ``SWEEP_FILL_TILE``, TN halves while half of it
+    still covers N. BB starts at ``SWEEP_GROUP`` (at most B) and halves,
+    then TN halves (not below ``SWEEP_FILL_TILE``), while the grid has
+    fewer than ``SWEEP_MIN_BLOCKS`` blocks; lanes is ``SWEEP_LANES``, at
+    most BB. The rule reads B, N and F only."""
+    ld = f | 1
+    tn = SWEEP_TILE
+    while tn > 4 and 4 * tn * ld > BLOCK_SMEM_BYTES:
+        tn //= 2
+    if 4 * tn * ld > BLOCK_SMEM_BYTES:
+        raise ValueError(f"fabric_sweep_batch: fan-in {f} leaves no room "
+                         f"for a tile of 4 nodes in shared memory")
+
+    def blocks(tn, bb):
+        return -(-n // tn) * -(-b // bb)
+
+    while tn > SWEEP_FILL_TILE and tn // 2 >= n:
+        tn //= 2
+    bb = max(1, min(SWEEP_GROUP, b))
+    while bb > 1 and blocks(tn, bb) < SWEEP_MIN_BLOCKS:
+        bb = -(-bb // 2)
+    while tn > SWEEP_FILL_TILE and blocks(tn, bb) < SWEEP_MIN_BLOCKS:
+        tn //= 2
+    grid_y = min(-(-b // bb), MAX_GRID_Y)
+    return tn, min(SWEEP_LANES, bb), bb, grid_y, 4 * tn * ld
+
+
 def fabric_sweep_batch(vals_ext: torch.Tensor, src: torch.Tensor,
                        sel: torch.Tensor) -> torch.Tensor:
     """One sweep of B configurations over a shared fan-in table.
@@ -231,9 +279,12 @@ def fabric_sweep_batch(vals_ext: torch.Tensor, src: torch.Tensor,
     out = torch.empty((b, n), dtype=torch.int32, device=vals_ext.device)
     if b == 0 or n == 0:
         return out
+    tiles = sweep_batch_tiles(b, n, f)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (src, sel, out))
     err = build.library().canal_fabric_sweep_batch(
         vals_ext.data_ptr(), src.data_ptr(), sel.data_ptr(), out.data_ptr(),
-        b, n, f, v_len, build.stream_ptr(vals_ext.device))
+        b, n, f, v_len, *tiles, int(aligned),
+        build.stream_ptr(vals_ext.device))
     build.check(err, kernel)
     build.LAUNCHES[kernel] += 1
     return out

@@ -12,9 +12,11 @@ carried state contributes ``(c h0^T) exp(seg)``, the chunk itself
 ``(tril(exp(seg_t - seg_u)) * (c b^T) * dt_u) x``, and the state moves
 on to ``exp(seg_last) h0 + (x * dt exp(seg_last - seg))^T b``.
 
-CUDA tensors run the hand-written kernel in ``csrc/ssd_scan.cu`` (one
-block per batch*head walking its chunks in order; see the source for
-the shapes it takes); CPU tensors the plain PyTorch version beside it.
+CUDA tensors run the hand-written kernel in ``csrc/ssd_scan.cu``, three
+launches counted as one: every chunk's own state contribution in
+parallel, the carry of the state over the chunks, then every chunk's
+outputs in parallel (see the source for the shapes it takes); CPU
+tensors the plain PyTorch version beside it.
 """
 from __future__ import annotations
 
@@ -81,13 +83,22 @@ def _launch(x, dt, a, b, c, chunk: int) -> torch.Tensor:
     build.require_shape(name, "a", a, (bh,))
     build.require_shape(name, "b", b, (bh, l, n))
     build.require_shape(name, "c", c, (bh, l, n))
+    for arg, t in (("x", x), ("b", b), ("c", c)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} does not start on 16 bytes")
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
+    chunks = -(-l // chunk)
+    # pass 1 writes each chunk's own state here, pass 2 turns it into the
+    # chunk's start state in place, pass 3 reads it
+    states = torch.empty((bh, chunks, n, p), dtype=torch.float32,
+                         device=x.device)
+    decay = torch.empty((bh, chunks), dtype=torch.float32, device=x.device)
     err = build.library().canal_ssd_scan(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-        c.data_ptr(), y.data_ptr(), bh, l, p, n, chunk,
-        build.stream_ptr(x.device))
+        c.data_ptr(), y.data_ptr(), states.data_ptr(), decay.data_ptr(),
+        bh, l, p, n, chunk, build.stream_ptr(x.device))
     build.check(err, name)
     build.LAUNCHES[name] += 1
     return y

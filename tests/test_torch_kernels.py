@@ -320,6 +320,64 @@ def test_fused_cluster_size_rule():
             fabric_step.BLOCK_SMEM_BYTES
 
 
+#: (B, N, F): the Amber FULL size at verify's chunk, the unfused
+#: engine's B 8 and B 1; batches past the grid's 65,535 rows; F at the
+#: limit of a 256-node tile and past it, and the widest a 4-node tile
+#: holds; small and ragged shapes
+SWEEP_SHAPES = [(2048, 86288, 20), (8, 86288, 20), (1, 86288, 20),
+                (4096, 86288, 20), (1001, 5000, 20), (40, 5001, 20),
+                (33, 3000, 1), (70000, 3, 2), (65535 * 32 + 5, 700, 6),
+                (2048, 5000, 227), (2048, 5000, 229), (1, 1, 1), (5, 513, 1000),
+                (2, 9, 14527)]
+
+
+@pytest.mark.parametrize("b,n,f", SWEEP_SHAPES)
+def test_sweep_batch_tiles_fit_and_cover(b, n, f):
+    """``fabric_sweep_batch``'s size rule: the staged tile fits 227 KB
+    of shared memory, and the blocks, modelled as the kernel walks them
+    (tile x of TN nodes, 4 a thread; groups y, y + grid_y, ... of BB
+    configurations, each shared by the block's lanes), cover every (b, i)
+    exactly once."""
+    tn, lanes, bb, grid_y, smem = fabric_step.sweep_batch_tiles(b, n, f)
+    assert 4 <= tn <= fabric_step.SWEEP_TILE and tn & (tn - 1) == 0
+    assert 1 <= lanes <= bb
+    assert bb <= fabric_step.SWEEP_GROUP and tn // 4 * lanes <= 512
+    assert 1 <= grid_y <= fabric_step.MAX_GRID_Y
+    assert smem == 4 * tn * (f | 1) <= fabric_step.BLOCK_SMEM_BYTES
+    if tn < min(fabric_step.SWEEP_FILL_TILE, n):  # only the fit shrinks it
+        assert 8 * tn * (f | 1) > fabric_step.BLOCK_SMEM_BYTES
+    nodes = np.zeros(n, np.int64)
+    for x in range(-(-n // tn)):
+        for t in range(tn // 4):               # the block's threads
+            lo = x * tn + 4 * t
+            nodes[lo:min(lo + 4, x * tn + tn, n)] += 1
+    configs = np.zeros(b, np.int64)
+    for y in range(grid_y):
+        for g0 in range(y * bb, b, grid_y * bb):
+            for lane in range(lanes):
+                configs[g0 + lane:min(b, g0 + bb):lanes] += 1
+    assert (nodes == 1).all() and (configs == 1).all()
+
+
+@pytest.mark.parametrize("f", [14528, 100000])
+def test_sweep_batch_tiles_refuse_a_fan_in_past_four_nodes(f):
+    """A fan-in whose src rows for 4 nodes overflow shared memory has no
+    tile: the size rule raises rather than launch a kernel that cannot
+    stage it."""
+    with pytest.raises(ValueError, match="fan-in"):
+        fabric_step.sweep_batch_tiles(8, 1000, f)
+
+
+@pytest.mark.parametrize("b", [1, 8, 2048])
+def test_sweep_batch_tiles_fill_the_card_at_full(b):
+    """At the Amber FULL size the grid has at least one block for each
+    of an H100's 132 SMs, at the unfused engine's B 8 and at B 1 too."""
+    tn, lanes, bb, grid_y, smem = fabric_step.sweep_batch_tiles(b, 86288,
+                                                                 20)
+    assert -(-86288 // tn) * grid_y >= 132
+    assert smem == 4 * tn * 21
+
+
 @pytest.mark.parametrize("seed,n,f", [(0, 300, 6), (1, 1, 1), (2, 700, 20)])
 def test_fused_order_is_a_permutation(seed, n, f):
     """The cluster variant's node order: ``node_of`` a permutation of the
@@ -511,6 +569,75 @@ def test_ssd_scan_plain_matches_pallas(jlm, l, chunk, p, n):
                                rtol=2e-4)
 
 
+def _shuffle_scan(v, width=32):
+    """Inclusive cumsum over the last axis in the kernel's order: a
+    Hillis-Steele scan within each run of ``width`` (a warp), then the
+    earlier runs' totals added one by one."""
+    runs = v.reshape(*v.shape[:-1], -1, width).clone()
+    o = 1
+    while o < width:
+        runs[..., o:] = runs[..., o:] + runs[..., :-o].clone()
+        o *= 2
+    totals = runs[..., -1]
+    off = torch.zeros_like(totals)
+    for w in range(1, totals.shape[-1]):
+        off[..., w] = off[..., w - 1] + totals[..., w - 1]
+    return (runs + off[..., None]).reshape(v.shape)
+
+
+def three_pass_ssd(x, dt, a, b, c, chunk):
+    """A float32 model of ``csrc/ssd_scan.cu``'s order of work: (1) every
+    chunk's own state contribution, independently; (2) the carry of the
+    start states over the chunks; (3) every chunk's outputs from its start
+    state and its causal triangle."""
+    bh, l, p = x.shape
+    n = b.shape[-1]
+    k = -(-l // chunk)
+    pad = k * chunk - l
+
+    def chunks(t):
+        t = torch.cat([t, t.new_zeros((bh, pad) + t.shape[2:])], dim=1)
+        return t.reshape(bh, k, chunk, *t.shape[2:])
+    xs, dts, bs, cs = map(chunks, (x, dt, b, c))
+    seg = _shuffle_scan(dts * a[:, None, None])            # (BH, K, C)
+    seg_last = seg[..., -1]
+    coef = dts * torch.exp(seg_last[..., None] - seg)
+    own = torch.einsum("bkun,bkup->bknp", bs, xs * coef[..., None])
+    h = torch.zeros((bh, n, p), dtype=torch.float32)
+    starts = []
+    for j in range(k):
+        starts.append(h)
+        h = torch.exp(seg_last[:, j])[:, None, None] * h + own[:, j]
+    start = torch.stack(starts, dim=1)                     # (BH, K, N, P)
+    scores = torch.einsum("bktn,bkun->bktu", cs, bs)
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
+    decay = torch.where(causal, torch.exp(seg[..., :, None]
+                                          - seg[..., None, :]),
+                        torch.zeros(()))
+    w = scores * decay * dts[..., None, :]
+    y = (torch.einsum("bktn,bknp->bktp", cs, start)
+         * torch.exp(seg)[..., None] + w @ xs)
+    return y.reshape(bh, k * chunk, p)[:, :l]
+
+
+@pytest.mark.parametrize("l", [1, 100, 300])
+@pytest.mark.parametrize("n", [4, 16])
+def test_ssd_three_pass_order_matches_reference(jlm, l, n):
+    """The CUDA kernel's split (independent chunk states, the carry, then
+    the outputs) and its warp-scan cumsum stay within 1e-5 of the
+    reference kernel (interpret mode) and of the float64 recurrence."""
+    import jax.numpy as jnp
+    from repro.kernels import ssd_scan as jssd
+    args = ssd_case(3, l, 8, n, seed=l + n)
+    got = three_pass_ssd(*map(torch.as_tensor, args), chunk=32)
+    want = np.asarray(jssd.ssd_scan(*map(jnp.asarray, args), chunk=32,
+                                    interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    oracle = ref.ssd_ref(*(torch.as_tensor(a).double() for a in args))
+    np.testing.assert_allclose(got.numpy(), oracle.numpy(), atol=1e-5,
+                               rtol=1e-5)
+
+
 def test_lm_oracles_match_reference(jlm):
     """The port's float oracles against the reference's, in float32."""
     from repro.kernels import ref as jr
@@ -672,14 +799,41 @@ class TestCudaKernels:
         assert build.LAUNCHES["fabric_sweep"] == before + 1
         assert torch.equal(got, fabric_step.fabric_sweep_plain(v, s, e))
 
-    @pytest.mark.parametrize("seed,b,n,f", [(3, 5, 5000, 20), (4, 1, 1, 1),
-                                            (5, 70000, 3, 2),
-                                            (6, 9, 86288, 20)])
-    def test_fabric_sweep_batch(self, cuda, seed, b, n, f):
-        """Includes a batch above the grid's 65,535 rows (the kernel
-        strides over the rest)."""
+    @pytest.mark.parametrize("seed,b,n,f,kind", [
+        (3, 5, 5000, 20, "random"), (4, 1, 1, 1, "random"),
+        (5, 70000, 3, 2, "random"), (6, 9, 86288, 20, "random"),
+        (7, 1, 86288, 20, "random"), (8, 8, 86288, 20, "random"),
+        (9, 1001, 5000, 20, "random"),     # B not a multiple of BB 16
+        (10, 40, 5001, 20, "random"),      # N not a multiple of the tile
+        (11, 33, 3000, 1, "random"),       # F 1
+        (12, 16, 3000, 20, "last"),        # every select at F - 1
+        (13, 16, 3000, 20, "sentinel"),    # half the picks read column N
+        (14, 16, 3000, 7, "wide"),         # V > N + 1
+        (15, 12, 3000, 20, "unaligned"),   # no 16-B loads
+        (16, 3, 100, 500, "random"),       # F 500: a 64-node tile
+        (17, 4096, 86288, 20, "random")])
+    def test_fabric_sweep_batch(self, cuda, seed, b, n, f, kind):
+        """Bit-identical to the plain version at the size rule's edges;
+        includes a batch above the grid's 65,535 rows (the kernel strides
+        over the rest)."""
         vals, src, sel = sweep_case(seed, b, n, f)
+        rng = np.random.default_rng(seed)
+        if kind == "last":
+            sel[:] = f - 1
+        elif kind == "sentinel":
+            src[:, -1] = n
+            sel[rng.random(sel.shape) < 0.5] = f - 1
+        elif kind == "wide":
+            extra = 300
+            vals = np.concatenate(
+                [vals, _edge_ints(rng, (b, extra))], axis=1)
+            src = rng.integers(0, n + 1 + extra, (n, f)).astype(np.int32)
         v, s, e = (torch.as_tensor(a, device=cuda) for a in (vals, src, sel))
+        if kind == "unaligned":
+            # views one word into larger tensors: 4-B but not 16-B aligned
+            v, s, e = (torch.cat([t.new_zeros(1), t.reshape(-1)])[1:]
+                       .view(t.shape) for t in (v, s, e))
+            assert all(t.data_ptr() % 16 for t in (v, s, e))
         before = build.LAUNCHES["fabric_sweep_batch"]
         got = fabric_step.fabric_sweep_batch(v, s, e)
         torch.cuda.synchronize()
@@ -750,7 +904,9 @@ class TestCudaKernels:
                                    rtol=rtol)
 
     @pytest.mark.parametrize("bh,l,chunk", [(128, 2048, 128), (3, 300, 128),
-                                            (5, 100, 128), (2, 1, 128)])
+                                            (5, 100, 128), (2, 1, 128),
+                                            (64, 2048, 128), (1, 2048, 128),
+                                            (2, 4096, 128), (3, 129, 128)])
     def test_ssd_scan(self, cuda, bh, l, chunk):
         """Within 1e-4 of the plain version (f32 both, no TF32; the sums
         run in another order), padded L included."""

@@ -2,7 +2,8 @@
 """Time variants of hand-written CUDA kernels of the port beside the
 committed ones, on one CUDA card.
 
-    python3 tools/torch_kernel_ablations.py [--only flash,minplus,fused]
+    python3 tools/torch_kernel_ablations.py \
+        [--only flash,minplus,fused,sweep_batch,ssd,ssd_layers]
 
 Each variant is the committed source (``src/repro_torch/kernels/csrc/``)
 with one change made by text substitution. Every variant is compiled by
@@ -28,7 +29,34 @@ its own ``nvcc`` process (all started together) into a library under
   of 1,024, the sweep's barrier built from mbarriers; and, computing
   another result on purpose, no node update (PE outputs and barriers),
   no PE evaluation, the barriers alone, every read taken from the
-  reading block, and the barrier without its memory ordering.
+  reading block, and the barrier without its memory ordering;
+- ``fabric_sweep_batch`` at verify's chunk (B 2,048, N 86,288, F 20) on
+  its selects and on random ones: the committed kernel with the size
+  rule's launch and with other tiles (TN), configuration lanes a block
+  and groups (BB, 1 included), and with src read from device memory
+  instead of the staged tile; the kernel as first ported
+  (one thread per (b, i)); src transposed to (F, N) instead of the tile;
+  the value gather through a plain ``ld.global``;
+- ``ssd_scan`` at Mamba2-1.3B's shape (L 2,048, P 64, N 128, chunk 128)
+  for BH 128 and 64: the committed kernel; the kernel as first ported
+  (one block per batch*head); pass 3 over the full square of scores;
+  rings of three stages instead of two; pass 3's state-dim loop unrolled
+  in full; stages of 8 state dims instead of 16; and, computing another
+  result on purpose, pass 3 without its scores, its c h_k^T term or its
+  w x term or its stage loads (c, b, h_k), passes 1 and 3 without the
+  barrier before each stage's arithmetic, and each pass alone;
+- ``ssd_layers``: Mamba2-1.3B's ``lm_score`` forward as ``chip_smoke.py``
+  runs it (FULL config, random weights from its seed, B 2, S 2,048).
+  Each of the 48 layers' ``ssd_scan`` inputs, as the layer gives them,
+  goes through the committed kernel, the kernel as first ported and the
+  plain version, each held to the float64 recurrence ``ref.ssd_ref``
+  (largest, mean and root-mean-square error; the kernels also against
+  the plain version and its 1e-4 gate). The forward's logits with each
+  in place of ``ssd_scan``, and with the float64 recurrence in place,
+  are compared with the plain path's (``chip_smoke.logit_gap``).
+
+The earlier kernels that variants time are kept, unchanged, in
+``tools/ablation_kernels/``.
 
 Each result carries its error against the plain version; a variant marked
 ``changes_result`` computes another function on purpose (it shows what a
@@ -50,7 +78,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import card_line, fused_workload, graph_ms  # noqa: E402
+from chip_smoke import (LM_BATCH, LM_SEQ, SSD_TOL, card_line,  # noqa: E402
+                        fused_workload, graph_ms, lm_models, lm_tokens,
+                        logit_gap, swapped)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import fabric_step as fs  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -264,6 +294,55 @@ __device__ void refresh_record(const Fabric& f, const Lane& l, int j) {
 
 """
 
+def earlier(name):
+    """A variant that is a kernel as an earlier change committed it
+    (``tools/ablation_kernels/``), in place of the committed source."""
+    def apply(_):
+        with open(os.path.join(ROOT, "tools", "ablation_kernels",
+                               name)) as f:
+            return f.read()
+    return apply
+
+
+def src_from_device(row, pick):
+    """fabric_sweep_batch with no staged tile: each pick read from src in
+    device memory at ``pick`` (node i + j's row starting at ``row``). The
+    launch still reserves the tile's shared memory, unused."""
+    return chain(
+        sub("    stage_tile(tile, src + (size_t)i0 * f, nodes, f, ld, q, "
+            "lane * q + t,\n               lanes * q, aligned);\n"
+            "    __syncthreads();\n", ""),
+        sub("row[j] = (j * q + t) * ld;", f"row[j] = {row};"),
+        replace_all("(vals, sel, out, tile, row,", "(vals, sel, out, src, row,"),
+        sub("s[u][j] = tile[row[j] + s[u][j]];",
+            f"s[u][j] = j < cnt ? __ldg(tile + {pick}) : 0;"))
+
+
+#: src rows read from device memory instead of the staged tile
+SRC_DEVICE = src_from_device("(i + j) * f", "row[j] + s[u][j]")
+#: src transposed (F, N) (the rows launch it on the transposed table), so
+#: a warp's picks are coalesced where its selects agree
+SRC_TRANSPOSED = src_from_device("i + j", "row[j] + (size_t)s[u][j] * n")
+#: the value gather as a plain ld.global instead of the read-only path
+VALS_PLAIN_LOAD = chain(
+    sub("namespace {\n", "namespace {\n\n__device__ __forceinline__ int "
+        "ld_plain(const int* p) {\n    int v;\n"
+        '    asm volatile("ld.global.b32 %0, [%1];" : "=r"(v) : "l"(p));\n'
+        "    return v;\n}\n"),
+    sub("s[u][j] = j < cnt ? __ldg(vb + s[u][j]) : 0;",
+        "s[u][j] = j < cnt ? ld_plain(vb + s[u][j]) : 0;"))
+#: the ssd_scan's pass-3 triangle tests at their three sites
+SCORE_TRIANGLE = "                    if (i >= j)\n"
+WEIGHT_TRIANGLE = "            if (i < j) continue;\n"
+WX_TRIANGLE = "                if (i < jb) continue;\n"
+#: one of the scan's three launches left out (the others time alone)
+NO_STATE_PASS = sub("        ssd_state_kernel<C, P, N><<<",
+                    "        if (false) ssd_state_kernel<C, P, N><<<")
+NO_CARRY_PASS = sub("        ssd_carry_kernel<<<",
+                    "        if (false) ssd_carry_kernel<<<")
+NO_OUTPUT_PASS = sub("    ssd_output_kernel<C, P, N><<<",
+                     "    if (false) ssd_output_kernel<C, P, N><<<")
+
 #: name -> (source, substitution, changes_result)
 VARIANTS = {
     "flash": {
@@ -321,9 +400,58 @@ VARIANTS = {
                           '"setp.ne.b32 far, %2, %2;'), True),
         "unordered_barrier": (RELAXED, True),
     },
+    "sweep_batch": {
+        "committed": (None, False),
+        "first_kernel": (earlier("fabric_sweep_first.cu"), False),
+        "src_device_memory": (SRC_DEVICE, False),
+        "src_transposed": (SRC_TRANSPOSED, False),
+        "vals_plain_load": (VALS_PLAIN_LOAD, False),
+    },
+    "ssd": {
+        "committed": (None, False),
+        "first_kernel": (earlier("ssd_scan_first.cu"), False),
+        "full_square": (chain(sub(SCORE_TRIANGLE, ""),
+                              sub(WEIGHT_TRIANGLE, ""),
+                              sub(WX_TRIANGLE, "")), False),
+        "three_stages": (sub("constexpr int kStages = 2;",
+                             "constexpr int kStages = 3;"), False),
+        "pass1_four_blocks": (sub("__launch_bounds__(kThreads, 3)",
+                                  "__launch_bounds__(kThreads, 4)"), False),
+        "unroll_nn": (sub("#pragma unroll 2\n        for (int nn = 0;",
+                          "#pragma unroll\n        for (int nn = 0;"),
+                      False),
+        "knt8": (sub("constexpr int kNT = 16;", "constexpr int kNT = 8;"),
+                 False),
+        "no_scores": (sub(SCORE_TRIANGLE, "                    if (false)\n"),
+                      True),
+        "no_inter": (sub("            if (carried) {\n#pragma unroll\n"
+                         "                for (int e = 0;",
+                         "            if (false) {\n#pragma unroll\n"
+                         "                for (int e = 0;"), True),
+        "no_intra": (sub("for (int jb = 0; jb < 8; ++jb) {",
+                         "for (int jb = 0; jb < 0; ++jb) {"), True),
+        "no_stage_loads": (chain(
+            sub("        for (int v = tid; v < C * kNT / 2; v += kThreads) {",
+                "        for (int v = tid; v < 0; v += kThreads) {"),
+            sub("            for (int v = tid; v < kNT * P / 4; "
+                "v += kThreads)\n",
+                "            for (int v = tid; v < 0; v += kThreads)\n")),
+            True),
+        "no_stage_barriers": (sub(
+            "        cp_wait<kStages - 1>();\n        __syncthreads();\n",
+            "        cp_wait<kStages - 1>();\n"), True),
+        "pass1_only": (chain(NO_CARRY_PASS, NO_OUTPUT_PASS), True),
+        "pass2_only": (chain(NO_STATE_PASS, NO_OUTPUT_PASS), True),
+        "pass3_only": (chain(NO_STATE_PASS, NO_CARRY_PASS), True),
+    },
+    "ssd_layers": {
+        "committed": (None, False),
+        "first_kernel": (earlier("ssd_scan_first.cu"), False),
+    },
 }
 SOURCES = {"flash": "flash_attention.cu", "minplus": "minplus.cu",
-           "fused": "fabric_step.cu"}
+           "fused": "fabric_step.cu", "sweep_batch": "fabric_sweep.cu",
+           "ssd": "ssd_scan.cu", "ssd_layers": "ssd_scan.cu"}
 ENTRY = {"flash": "canal_flash_attention", "minplus": "canal_minplus_step"}
 
 
@@ -337,7 +465,8 @@ def entry(lib, name):
 def build_all(kernels):
     """Compile every variant of ``kernels`` in parallel; returns
     {(kernel, variant): ctypes function} (the library for ``fused``,
-    which has two entry points)."""
+    which has two entry points, and for ``sweep_batch`` and ``ssd``,
+    whose earlier kernels take other arguments)."""
     os.makedirs(OUT, exist_ok=True)
     nvcc = build._nvcc()
     procs = {}
@@ -358,8 +487,8 @@ def build_all(kernels):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {kernel}/{name}:\n{out}")
         lib = ctypes.CDLL(lib)
-        fns[kernel, name] = lib if kernel == "fused" else entry(
-            lib, ENTRY[kernel])
+        fns[kernel, name] = entry(lib, ENTRY[kernel]) if kernel in ENTRY \
+            else lib
     return fns
 
 
@@ -496,9 +625,225 @@ def fused_rows(libs, device):
                  "max_depth": md, "depths": depths.tolist()})
     return rows
 
+def sweep_batch_rows(libs, device):
+    """``fabric_sweep_batch`` at verify's chunk (B 2,048 of FULL's
+    connection cases, N 86,288, F 20; every value row equal, as there)
+    and on random selects, each result held bit for bit to the plain
+    version. Launch arguments of the committed library: the size rule's,
+    other tiles, lanes and groups; the variants at the rule's launch."""
+    import canal_torch
+    from repro_torch.configs.cgra_amber import FULL
+    from repro_torch.core import verify
+
+    fabric = canal_torch.compile(FULL, device=device,
+                                 use_kernels=True).fabric()
+    a = fabric.arrays
+    n, f = a.num_nodes, a.max_fanin
+    src = fabric._dev("src", a.src, torch.int32)
+    src_t = src.t().contiguous()
+    slot_ids, sels = verify.sweep_cases(fabric)
+    b = min(2048, len(slot_ids))
+    rng = np.random.default_rng(4)
+    vals = torch.as_tensor(rng.integers(0, 1 << 16, n + 1).astype(np.int32),
+                           device=device)
+    vals[n] = 0
+    vals_b = vals.expand(b, n + 1).contiguous()
+    workloads = {
+        "verify": verify.case_selects(fabric, slot_ids[:b], sels[:b]),
+        "random": torch.as_tensor(rng.integers(0, f, (b, n)).astype(
+            np.int32), device=device)}
+    rule = fs.sweep_batch_tiles(b, n, f)
+    tn, lanes, bb = rule[:3]
+    new_args = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
+        ctypes.c_void_p]
+    old_args = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    # (variant, TN, lanes, BB); TN None: the earlier kernel
+    launches = ([("committed", tn, lanes, bb)]
+                + [("committed", t, ln, g) for t, ln, g in (
+                    (512, 4, 16), (512, 4, 32), (256, 4, 32), (256, 4, 8),
+                    (256, 1, 16), (256, 2, 16), (256, 8, 16), (128, 4, 16),
+                    (tn, 1, 1))]
+                + [(name, None, None, None) if name == "first_kernel"
+                   else (name, tn, lanes, bb)
+                   for name in VARIANTS["sweep_batch"] if name != "committed"])
+    out = torch.empty((b, n), dtype=torch.int32, device=device)
+    rows = []
+    for work, sel in workloads.items():
+        want = fs.fabric_sweep_batch_plain(vals_b, src, sel)
+        for name, t_n, n_lanes, group in launches:
+            fn = libs["sweep_batch", name].canal_fabric_sweep_batch
+            fn.restype = ctypes.c_int
+            table = src_t if name == "src_transposed" else src
+            ptrs = (vals_b.data_ptr(), table.data_ptr(), sel.data_ptr(),
+                    out.data_ptr())
+            if t_n is None:
+                fn.argtypes = old_args
+                launch = (b, n, f, n + 1)
+            else:
+                fn.argtypes = new_args
+                launch = (b, n, f, n + 1, t_n, n_lanes, group,
+                          min(-(-b // group), fs.MAX_GRID_Y),
+                          4 * t_n * (f | 1), 1)
+
+            def call():
+                build.check(fn(*ptrs, *launch, build.stream_ptr(device)),
+                            name)
+            out.fill_(-7)
+            call()
+            torch.cuda.synchronize()
+            rows.append({"kernel": "fabric_sweep_batch", "variant": name,
+                         "selects": work, "TN": t_n, "lanes": n_lanes,
+                         "BB": group,
+                         "rule": (t_n, n_lanes, group) == rule[:3],
+                         "ms": graph_ms(call, 5),
+                         "equal": bool(torch.equal(out, want)),
+                         "changes_result": False})
+    rows.append({"kernel": "fabric_sweep_batch", "B": b, "N": n, "F": f})
+    return rows
+
+
+def ssd_rows(libs, device):
+    """``ssd_scan`` at Mamba2-1.3B's shape (L 2,048, P 64, N 128, chunk
+    128) for BH 128 (B 2, the LM path) and BH 64 (B 1), the reference
+    test's input ranges; errors against the plain version."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    new_args = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    old_args = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    rows = []
+    seq, p, n, chunk = 2048, 64, 128, 128
+    for bh in (128, 64):
+        g = torch.Generator(device).manual_seed(6)
+        x = torch.randn((bh, seq, p), generator=g, device=device)
+        dt = 0.1 + 0.5 * torch.rand((bh, seq), generator=g, device=device)
+        a = -0.5 - torch.rand((bh,), generator=g, device=device)
+        b = 0.3 * torch.randn((bh, seq, n), generator=g, device=device)
+        c = 0.3 * torch.randn((bh, seq, n), generator=g, device=device)
+        want = ssd.ssd_scan_plain(x, dt, a, b, c, chunk=chunk)
+        y = torch.empty_like(x)
+        k = -(-seq // chunk)
+        states = torch.empty((bh, k, n, p), device=device)
+        decay = torch.empty((bh, k), device=device)
+        for name, (_, changes) in VARIANTS["ssd"].items():
+            fn = libs["ssd", name].canal_ssd_scan
+            fn.restype = ctypes.c_int
+            head = [t.data_ptr() for t in (x, dt, a, b, c, y)]
+            if name == "first_kernel":
+                fn.argtypes = old_args
+                args = head + [bh, seq, p, n, chunk]
+            else:
+                fn.argtypes = new_args
+                args = head + [states.data_ptr(), decay.data_ptr(), bh,
+                               seq, p, n, chunk]
+
+            def call():
+                build.check(fn(*args, build.stream_ptr(device)), name)
+            y.fill_(float("nan"))
+            call()
+            torch.cuda.synchronize()
+            rows.append({"kernel": "ssd_scan", "variant": name, "BH": bh,
+                         "ms": graph_ms(call, 10),
+                         "max_abs_err": float((y - want).abs().max()),
+                         "changes_result": changes})
+    return rows
+
+
+def ssd_scan_call(lib, first):
+    """An ``ssd_scan(x, dt, a, b, c, chunk)`` launching ``lib``'s kernel
+    (``first``: the kernel as first ported, which takes no scratch)."""
+    fn = lib.canal_ssd_scan
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * (6 if first else 8)
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+
+    def call(x, dt, a, b, c, chunk=128):
+        bh, l, p = x.shape
+        n = b.shape[-1]
+        y = torch.empty_like(x)
+        ptrs = [t.data_ptr() for t in (x, dt, a, b, c, y)]
+        if not first:
+            k = -(-l // chunk)
+            states = torch.empty((bh, k, n, p), device=x.device)
+            decay = torch.empty((bh, k), device=x.device)
+            ptrs += [states.data_ptr(), decay.data_ptr()]
+        build.check(fn(*ptrs, bh, l, p, n, chunk,
+                       build.stream_ptr(x.device)), "ssd_scan")
+        return y
+    return call
+
+
+def ssd_layer_rows(libs, device):
+    """Per layer of Mamba2-1.3B's ``lm_score`` forward: the committed
+    kernel, the first kernel and the plain version on the layer's own
+    inputs against the float64 recurrence; then the forward's logits with
+    each of them (and the recurrence) in place of ``ssd_scan``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd
+
+    def float64(x, dt, a, b, c, chunk=128):
+        return ref.ssd_ref(*(t.double() for t in (x, dt, a, b, c)))
+
+    scans = {"committed": ssd_scan_call(libs["ssd_layers", "committed"],
+                                        False),
+             "first_kernel": ssd_scan_call(
+                 libs["ssd_layers", "first_kernel"], True),
+             "plain": ssd.ssd_scan_plain}
+    cfg = get_config("mamba2-1.3b")
+    model, plain = lm_models({"mamba2": cfg}, device)["mamba2"]
+    tokens = {"tokens": lm_tokens(cfg, LM_BATCH, LM_SEQ, device)}
+    layers = []
+
+    def probe(x, dt, a, b, c, chunk=128):
+        want = float64(x, dt, a, b, c)
+        rec = {"layer": len(layers), "max_abs_y": float(want.abs().max()),
+               "dt": [float(dt.min()), float(dt.max())],
+               "a": [float(a.min()), float(a.max())],
+               **{f"max_abs_{k}": float(t.abs().max())
+                  for k, t in (("x", x), ("b", b), ("c", c))}}
+        ys = {k: fn(x, dt, a, b, c, chunk=chunk) for k, fn in scans.items()}
+        for k, y in ys.items():
+            d = y.double() - want
+            rec[k] = {"max_abs_err": float(d.abs().max()),
+                      "mean_err": float(d.mean()),
+                      "rms_err": float(d.square().mean().sqrt())}
+            if k != "plain":
+                rec[k]["vs_plain"] = float((y - ys["plain"]).abs().max())
+                rec[k]["within_gate"] = bool(torch.allclose(
+                    y, ys["plain"], atol=SSD_TOL, rtol=SSD_TOL))
+        layers.append(rec)
+        return ys["committed"]
+
+    logits = {}
+    with torch.inference_mode():
+        with swapped(ssd, "ssd_scan", probe):
+            logits["committed"] = model.logits(tokens)
+        for k, fn in (("first_kernel", scans["first_kernel"]),
+                      ("float64", lambda *t, chunk=128: float64(*t).float())):
+            with swapped(ssd, "ssd_scan", fn):
+                logits[k] = model.logits(tokens)
+        logits["plain"] = plain.logits(tokens)
+    gaps = {k: {"vs_plain": logit_gap(logits[k], logits["plain"]),
+                "vs_float64": logit_gap(logits[k], logits["float64"])}
+            for k in ("committed", "first_kernel", "plain")}
+    del model, plain, logits
+    torch.cuda.empty_cache()
+    worst = {k: max(r[k]["max_abs_err"] for r in layers) for k in scans}
+    return ([{"kernel": "ssd_scan", "probe": "mamba2_layer", **r}
+             for r in layers]
+            + [{"kernel": "ssd_scan", "probe": "mamba2_logits",
+                "layers": len(layers), "worst_layer_err": worst,
+                "logit_gaps": gaps}])
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", default="flash,minplus,fused")
+    parser.add_argument("--only",
+                        default="flash,minplus,fused,sweep_batch,ssd,"
+                                "ssd_layers")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_ablations: CUDA is not available",
@@ -514,6 +859,12 @@ def main():
         rows += minplus_rows(fns, device)
     if "fused" in kernels:
         rows += fused_rows(fns, device)
+    if "sweep_batch" in kernels:
+        rows += sweep_batch_rows(fns, device)
+    if "ssd" in kernels:
+        rows += ssd_rows(fns, device)
+    if "ssd_layers" in kernels:
+        rows += ssd_layer_rows(fns, device)
     print(card_line())
     print(json.dumps({"ablations": rows,
                       "device": torch.cuda.get_device_name(0)}))
