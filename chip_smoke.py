@@ -9,7 +9,7 @@ phase zeroes the launch counts just before it runs and reads them just
 after; each must have launched the kernels it exists to drive.
 
 1. build   — nvcc builds ``src/repro_torch/kernels/csrc/*.cu`` into
-             ``build/kernels/`` and, beside them, the two kernels kept as
+             ``build/kernels/`` and, beside them, the kernels kept as
              they were before their redesign
              (``tools/ablation_kernels/*_first.cu``) into
              ``build/earlier/`` (one process per source, in parallel).
@@ -29,8 +29,10 @@ after; each must have launched the kernels it exists to drive.
              No port path calls ``ops.hpwl`` yet, so its launches are this
              script's own check, not path coverage.
 3. emulate — each routed app alone through ``CompiledFabric.emulate``
-             (``FabricModule.run``: one ``fabric_sweep`` launch per
-             sweep), bit-identical to phase 2's batched outputs.
+             (``FabricModule.run``: each sweep, one ``fabric_sweep``
+             launch among its ops, replayed from a CUDA graph),
+             bit-identical to phase 2's batched outputs; per app the wall
+             ms, the launches and the card's ms per sweep.
 4. verify  — ``CompiledFabric.verify()`` at FULL: the structural check
              and the exhaustive configuration sweep, 214,080 (mux, input)
              cases in chunks of 2,048 (``fabric_sweep_batch``).
@@ -88,11 +90,14 @@ after; each must have launched the kernels it exists to drive.
              ``global``), the clusters the card holds at once, the sweeps
              a launch runs, the microseconds a sweep and the share of a
              sweep's shared-memory reads that stay in the reading block.
-             ``fabric_sweep_batch`` and ``ssd_scan`` also give the time
-             of the kernel as it stood before its redesign, built from
-             ``tools/ablation_kernels/`` beside the library, held to the
-             same plain version and timed on the same inputs
-             (``earlier_ms``).
+             ``fabric_sweep``, ``fabric_sweep_batch`` and ``ssd_scan``
+             also give the time of the kernel as it stood before its
+             redesign, built from ``tools/ablation_kernels/`` beside the
+             library, held to the same plain version and timed on the
+             same inputs (``earlier_ms``); ``fabric_sweep`` also the
+             device time of one whole sweep of ``run`` (``sweep_ms``:
+             the kernel, the hold, the re-pin and the PE cores, as the
+             graph replays them).
 
 Before the last line it prints each phase's seconds and launches, the
 per-app PnR seconds, the emulation times, the ``kernels`` JSON line and
@@ -148,7 +153,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: the kernels as they stood before their redesign, kept unchanged in
 #: ``tools/ablation_kernels/`` and timed beside the committed ones
 #: (``earlier_ms``): kernel -> (source, C signature)
-EARLIER = {"fabric_sweep_batch": ("fabric_sweep_first.cu",
+EARLIER = {"fabric_sweep": ("fabric_sweep_first.cu", [_P] * 4 + [_I] * 2
+                            + [_P]),
+           "fabric_sweep_batch": ("fabric_sweep_first.cu",
                                   [_P] * 4 + [_I] * 4 + [_P]),
            "ssd_scan": ("ssd_scan_first.cu", [_P] * 6 + [_I] * 5 + [_P])}
 
@@ -381,18 +388,44 @@ def hpwl_phase(routed, device):
 
 # ------------------------------------------------------- the slice-2 paths
 def emulate_phase(fab, routed, ins, outs):
-    """Each routed app alone through ``CompiledFabric.emulate`` (one
-    ``fabric_sweep`` launch per sweep), equal to the batched run."""
-    per_app_ms = {}
+    """Each routed app alone through ``CompiledFabric.emulate`` (its
+    sweeps replayed from a CUDA graph), equal to the batched run. Per
+    app: wall ms, ``fabric_sweep`` launches, and the card's ms per sweep
+    (CUDA events from before the app's run to after it, over its
+    launches: host gaps between the replays included); beside them the
+    ms of the host's part that binds the app to the fabric
+    (``AppEmulator.from_pnr``, timed apart: ``emulate`` runs it too)."""
+    from repro_torch.fabric import AppEmulator
+    from repro_torch.kernels import build
+
+    per_app = {}
     for (name, r), stim, want in zip(routed.items(), ins,
                                      outs["unstreamed"]):
         t0 = time.perf_counter()
+        AppEmulator.from_pnr(fab.fabric(), r.packed, r)
+        bind_ms = (time.perf_counter() - t0) * 1e3
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        before = build.LAUNCHES["fabric_sweep"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
         got = fab.emulate(r, stim, cycles=T)
-        per_app_ms[name] = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        sweeps = build.LAUNCHES["fabric_sweep"] - before
+        device_ms = start.elapsed_time(end)
+        per_app[name] = {"ms": wall_ms, "bind_ms": bind_ms,
+                         "fabric_sweep": sweeps, "device_ms": device_ms,
+                         "device_ms_per_sweep": device_ms / max(sweeps, 1)}
+        log(f"emulate {name}: {wall_ms:.1f} ms, {sweeps} sweeps, "
+            f"{device_ms / max(sweeps, 1):.4f} device ms a sweep")
         for coord in want:
             if not np.array_equal(got[coord], want[coord]):
                 raise AssertionError(f"{name}: emulate != batched run")
-    return {"emulate_ms": per_app_ms}
+    return {"emulate_ms": {k: v["ms"] for k, v in per_app.items()},
+            "per_app": per_app}
 
 
 def verify_phase(fab):
@@ -774,15 +807,15 @@ def sweep_bytes(src, sel):
 
 def start_earlier():
     """Start one nvcc process for each ``EARLIER`` source, into
-    ``build/earlier/``; returns {kernel: (library path, process)}."""
+    ``build/earlier/``; returns {source: (library path, process)}."""
     from repro_torch.kernels import build
 
     out = os.path.join(ROOT, "build", "earlier")
     os.makedirs(out, exist_ok=True)
     procs = {}
-    for name, (src, _) in EARLIER.items():
+    for src in sorted({src for src, _ in EARLIER.values()}):
         lib = os.path.join(out, src[:-3] + ".so")
-        procs[name] = (lib, subprocess.Popen(
+        procs[src] = (lib, subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-shared",
              os.path.join(ROOT, "tools", "ablation_kernels", src), "-o",
              lib], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -793,13 +826,16 @@ def start_earlier():
 def finish_earlier(procs):
     """Wait for ``start_earlier``'s builds; returns {kernel: its C entry
     point}."""
-    fns = {}
-    for name, (lib, proc) in procs.items():
+    libs = {}
+    for src, (lib, proc) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for the earlier {name}:\n{out}")
-        fn = getattr(ctypes.CDLL(lib), "canal_" + name)
-        fn.argtypes = EARLIER[name][1]
+            raise RuntimeError(f"nvcc failed for {src}:\n{out}")
+        libs[src] = ctypes.CDLL(lib)
+    fns = {}
+    for name, (src, argtypes) in EARLIER.items():
+        fn = getattr(libs[src], "canal_" + name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
@@ -820,10 +856,11 @@ def earlier_ms(name, launch, got, want, reps, **tol):
 
 
 def sweep_rows(fab, routed, device, earlier):
-    """``fabric_sweep`` at FULL on a routed app's configuration, and
+    """``fabric_sweep`` at FULL on a routed app's configuration, with the
+    device time of ``run``'s whole sweep around it, and
     ``fabric_sweep_batch`` at the configuration sweep's chunk shape
-    (2,048 cases x N + 1), beside ``earlier`` (its kernel before the
-    redesign)."""
+    (2,048 cases x N + 1), each beside ``earlier`` (the kernels before
+    their redesign)."""
     from repro_torch.core import verify
     from repro_torch.fabric import AppEmulator
     from repro_torch.kernels import build
@@ -838,8 +875,8 @@ def sweep_rows(fab, routed, device, earlier):
     vals_np[n] = 0
     vals = torch.as_tensor(vals_np, device=device)
     r = routed["pointwise"]
-    config = AppEmulator.from_pnr(fabric, r.packed, r).config
-    sel = fabric._selects(config[None])[0]
+    emu = AppEmulator.from_pnr(fabric, r.packed, r)
+    sel = fabric._selects(emu.config[None])[0]
     rows = []
     got = fs.fabric_sweep(vals, src, sel)
     want = fs.fabric_sweep_plain(vals, src, sel)
@@ -848,16 +885,32 @@ def sweep_rows(fab, routed, device, earlier):
     if not torch.equal(got, want):
         raise AssertionError(f"fabric_sweep differs (max {err})")
     b_ms, b_by = bound(sweep_bytes(src, sel[None]), n)
+    first = torch.empty_like(want)
+
+    def launch_first():
+        build.check(earlier["fabric_sweep"](
+            vals.data_ptr(), src.data_ptr(), sel.data_ptr(), first.data_ptr(),
+            n, a.max_fanin, build.stream_ptr(device)),
+            "earlier fabric_sweep")
+    cyc = fabric._cycle(emu.config, emu.pe_cfg)
+    fabric._start_cycle(cyc, cyc["vals"][0])
     rows.append({
         "name": "fabric_sweep", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fabric_sweep.cu",
         "replaces": "src/repro/kernels/fabric_step.py:135",
         "max_abs_err": err,
-        **timings(lambda: fs.fabric_sweep(vals, src, sel),
-                  lambda: fs.fabric_sweep_plain(vals, src, sel), reps=50,
-                  plain_reps=50),
+        # into one buffer, as ``run`` calls it and the first kernel runs
+        **timings(lambda: fs.fabric_sweep(vals, src, sel, out=got),
+                  lambda: fs.fabric_sweep_plain(vals, src, sel, out=got),
+                  reps=50, plain_reps=50),
+        "earlier_ms": earlier_ms("fabric_sweep", launch_first, first, want,
+                                 reps=50),
+        "sweep_ms": graph_ms(lambda: fabric._sweep(cyc, *cyc["vals"]),
+                             reps=50),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "shape": {"N": n, "F": a.max_fanin}})
+        "shape": {"N": n, "F": a.max_fanin,
+                  "grid": dict(zip(("blocks", "threads"),
+                                   fs.sweep_tiles(n)))}})
 
     slot_ids, sels = verify.sweep_cases(fabric)
     b = min(2048, len(slot_ids))
@@ -874,10 +927,10 @@ def sweep_rows(fab, routed, device, earlier):
     f = a.max_fanin
 
     def launch_earlier():
-        build.check(earlier(vals_b.data_ptr(), src.data_ptr(),
-                            sel_b.data_ptr(), old.data_ptr(), b, n, f,
-                            n + 1, build.stream_ptr(device)),
-                    "earlier fabric_sweep_batch")
+        build.check(earlier["fabric_sweep_batch"](
+            vals_b.data_ptr(), src.data_ptr(), sel_b.data_ptr(),
+            old.data_ptr(), b, n, f, n + 1, build.stream_ptr(device)),
+            "earlier fabric_sweep_batch")
     rows.append({
         "name": "fabric_sweep_batch", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fabric_sweep.cu",
@@ -1330,8 +1383,7 @@ def drive(spec, device, t_start, earlier):
     rows = fabric_kernel_rows(fab.fabric(), device, batch=len(routed))
     rows.append(minplus_row(fab, device))
     rows.append(bbox_row(routed, device))
-    rows.extend(sweep_rows(fab, routed, device,
-                           earlier["fabric_sweep_batch"]))
+    rows.extend(sweep_rows(fab, routed, device, earlier))
     rows.append(hpwl_row(routed, device))
     rows.append(flash_row(device))
     rows.append(ssd_row(device, earlier["ssd_scan"]))
@@ -1345,7 +1397,7 @@ def drive(spec, device, t_start, earlier):
     keys = ("name", "route", "source", "replaces", "launches", "path",
             "max_abs_err", "ms", "plain_ms", "call_ms", "timing",
             "bound_ms", "bound_by", "bound_share", "library_ms", "shape")
-    extra = ("tflops", "by_batch", "earlier_ms")
+    extra = ("tflops", "by_batch", "earlier_ms", "sweep_ms")
     rows = [{**{k: row[k] for k in keys},
              **{k: row[k] for k in extra if k in row}} for row in rows]
 
@@ -1360,7 +1412,8 @@ def drive(spec, device, t_start, earlier):
     print(json.dumps({"emulation_ms": report["emulation_ms"],
                       "apps": len(routed), "cycles": T,
                       "io_chunk": IO_CHUNK,
-                      "emulate_ms": results["emulate"]["emulate_ms"]}))
+                      "emulate_ms": results["emulate"]["emulate_ms"],
+                      "emulate": results["emulate"]["per_app"]}))
     print(json.dumps({"verify": results["verify"]}))
     print(json.dumps({"serve": results["serve"]}, default=str))
     print(json.dumps({"engines": results["engines"]}))

@@ -26,6 +26,10 @@ The numpy table builders are the reference's, unchanged. With
 ``use_kernels=True`` every path (single sweep, unfused batched sweep,
 fused fixpoint, streamed run) calls the kernel wrappers, which run the
 CUDA kernels for a CUDA ``device`` and their plain versions on the CPU.
+The single-configuration ``run`` stands in for the reference's
+``lax.scan`` over a ``fori_loop``: on the card it replays each sweep from
+a CUDA graph, so that the ~55 small launches of a sweep cost no host
+time each.
 """
 from __future__ import annotations
 
@@ -222,6 +226,10 @@ class FabricModule:
             pin_mask[self.io_in_nodes] = 1
         if self.num_mem:
             pin_mask[self.mem_out] = 1
+        # the single-configuration cycle re-pins these nodes from its
+        # ``pins`` buffer, laid out [regs | ext io | mem]
+        self.pin_ids = np.concatenate(
+            [a.reg_ids, self.io_in_nodes, self.mem_out]).astype(np.int32)
         self.fused_tables = {
             "keep": (~a.is_driven).astype(np.int32),
             "pin_mask": pin_mask,
@@ -344,23 +352,6 @@ class FabricModule:
                             self._dev("src", a.src)[rows[None, :],
                                                     sel.long()])
 
-    def _sweep(self, vals_ext: torch.Tensor, sel: torch.Tensor
-               ) -> torch.Tensor:
-        """One combinational propagation sweep: the fabric hot loop.
-        vals_ext has the zero sentinel appended (length N+1); undriven
-        nodes hold their value. Returns (N,). With ``use_kernels`` the
-        gather is the ``fabric_sweep`` kernel."""
-        a = self.arrays
-        if self.use_kernels:
-            from repro_torch.kernels import ops as kops
-            new = kops.fabric_sweep(vals_ext,
-                                    self._dev("src", a.src, torch.int32), sel)
-        else:
-            rows = torch.arange(a.num_nodes, device=self.device)
-            new = vals_ext[self._dev("src", a.src)[rows, sel.long()]]
-        keep = self._dev("keep", ~a.is_driven, torch.bool)
-        return torch.where(keep, vals_ext[:-1], new)
-
     def _sweep_batch(self, vals_ext: torch.Tensor,
                      sel: torch.Tensor) -> torch.Tensor:
         """Batched sweep: vals_ext (B, N+1), sel (B, N) -> (B, N)."""
@@ -368,31 +359,35 @@ class FabricModule:
         return torch.where(keep[None, :], vals_ext[:, :-1],
                            self._gather_batch(vals_ext, sel))
 
-    def _eval_pes(self, vals: torch.Tensor,
-                  pe_cfg: State) -> torch.Tensor:
-        """PE cores on (B, N) values with (B, ...) PE programs;
-        sentinel-padded PE inputs read 0 via the extended gather."""
-        if self.num_pe == 0:
-            return vals
+    def _pe_program(self, pe_cfg: State) -> State:
+        """(B, ...) PE programs as ``_eval_pes`` reads them: ``op`` as the
+        (1, B, P) int64 index of the candidate gather, ``const`` (B, P)
+        and, where the program has them, the packed-constant immediates
+        (``imm_mask`` as bool)."""
         npe = self.num_pe
-        b = vals.shape[0]
-        vals_ext = torch.cat([vals, self._zeros(b, 1)], dim=1)
-        ins = vals_ext[:, self._dev("pe_in_raw", self.pe_in)]  # (B, P, 4)
+        pe = {"op": pe_cfg["op"][:, :npe].long()[None],
+              "const": pe_cfg["const"][:, :npe]}
         if "imm_mask" in pe_cfg:
-            ins = torch.where(pe_cfg["imm_mask"][:, :npe] > 0,
-                              pe_cfg["imm_val"][:, :npe], ins)
+            pe["imm_mask"] = pe_cfg["imm_mask"][:, :npe] > 0
+            pe["imm_val"] = pe_cfg["imm_val"][:, :npe]
+        return pe
+
+    def _eval_pes(self, vals_ext: torch.Tensor, pe: State) -> None:
+        """PE cores on (B, N+1) values, in place: each PE's outputs
+        written from its inputs (sentinel-padded inputs read the zero at
+        N) under a ``_pe_program``."""
+        if self.num_pe == 0:
+            return
+        ins = vals_ext[:, self._dev("pe_in_raw", self.pe_in)]  # (B, P, 4)
+        if "imm_mask" in pe:
+            ins = torch.where(pe["imm_mask"], pe["imm_val"], ins)
         a, b_, c = ins[..., 0], ins[..., 1], ins[..., 2]
-        op = pe_cfg["op"][:, :npe].long()
-        const = pe_cfg["const"][:, :npe]
-        candidates = pe_alu_candidates(a, b_, c, const)   # (n_ops, B, P)
-        res0 = torch.gather(candidates, 0, op[None])[0] & WORD
-        res1 = a & WORD                        # second output: pass-through
+        candidates = pe_alu_candidates(a, b_, c, pe["const"])  # (ops, B, P)
         out_ids = self._dev("pe_out", self.pe_out)
-        vals = vals.clone()
-        vals[:, out_ids[:, 0]] = res0
-        if self.pe_out.shape[1] > 1:
-            vals[:, out_ids[:, 1]] = res1
-        return vals
+        vals_ext[:, out_ids[:, 0]] = torch.gather(candidates, 0,
+                                                  pe["op"])[0] & WORD
+        if self.pe_out.shape[1] > 1:           # second output: pass-through
+            vals_ext[:, out_ids[:, 1]] = a & WORD
 
     def _pin(self, v: torch.Tensor, state: State,
              ext_in: torch.Tensor) -> torch.Tensor:
@@ -429,6 +424,124 @@ class FabricModule:
                   if self.num_io else self._zeros(b, 0))
         return new_state, io_obs
 
+    # ---------------------------------------- the single-configuration cycle
+    def _cycle(self, config, pe_cfg: Optional[State]) -> State:
+        """The buffers of single-configuration cycles: what the
+        configuration fixes for a run (the mux selects ``sel`` and, off
+        the kernel path, each node's selected source ``picked``; the PE
+        program ``pe``), the sources' values ``pins`` ([regs | ext io |
+        mem], zero as in ``init_state``) and the two (N+1,) value vectors
+        ``vals`` that a cycle's sweeps alternate between (the zero
+        sentinel at N; two tensors, so that each starts 16-B aligned for
+        the kernel's vector loads)."""
+        n = self.arrays.num_nodes
+        pe_cfg = self.default_pe_cfg() if pe_cfg is None else pe_cfg
+        cyc = {"sel": self._selects(self._ints(config)[None])[0],
+               "pe": self._pe_program({k: self._ints(v)[None]
+                                       for k, v in pe_cfg.items()}),
+               "pins": self._zeros(len(self.pin_ids)),
+               "vals": (self._zeros(n + 1), self._zeros(n + 1))}
+        if not self.use_kernels:
+            rows = torch.arange(n, device=self.device)
+            cyc["picked"] = self._dev("src", self.arrays.src)[
+                rows, cyc["sel"].long()]
+        return cyc
+
+    def _start_cycle(self, cyc: State, vals: torch.Tensor) -> None:
+        """A cycle's first values: the pinned sources on zeros."""
+        vals.zero_()
+        vals.index_copy_(0, self._dev("pin_ids", self.pin_ids), cyc["pins"])
+
+    def _sweep(self, cyc: State, cur: torch.Tensor,
+               nxt: torch.Tensor) -> None:
+        """One fixpoint sweep from ``cur`` into ``nxt`` (both (N+1,); the
+        sentinel stays 0), the reference's ``fori_loop`` body: every
+        node's selected input (the ``fabric_sweep`` kernel with
+        ``use_kernels``), undriven nodes held, the sources re-pinned, the
+        PE cores evaluated. In place on the cycle's buffers, so that a
+        CUDA graph of it replays on them."""
+        a = self.arrays
+        n = a.num_nodes
+        new = nxt[:n]
+        if self.use_kernels:
+            from repro_torch.kernels import ops as kops
+            kops.fabric_sweep(cur, self._dev("src", a.src, torch.int32),
+                              cyc["sel"], out=new)
+        else:
+            torch.index_select(cur, 0, cyc["picked"], out=new)
+        torch.where(self._dev("keep", ~a.is_driven, torch.bool), cur[:n],
+                    new, out=new)
+        nxt.index_copy_(0, self._dev("pin_ids", self.pin_ids), cyc["pins"])
+        self._eval_pes(nxt[None], cyc["pe"])
+
+    def _clock_cycle(self, cyc: State, vals: torch.Tensor,
+                     obs: torch.Tensor) -> None:
+        """From a cycle's settled (N+1,) values: the io observations into
+        ``obs``, the next registers and memory words into ``pins``."""
+        r, io = len(self.arrays.reg_ids), self.num_io
+        pins = cyc["pins"]
+        torch.index_select(vals, 0, self._dev("io_out", self.io_out_nodes),
+                           out=obs)
+        torch.index_select(vals, 0, self._dev("reg_src", self.arrays.reg_src),
+                           out=pins[:r])
+        torch.index_select(vals, 0, self._dev("mem_in", self.mem_in),
+                           out=pins[r + io:])
+
+    def _eager_cycle(self, cyc: State, depth: int, obs: torch.Tensor
+                     ) -> None:
+        """One clock cycle, sweep by sweep."""
+        vals = cyc["vals"]
+        self._start_cycle(cyc, vals[0])
+        for k in range(depth):
+            self._sweep(cyc, vals[k % 2], vals[(k + 1) % 2])
+        self._clock_cycle(cyc, vals[depth % 2], obs)
+
+    def _eager_cycles(self, cyc: State, ext: torch.Tensor, depth: int,
+                      out: torch.Tensor) -> None:
+        """``run``'s cycles sweep by sweep (off the card's kernel path):
+        (T, num_io) stimulus -> observations into ``out``."""
+        r, io = len(self.arrays.reg_ids), self.num_io
+        for t in range(ext.shape[0]):
+            cyc["pins"][r:r + io].copy_(ext[t])
+            self._eager_cycle(cyc, depth, out[t])
+
+    def _graphed_cycles(self, cyc: State, ext: torch.Tensor, depth: int,
+                        out: torch.Tensor) -> None:
+        """``run``'s cycles on the card: the sweep captured into one CUDA
+        graph per direction (``vals[0]`` -> ``vals[1]`` and back), each
+        cycle's ``depth`` sweeps replayed from them. The run's first sweep
+        runs eagerly, on a side stream, before the capture, so that every
+        device table and the kernel library exist; each replay counts one
+        ``fabric_sweep`` launch. A failed capture or replay raises."""
+        from repro_torch.kernels import build
+
+        r, io = len(self.arrays.reg_ids), self.num_io
+        vals = cyc["vals"]
+        stream = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        cyc["pins"][r:r + io].copy_(ext[0])
+        self._start_cycle(cyc, vals[0])
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            self._sweep(cyc, vals[0], vals[1])
+        stream.wait_stream(side)
+        graphs = []
+        for cur, nxt in (vals, vals[::-1]):
+            graph = torch.cuda.CUDAGraph()
+            # other threads (the DSE executor's) may use the card meanwhile
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._sweep(cyc, cur, nxt)
+            graphs.append(graph)
+        for t in range(ext.shape[0]):
+            if t:
+                cyc["pins"][r:r + io].copy_(ext[t])
+                self._start_cycle(cyc, vals[0])
+            first = 1 if t == 0 else 0
+            for k in range(first, depth):
+                graphs[k % 2].replay()
+            build.LAUNCHES["fabric_sweep"] += depth - first
+            self._clock_cycle(cyc, vals[depth % 2], out[t])
+
     def step(self, state: State, ext_in, config,
              pe_cfg: Optional[State] = None,
              depth: int = 16) -> Tuple[State, torch.Tensor]:
@@ -439,20 +552,18 @@ class FabricModule:
         observations). ``depth`` = fixpoint sweeps (≥ longest configured
         combinational chain).
         """
-        if pe_cfg is None:
-            pe_cfg = self.default_pe_cfg()
-        one = {k: v[None] for k, v in state.items()}
-        cfg1 = {k: self._ints(v)[None] for k, v in pe_cfg.items()}
-        ext1 = self._ints(ext_in)[None]
-        sel = self._selects(self._ints(config)[None])
-        vals = self._pin(self._zeros(1, self.arrays.num_nodes), one, ext1)
-        zero = self._zeros(1)
-        for _ in range(depth):
-            vals = self._sweep(torch.cat([vals[0], zero]), sel[0])[None]
-            vals = self._pin(vals, one, ext1)      # re-pin sources
-            vals = self._eval_pes(vals, cfg1)
-        new_state, io_obs = self._clock(vals, one)
-        return {k: v[0] for k, v in new_state.items()}, io_obs[0]
+        r, io = len(self.arrays.reg_ids), self.num_io
+        cyc = self._cycle(config, pe_cfg)
+        torch.cat([self._ints(state["regs"]), self._ints(ext_in),
+                   self._ints(state["mem"])[:self.num_mem]], out=cyc["pins"])
+        obs = self._zeros(io)
+        self._eager_cycle(cyc, depth, obs)
+        new_state = dict(state)
+        new_state["regs"] = cyc["pins"][:r]
+        if self.num_mem:
+            new_state["mem"] = self._ints(state["mem"]).clone()
+            new_state["mem"][:self.num_mem] = cyc["pins"][r + io:]
+        return new_state, obs
 
     def run(self, config, ext_stream,
             pe_cfg: Optional[State] = None,
@@ -460,19 +571,21 @@ class FabricModule:
         """Run T cycles; ext_stream (T, num_io) -> observations (T, num_io).
 
         ``depth=None`` computes the per-config combinational depth from the
-        configured network (host-side)."""
+        configured network (host-side). On the card with ``use_kernels``
+        the sweeps replay from a CUDA graph captured once per call; the
+        result is the sweep-by-sweep loop's, bit for bit."""
         if depth is None:
             depth = self.combinational_depth(np.asarray(
                 config.cpu() if isinstance(config, torch.Tensor) else config))
-        state = self.init_state()
         ext = self._ints(ext_stream)
-        outs = []
-        for t in range(ext.shape[0]):
-            state, obs = self.step(state, ext[t], config, pe_cfg, depth=depth)
-            outs.append(obs)
-        if not outs:
-            return self._zeros(0, self.num_io)
-        return torch.stack(outs)
+        out = self._zeros(ext.shape[0], self.num_io)
+        cyc = self._cycle(config, pe_cfg)
+        if (self.device.type == "cuda" and self.use_kernels and depth > 0
+                and ext.shape[0]):
+            self._graphed_cycles(cyc, ext, depth, out)
+        else:
+            self._eager_cycles(cyc, ext, depth, out)
+        return out
 
     def _norm_depth(self, depth: DepthSpec, max_depth: Optional[int],
                     b: int) -> Tuple[torch.Tensor, int]:
@@ -562,14 +675,15 @@ class FabricModule:
                     self._dev("pe_out", self.pe_out),
                     max_depth=max_depth, word=WORD)
         else:
+            pe = self._pe_program(pe_cfg)
             vals = pin_vals
             zero = self._zeros(b, 1)
             for i in range(max_depth):
                 v_ext = torch.cat([vals, zero], dim=1)
-                nv = self._sweep_batch(v_ext, sel)
-                nv = self._pin(nv, state, ext_in)
-                nv = self._eval_pes(nv, pe_cfg)
-                vals = torch.where((i < depths)[:, None], nv, vals)
+                nv = torch.cat([self._pin(self._sweep_batch(v_ext, sel),
+                                          state, ext_in), zero], dim=1)
+                self._eval_pes(nv, pe)
+                vals = torch.where((i < depths)[:, None], nv[:, :-1], vals)
         return self._clock(vals, state)
 
     def _run_batch_stream(self, configs: torch.Tensor, ext: torch.Tensor,

@@ -50,7 +50,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: C signatures: every pointer and the stream as c_void_p, ints as c_int
 _SIGNATURES = {
-    "canal_fabric_sweep": [_P, _P, _P, _P, _I, _I, _P],
+    "canal_fabric_sweep": [_P] * 4 + [_I] * 5 + [_P],
     "canal_fabric_sweep_batch": [_P] * 4 + [_I] * 10 + [_P],
     "canal_fabric_fused_batch": [_P] * 15 + [_P] * 3 + [_I] * 7 + [_P],
     "canal_fabric_fused_run": [_P] * 18 + [_P] * 5 + [_I] * 11 + [_P],

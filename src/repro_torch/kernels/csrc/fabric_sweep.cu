@@ -17,8 +17,25 @@
 // Bound: bytes. Each output reads its select, one src entry and one
 // value: a gather with no arithmetic.
 //
-// One configuration: one thread owns one node; sel and out are coalesced,
-// the src row and the value are scattered loads.
+// One configuration: at the Amber FULL size (N 86,288, F 20) the byte
+// bound is ~0.4 us (this run's selects pick 1.33 MB of sel, src, vals and
+// out), under the ~1.6 us any launch takes on this card, so one sweep
+// alone can reach neither. What is left above that floor is latency:
+// each node is a chain of three dependent loads (sel, then its src pick,
+// then the value) before its store. A thread owns kNodes consecutive
+// nodes: one 16-B load of their selects, then all kNodes src picks and
+// all kNodes value gathers issued before any is used (kNodes independent
+// chains in flight, not one), then one 16-B store. src and vals go
+// through the read-only path; sel and out take plain loads and stores,
+// with no evict-first hint, since the caller's next sweep of the same
+// cycle reads them again (src, vals, sel and out together, ~7.9 MB at
+// FULL, stay in the 50 MB L2 across a cycle's sweeps). sel or out not
+// 16-B aligned take a scalar path; the N % kNodes tail nodes go one a
+// thread. The grid is one wave (fabric_step.sweep_tiles, beside the
+// wrapper): blocks spread over every SM where N allows, never more than
+// the card holds at once, past which threads stride. In the port the
+// sweep runs inside a CUDA graph of the whole sweep iteration
+// (core/lowering.py), which is where the launch floor is paid down.
 //
 // B configurations: a thread owning one (b, i) and reading src[i, sel]
 // from device memory would make a warp touch 32 separate 32-B sectors of
@@ -48,22 +65,42 @@
 
 namespace {
 
-constexpr int kThreads = 256;       // single-configuration kernel
-constexpr int kMaxBlocksX = 65535;
+constexpr int kNodes = 4;           // consecutive nodes a sweep thread owns
+constexpr int kMaxSweepThreads = 256;
 constexpr int kVec = 4;             // consecutive nodes a batch thread owns
 constexpr int kMaxTile = 512;       // nodes of a tile, at most
 constexpr int kMaxThreads = 512;    // tile threads x configuration lanes
 constexpr int kUnroll = 4;          // configurations in flight a thread
 
-__global__ void __launch_bounds__(kThreads)
+// kNodes consecutive ints, loaded and stored whole (16 B for 4 nodes)
+struct alignas(4 * kNodes) NodeInts {
+    int v[kNodes];
+};
+
+// Thread t of the grid's S owns node groups t, t + S, ... (kNodes nodes
+// each) of the first `groups`, then tail nodes kNodes * groups + t,
+// + S, ...; aligned: sel and out start on 4 kNodes bytes (16 B).
+__global__ void __launch_bounds__(kMaxSweepThreads)
 sweep_kernel(const int* __restrict__ vals, const int* __restrict__ src,
              const int* __restrict__ sel, int* __restrict__ out, int n,
-             int f) {
+             int f, int aligned) {
     const int stride = gridDim.x * blockDim.x;
-    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-         i += stride) {
-        out[i] = vals[src[(size_t)i * f + sel[i]]];
+    const int t = blockIdx.x * blockDim.x + threadIdx.x;
+    const int groups = aligned ? n / kNodes : 0;
+    for (int g = t; g < groups; g += stride) {
+        const int i = g * kNodes;
+        const NodeInts s = *reinterpret_cast<const NodeInts*>(sel + i);
+        const int* row = src + (size_t)i * f;
+        NodeInts v;
+#pragma unroll
+        for (int j = 0; j < kNodes; ++j)
+            v.v[j] = __ldg(row + (size_t)j * f + s.v[j]);
+#pragma unroll
+        for (int j = 0; j < kNodes; ++j) v.v[j] = __ldg(vals + v.v[j]);
+        *reinterpret_cast<NodeInts*>(out + i) = v;
     }
+    for (int i = groups * kNodes + t; i < n; i += stride)
+        out[i] = __ldg(vals + __ldg(src + (size_t)i * f + sel[i]));
 }
 
 // Copy src rows i0 .. i0 + nodes - 1 (contiguous in device memory) into
@@ -190,19 +227,19 @@ sweep_batch_kernel(const int* __restrict__ vals, const int* __restrict__ src,
     }
 }
 
-int blocks_for(int n) {
-    int blocks = (n + kThreads - 1) / kThreads;
-    if (blocks < 1) blocks = 1;
-    return blocks < kMaxBlocksX ? blocks : kMaxBlocksX;
-}
-
 }  // namespace
 
+// blocks and threads come from fabric_step.sweep_tiles; aligned: sel and
+// out both start on 4 kNodes bytes (vector loads and stores).
 extern "C" int canal_fabric_sweep(const int* vals, const int* src,
                                   const int* sel, int* out, int n, int f,
+                                  int blocks, int threads, int aligned,
                                   void* stream) {
-    sweep_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        vals, src, sel, out, n, f);
+    if (blocks < 1 || threads < 32 || threads > kMaxSweepThreads ||
+        threads % 32 != 0 || f < 1)
+        return (int)cudaErrorInvalidValue;
+    sweep_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        vals, src, sel, out, n, f, aligned);
     return (int)cudaGetLastError();
 }
 

@@ -35,6 +35,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import weakref
+from typing import Optional
 
 import torch
 
@@ -55,6 +56,14 @@ PE_BYTES = 64
 COUNT_BYTES = 16
 #: the largest portable cluster
 MAX_CLUSTER = 8
+#: an H100's SMs, and the threads each holds at once
+SM_COUNT = 132
+SM_THREADS = 2048
+#: ``fabric_sweep``'s consecutive nodes a thread (the kernel's kNodes) and
+#: its threads a block, at most and at least; see sweep_tiles
+SWEEP_NODES = 4
+SWEEP_THREADS = 256
+SWEEP_MIN_THREADS = 64
 #: ``fabric_sweep_batch``'s node tile (4 nodes a thread) and the least it
 #: halves to for more blocks, its configuration lanes a block and largest
 #: configuration group, and the blocks it keeps in its grid where B and N
@@ -63,7 +72,7 @@ SWEEP_TILE = 256
 SWEEP_FILL_TILE = 128
 SWEEP_LANES = 4
 SWEEP_GROUP = 16
-SWEEP_MIN_BLOCKS = 2 * 132
+SWEEP_MIN_BLOCKS = 2 * SM_COUNT
 MAX_GRID_Y = 65535
 
 
@@ -99,10 +108,37 @@ def _picked(src: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     return src.reshape(-1)[rows[None, :] + sel.long()]
 
 
+def _span(t: torch.Tensor):
+    """The bytes [start, end) of memory that ``t`` can reach."""
+    if t.numel() == 0:
+        return t.data_ptr(), t.data_ptr()
+    last = sum((size - 1) * stride for size, stride in zip(t.shape,
+                                                           t.stride()))
+    return t.data_ptr(), t.data_ptr() + (last + 1) * t.element_size()
+
+
+def _sweep_out(kernel: str, vals_ext: torch.Tensor, n: int,
+               out: Optional[torch.Tensor]) -> torch.Tensor:
+    """``out`` checked as a sweep's destination (a contiguous int32 (N,)
+    tensor on ``vals_ext``'s device, apart from ``vals_ext``), or a new
+    one."""
+    if out is None:
+        return torch.empty(n, dtype=torch.int32, device=vals_ext.device)
+    build.require(kernel, vals_ext.device, torch.int32, out=out)
+    build.require_shape(kernel, "out", out, (n,))
+    (o0, o1), (v0, v1) = _span(out), _span(vals_ext)
+    if o0 < v1 and v0 < o1:
+        raise ValueError(f"{kernel}: out overlaps vals_ext")
+    return out
+
+
 def fabric_sweep_plain(vals_ext: torch.Tensor, src: torch.Tensor,
-                       sel: torch.Tensor) -> torch.Tensor:
+                       sel: torch.Tensor,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`fabric_sweep`."""
-    return vals_ext[_picked(src, sel[None])[0].long()]
+    out = _sweep_out("fabric_sweep", vals_ext, sel.shape[0], out)
+    return torch.index_select(vals_ext, 0, _picked(src, sel[None])[0],
+                              out=out)
 
 
 def fabric_sweep_batch_plain(vals_ext: torch.Tensor, src: torch.Tensor,
@@ -199,28 +235,57 @@ def _check_sweep(kernel, vals_ext, src, sel, sel_shape):
 
 
 def fabric_sweep(vals_ext: torch.Tensor, src: torch.Tensor,
-                 sel: torch.Tensor) -> torch.Tensor:
+                 sel: torch.Tensor,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One sweep of one configuration. vals_ext: (V,) int32 values, the
     zero sentinel at N (V = N + 1 on the fabric); src: (N, F) int32 with
     entries in [0, V); sel: (N,) int32 in [0, F). Returns (N,) int32
-    ``vals_ext[src[i, sel[i]]]``."""
+    ``vals_ext[src[i, sel[i]]]``, written into ``out`` when it is given
+    (a contiguous int32 (N,) tensor on the same device that does not
+    overlap ``vals_ext``).
+
+    A call captured into a CUDA graph launches nothing and counts
+    nothing: whoever replays the graph counts its launches."""
     if vals_ext.device.type == "cpu":
-        return fabric_sweep_plain(vals_ext, src, sel)
+        return fabric_sweep_plain(vals_ext, src, sel, out)
     kernel = "fabric_sweep"
     n, f = src.shape if src.dim() == 2 else (-1, -1)
     _check_sweep(kernel, vals_ext, src, sel, (n,))
     if vals_ext.dim() != 1:
         raise ValueError(f"{kernel}: vals_ext must be 1-D, got "
                          f"{tuple(vals_ext.shape)}")
-    out = torch.empty(n, dtype=torch.int32, device=vals_ext.device)
+    out = _sweep_out(kernel, vals_ext, n, out)
     if n == 0:
         return out
+    align = 4 * SWEEP_NODES
+    aligned = sel.data_ptr() % align == 0 and out.data_ptr() % align == 0
     err = build.library().canal_fabric_sweep(
         vals_ext.data_ptr(), src.data_ptr(), sel.data_ptr(), out.data_ptr(),
-        n, f, build.stream_ptr(vals_ext.device))
+        n, f, *sweep_tiles(n), int(aligned),
+        build.stream_ptr(vals_ext.device))
     build.check(err, kernel)
-    build.LAUNCHES[kernel] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        build.LAUNCHES[kernel] += 1
     return out
+
+
+def sweep_tiles(n: int):
+    """``fabric_sweep``'s size rule: ``(blocks, threads)``.
+
+    Thread t of the grid's S = blocks x threads takes node groups t, t +
+    S, ... of ``SWEEP_NODES`` consecutive nodes, then the N % 4 tail nodes
+    t, t + S, ... one at a time (all nodes one at a time where sel or out
+    is not 16-B aligned). The grid is one wave: threads start at
+    ``SWEEP_THREADS`` and halve, not below ``SWEEP_MIN_THREADS``, while
+    fewer blocks than ``SM_COUNT`` would cover the groups; blocks are as
+    many as cover them, at most as many as the card holds at once
+    (``SM_COUNT x SM_THREADS / threads``), past which threads stride. The
+    rule reads N only."""
+    work = max(1, -(-n // SWEEP_NODES))
+    threads = SWEEP_THREADS
+    while threads > SWEEP_MIN_THREADS and -(-work // threads) < SM_COUNT:
+        threads //= 2
+    return min(-(-work // threads), SM_COUNT * SM_THREADS // threads), threads
 
 
 def sweep_batch_tiles(b: int, n: int, f: int):

@@ -687,6 +687,66 @@ def mixed_depths(b, max_depth, seed=0):
 #: and reads the others' shared memory), B 40 above the clusters the card
 #: holds at once (the rest queue), and N 120,000 past the size rule's
 #: limit (the global-memory variant, 0)
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 7, 255, 256, 1023, 1024,
+                               4097, 33791, 33792, 86288, 2 ** 20 - 1,
+                               2 ** 20, 2 ** 22 + 3])
+def test_sweep_tiles_cover_once_and_fill_one_wave(n):
+    """``fabric_sweep``'s size rule: its grid, modelled as the kernel
+    walks it (node groups of ``SWEEP_NODES`` t, t + S, ..., then the tail
+    nodes one at a time; all nodes one at a time when unaligned), covers
+    every node exactly once; it is one wave (every block resident at
+    once on an H100), spread over every SM where the groups allow, and
+    as large as the groups need up to that wave."""
+    blocks, threads = fabric_step.sweep_tiles(n)
+    v, sms = fabric_step.SWEEP_NODES, fabric_step.SM_COUNT
+    assert threads in (64, 128, 256) and blocks >= 1
+    assert blocks * threads <= sms * fabric_step.SM_THREADS
+    work = -(-n // v)
+    assert blocks == min(-(-work // threads),
+                         sms * fabric_step.SM_THREADS // threads)
+    assert blocks >= min(sms, -(-work // fabric_step.SWEEP_MIN_THREADS))
+    s = blocks * threads
+    t = np.arange(s)
+    for aligned in (True, False):
+        seen = np.zeros(n, np.int64)
+        groups = n // v if aligned else 0
+        for k in range(-(-groups // s)):
+            g = t + k * s
+            g = g[g < groups]
+            np.add.at(seen, (v * g[:, None] + np.arange(v)).ravel(), 1)
+        for k in range(-(-(n - v * groups) // s)):
+            i = v * groups + t + k * s
+            np.add.at(seen, i[i < n], 1)
+        assert (seen == 1).all()
+
+
+def test_fabric_sweep_out_on_the_cpu():
+    """``out=`` on the plain path: the same values as without it, written
+    into and returned as ``out``; a wrong shape or type, or an ``out``
+    that overlaps ``vals_ext``, is refused."""
+    vals, src, sel = map(torch.as_tensor, sweep_case(8, 1, 300, 6))
+    vals, sel = vals[0], sel[0]
+    want = fabric_step.fabric_sweep(vals, src, sel)
+    out = torch.full((300,), -7, dtype=torch.int32)
+    assert fabric_step.fabric_sweep(vals, src, sel, out=out) is out
+    assert torch.equal(out, want)
+    assert torch.equal(fabric_step.fabric_sweep_plain(vals, src, sel,
+                                                      out=out), want)
+    with pytest.raises(ValueError, match="shape"):
+        fabric_step.fabric_sweep(vals, src, sel,
+                                 out=torch.empty(299, dtype=torch.int32))
+    with pytest.raises(TypeError, match="int64"):
+        fabric_step.fabric_sweep(vals, src, sel,
+                                 out=torch.empty(300, dtype=torch.int64))
+    buf = torch.cat([vals, torch.zeros(300, dtype=torch.int32)])
+    for view in (buf[:300], buf[1:301], buf[300:600]):
+        with pytest.raises(ValueError, match="overlaps"):
+            fabric_step.fabric_sweep(buf[:301], src, sel, out=view)
+    fabric_step.fabric_sweep(buf[:301], src, sel, out=buf[301:601])
+    assert torch.equal(buf[301:601], fabric_step.fabric_sweep(buf[:301],
+                                                              src, sel))
+
+
 FUSED_SIZES = [(5000, 5, 0xFFFF, 1), (20000, 3, -1, 2),
                (40000, 3, 0xFFFF, 4), (60000, 5, 0xFFFF, 8),
                (60000, 40, -1, 8), (120000, 3, -1, 0)]
@@ -787,16 +847,36 @@ class TestCudaKernels:
         assert torch.equal(hpwl.net_bboxes(p_t, m_t),
                            hpwl.net_bboxes_plain(p_t, m_t))
 
-    @pytest.mark.parametrize("seed,n,f", [(0, 86288, 20), (1, 1, 1),
-                                          (2, 5000, 7)])
-    def test_fabric_sweep(self, cuda, seed, n, f):
-        vals, src, sel = sweep_case(seed, 1, n, f)
+    @pytest.mark.parametrize("with_out", [False, True])
+    @pytest.mark.parametrize("f", [1, 2, 20, 500])
+    @pytest.mark.parametrize("n", [1, 3, 4, 5, 1023, 86288])
+    def test_fabric_sweep(self, cuda, n, f, with_out):
+        """Bit-identical to the plain version at every N % 4 tail, F 1 to
+        500 and the Amber FULL size, into a new tensor or ``out``."""
+        vals, src, sel = sweep_case(n + f, 1, n, f)
         v, s, e = (torch.as_tensor(a, device=cuda)
                    for a in (vals[0], src, sel[0]))
+        out = torch.full((n,), -7, dtype=torch.int32, device=cuda) \
+            if with_out else None
         before = build.LAUNCHES["fabric_sweep"]
-        got = fabric_step.fabric_sweep(v, s, e)
+        got = fabric_step.fabric_sweep(v, s, e, out=out)
         torch.cuda.synchronize()
         assert build.LAUNCHES["fabric_sweep"] == before + 1
+        assert out is None or got is out
+        assert torch.equal(got, fabric_step.fabric_sweep_plain(v, s, e))
+
+    @pytest.mark.parametrize("n", [5, 1023, 86288])
+    def test_fabric_sweep_unaligned(self, cuda, n):
+        """sel and out one word into larger tensors (4-B but not 16-B
+        aligned) take the scalar path; src and vals unaligned too."""
+        vals, src, sel = sweep_case(n, 1, n, 20)
+        v, s, e = (torch.cat([t.new_zeros(1), t.reshape(-1)])[1:]
+                   .view(t.shape) for t in (torch.as_tensor(a, device=cuda)
+                                            for a in (vals[0], src, sel[0])))
+        out = torch.zeros(n + 1, dtype=torch.int32, device=cuda)[1:]
+        assert all(t.data_ptr() % 16 for t in (v, s, e, out))
+        got = fabric_step.fabric_sweep(v, s, e, out=out)
+        torch.cuda.synchronize()
         assert torch.equal(got, fabric_step.fabric_sweep_plain(v, s, e))
 
     @pytest.mark.parametrize("seed,b,n,f,kind", [

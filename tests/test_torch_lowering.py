@@ -1,7 +1,9 @@
 """``FabricModule`` in the port against the reference's, on the
 ``_random_fabric_workload`` workload (random configs, so cyclic ones with
 per-lane depths are included): ``run_batch`` unstreamed and streamed,
-fused and unfused, and ``step`` / ``run``, all bit-identical."""
+fused and unfused, and ``step`` / ``run``, all bit-identical; ``step`` /
+``run`` also on a routed app of a 6x6 fabric with registers and memory
+columns."""
 import functools
 
 import jax.numpy as jnp
@@ -9,12 +11,19 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.compile import compile_spec as ref_compile
 from repro.core.lowering import FabricModule as RefFabric
 from repro.core.passes import PassManager as RefPassManager
+from repro.core.pnr.app import app_pointwise as ref_pointwise
 from repro.core.spec import InterconnectSpec as RefSpec
+from repro.fabric import AppEmulator as RefEmulator
+from repro_torch import interop
+from repro_torch.core.compile import compile_spec
 from repro_torch.core.lowering import PE_OP_IDS, FabricModule
 from repro_torch.core.passes import PassManager
+from repro_torch.core.pnr.app import app_pointwise
 from repro_torch.core.spec import InterconnectSpec
+from repro_torch.fabric import AppEmulator
 
 SPEC = dict(width=4, height=4, num_tracks=2, io_ring=True,
             sb_type="wilton", reg_density=1.0)
@@ -93,12 +102,15 @@ def test_run_batch_unfused_kernel_path_matches_reference():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_step_and_run_kernel_path_match_reference():
+@pytest.mark.parametrize("seed,depth", [(7, 4), (8, 5)])
+def test_step_and_run_kernel_path_match_reference(seed, depth):
     """``step``/``run`` with ``use_kernels``: one ``fabric_sweep`` call
     per sweep (plain version here) vs the reference's Pallas
-    ``fabric_sweep`` in interpret mode."""
+    ``fabric_sweep`` in interpret mode, with PE programs; ``step`` over
+    three cycles, its state carried (an even and an odd depth: the
+    sweeps end in either value buffer)."""
     ref_fab, fab = _fabrics(True)
-    cfgs, ext, pe = _workload(fab, 7, programs=True, cycles=3)
+    cfgs, ext, pe = _workload(fab, seed, programs=True, cycles=3)
     pe_b = {k: v[1] for k, v in pe.items()}
     want = np.asarray(ref_fab.run(
         jnp.asarray(cfgs[1]), jnp.asarray(ext[1]),
@@ -106,13 +118,85 @@ def test_step_and_run_kernel_path_match_reference():
     got = fab.run(cfgs[1], ext[1],
                   pe_cfg={k: torch.as_tensor(v) for k, v in pe_b.items()})
     np.testing.assert_array_equal(got.numpy(), want)
-    st_ref, obs_ref = ref_fab.step(ref_fab.init_state(),
-                                   jnp.asarray(ext[0, 0]),
-                                   jnp.asarray(cfgs[0]), depth=4)
-    st, obs = fab.step(fab.init_state(), ext[0, 0], cfgs[0], depth=4)
-    np.testing.assert_array_equal(obs.numpy(), np.asarray(obs_ref))
-    for k in st_ref:
-        np.testing.assert_array_equal(st[k].numpy(), np.asarray(st_ref[k]))
+    st_ref, st = ref_fab.init_state(), fab.init_state()
+    for t in range(3):
+        st_ref, obs_ref = ref_fab.step(
+            st_ref, jnp.asarray(ext[0, t]), jnp.asarray(cfgs[0]),
+            pe_cfg={k: jnp.asarray(v[0]) for k, v in pe.items()},
+            depth=depth)
+        st, obs = fab.step(st, ext[0, t], cfgs[0],
+                           pe_cfg={k: torch.as_tensor(v[0])
+                                   for k, v in pe.items()}, depth=depth)
+        np.testing.assert_array_equal(obs.numpy(), np.asarray(obs_ref))
+        for k in st_ref:
+            np.testing.assert_array_equal(st[k].numpy(),
+                                          np.asarray(st_ref[k]))
+
+
+ROUTED_SPEC = dict(width=6, height=6, num_tracks=4, io_ring=True,
+                   sb_type="wilton", reg_density=1.0, mem_columns=(3,))
+
+
+@functools.lru_cache(maxsize=None)
+def _routed_pointwise():
+    """The reference's pointwise app routed on a 6x6 fabric with a memory
+    column, carried into the port through its node keys."""
+    ref = ref_compile(RefSpec(**ROUTED_SPEC))
+    r = ref.place_and_route(ref_pointwise(3), alphas=(2.0,), sa_steps=40,
+                            sa_batch=8)
+    assert r.success, r.error
+    nodes = r.routing.resources.nodes
+    nets = [(net.name, nodes[net.src].node_key(),
+             [nodes[s].node_key() for s in net.sinks],
+             [(nodes[p].node_key(), nodes[c].node_key())
+              for p, c in net.edges()]) for net in r.routing.nets]
+    port = compile_spec(InterconnectSpec(**ROUTED_SPEC), device="cpu")
+    mine = interop.pnr_result(port.interconnect, app_pointwise(3),
+                              r.placement, nets, resources=port.resources())
+    return ref, r, port, mine
+
+
+@pytest.mark.parametrize("config", ["routed", "random"])
+@pytest.mark.parametrize("use_kernels", [False, True],
+                         ids=["oracle", "kernel_path"])
+def test_step_and_run_routed_app_match_reference(use_kernels, config):
+    """A routed ``pointwise`` on 6x6 with registers and a memory column,
+    and the same fabric under random mux selects with the app's PE
+    program (which carry words into the memories): ``run`` over 10
+    cycles of random stimulus and ``step`` over 4, state carried,
+    bit-identical to the reference (its Pallas ``fabric_sweep`` in
+    interpret mode on the kernel path)."""
+    ref, r, port, mine = _routed_pointwise()
+    ref_fab, fab = ref.fabric(use_kernels), port.fabric(use_kernels)
+    assert fab.num_mem and len(fab.arrays.reg_ids)
+    ref_emu = RefEmulator.from_pnr(ref_fab, r.packed, r)
+    emu = AppEmulator.from_pnr(fab, mine.packed, mine)
+    assert emu.depth == ref_emu.depth
+    np.testing.assert_array_equal(emu.config.numpy(),
+                                  np.asarray(ref_emu.config))
+    rng = np.random.default_rng(9)
+    cfg, depth = emu.config.numpy(), emu.depth
+    if config == "random":
+        cfg, depth = rng.integers(0, 4, fab.num_config).astype(np.int32), 7
+    ext = rng.integers(0, 1 << 16, (10, fab.num_io)).astype(np.int32)
+    want = np.asarray(ref_fab.run(jnp.asarray(cfg), jnp.asarray(ext),
+                                  pe_cfg=ref_emu.pe_cfg, depth=depth))
+    got = fab.run(cfg, ext, pe_cfg=emu.pe_cfg, depth=depth)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.any()
+    st_ref, st = ref_fab.init_state(), fab.init_state()
+    for t in range(4):
+        st_ref, obs_ref = ref_fab.step(st_ref, jnp.asarray(ext[t]),
+                                       jnp.asarray(cfg), ref_emu.pe_cfg,
+                                       depth=depth)
+        st, obs = fab.step(st, ext[t], cfg, emu.pe_cfg, depth=depth)
+        np.testing.assert_array_equal(obs.numpy(), np.asarray(obs_ref))
+        for k in st_ref:
+            np.testing.assert_array_equal(st[k].numpy(),
+                                          np.asarray(st_ref[k]))
+    assert np.asarray(st_ref["regs"]).any()
+    if config == "random":
+        assert np.asarray(st_ref["mem"]).any()
 
 
 def test_step_and_run_plain_branch_match_reference():
@@ -144,6 +228,9 @@ def test_shard_true_and_unported_sweeps_raise_on_cuda(monkeypatch):
     from repro_torch.kernels import ops as kops
 
     _, fab = _fabrics(True)
+    cfgs, ext, _ = _workload(fab, 5)
+    cyc = fab._cycle(cfgs[0], None)
+    fab._sweep(cyc, *cyc["vals"])        # the device tables, on the CPU
     fab_cuda = object.__new__(FabricModule)
     fab_cuda.__dict__.update(fab.__dict__)
     fab_cuda.device = torch.device("cuda")
@@ -151,8 +238,9 @@ def test_shard_true_and_unported_sweeps_raise_on_cuda(monkeypatch):
     calls = []
 
     def fake(name):
-        def kernel(vals_ext, src, sel):
-            calls.append((name, tuple(vals_ext.shape), src.dtype))
+        def kernel(vals_ext, src, sel, out=None):
+            calls.append((name, tuple(vals_ext.shape), src.dtype,
+                          None if out is None else tuple(out.shape)))
             raise RuntimeError(f"{name}: no card")
         return kernel
 
@@ -163,11 +251,9 @@ def test_shard_true_and_unported_sweeps_raise_on_cuda(monkeypatch):
         fab_cuda._sweep_batch(torch.zeros((1, n + 1), dtype=torch.int32),
                               torch.zeros((1, n), dtype=torch.int32))
     with pytest.raises(RuntimeError, match="fabric_sweep: no card"):
-        fab_cuda._sweep(torch.zeros(n + 1, dtype=torch.int32),
-                        torch.zeros(n, dtype=torch.int32))
-    assert calls == [("fabric_sweep_batch", (1, n + 1), torch.int32),
-                     ("fabric_sweep", (n + 1,), torch.int32)]
+        fab_cuda._sweep(cyc, *cyc["vals"])
+    assert calls == [("fabric_sweep_batch", (1, n + 1), torch.int32, None),
+                     ("fabric_sweep", (n + 1,), torch.int32, (n,))]
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    cfgs, ext, _ = _workload(fab, 5)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         fab_cuda.run_batch(cfgs, ext, shard=True)

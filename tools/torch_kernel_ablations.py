@@ -3,7 +3,7 @@
 committed ones, on one CUDA card.
 
     python3 tools/torch_kernel_ablations.py \
-        [--only flash,minplus,fused,sweep_batch,ssd,ssd_layers]
+        [--only flash,minplus,fused,sweep,sweep_batch,ssd,ssd_layers]
 
 Each variant is the committed source (``src/repro_torch/kernels/csrc/``)
 with one change made by text substitution. Every variant is compiled by
@@ -30,6 +30,17 @@ its own ``nvcc`` process (all started together) into a library under
   another result on purpose, no node update (PE outputs and barriers),
   no PE evaluation, the barriers alone, every read taken from the
   reading block, and the barrier without its memory ordering;
+- ``fabric_sweep`` at ``cgra_amber.FULL`` (N 86,288, F 20) on the
+  pointwise app's selects and on random ones: the committed kernel (four
+  nodes a thread) at its size rule's grid (one wave over every SM) and at
+  ceil(N / 1,024) blocks of 256 threads or blocks of 64; the kernel as
+  first ported (one node a thread); 1, 2 and 8 nodes a thread. Then the
+  path around it, on the deepest of the five routed FULL apps over 16
+  cycles: ``FabricModule.run`` (a CUDA graph of one sweep, replayed),
+  the same sweeps run eagerly, and a CUDA graph of a whole cycle,
+  captured once after an eager first cycle (its capture timed apart),
+  each twice, in turns, and held to ``run``'s observations; and the
+  device time of one sweep of ``run`` by itself;
 - ``fabric_sweep_batch`` at verify's chunk (B 2,048, N 86,288, F 20) on
   its selects and on random ones: the committed kernel with the size
   rule's launch and with other tiles (TN), configuration lanes a block
@@ -70,6 +81,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -78,9 +90,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import (LM_BATCH, LM_SEQ, SSD_TOL, card_line,  # noqa: E402
-                        fused_workload, graph_ms, lm_models, lm_tokens,
-                        logit_gap, swapped)
+from chip_smoke import (LM_BATCH, LM_SEQ, SSD_TOL, T,  # noqa: E402
+                        card_line, fused_workload, graph_ms, lm_models,
+                        lm_tokens, logit_gap, main_path, swapped)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import fabric_step as fs  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -400,6 +412,13 @@ VARIANTS = {
                           '"setp.ne.b32 far, %2, %2;'), True),
         "unordered_barrier": (RELAXED, True),
     },
+    "sweep": {
+        "committed": (None, False),
+        "first_kernel": (earlier("fabric_sweep_first.cu"), False),
+        **{f"nodes{v}": (sub("constexpr int kNodes = 4;",
+                             f"constexpr int kNodes = {v};"), False)
+           for v in (1, 2, 8)},
+    },
     "sweep_batch": {
         "committed": (None, False),
         "first_kernel": (earlier("fabric_sweep_first.cu"), False),
@@ -450,7 +469,8 @@ VARIANTS = {
     },
 }
 SOURCES = {"flash": "flash_attention.cu", "minplus": "minplus.cu",
-           "fused": "fabric_step.cu", "sweep_batch": "fabric_sweep.cu",
+           "fused": "fabric_step.cu", "sweep": "fabric_sweep.cu",
+           "sweep_batch": "fabric_sweep.cu",
            "ssd": "ssd_scan.cu", "ssd_layers": "ssd_scan.cu"}
 ENTRY = {"flash": "canal_flash_attention", "minplus": "canal_minplus_step"}
 
@@ -465,8 +485,8 @@ def entry(lib, name):
 def build_all(kernels):
     """Compile every variant of ``kernels`` in parallel; returns
     {(kernel, variant): ctypes function} (the library for ``fused``,
-    which has two entry points, and for ``sweep_batch`` and ``ssd``,
-    whose earlier kernels take other arguments)."""
+    which has two entry points, and for ``sweep``, ``sweep_batch`` and
+    ``ssd``, whose earlier kernels take other arguments)."""
     os.makedirs(OUT, exist_ok=True)
     nvcc = build._nvcc()
     procs = {}
@@ -624,6 +644,132 @@ def fused_rows(libs, device):
     rows.append({"kernel": "fabric_fused_*", "B": b, "N": n, "T": t_len,
                  "max_depth": md, "depths": depths.tolist()})
     return rows
+
+def sweep_rows(libs, device):
+    """``fabric_sweep`` at FULL on the pointwise app's selects and on
+    random ones, every variant and grid held bit for bit to the plain
+    version; then the single-configuration path on the deepest routed
+    app: ``run``, the eager sweeps and a graph of a whole cycle."""
+    from repro_torch.configs.cgra_amber import FULL
+
+    fab, routed, emus, ins, _, _ = main_path(FULL, device)
+    fabric = fab.fabric()
+    a = fabric.arrays
+    n, f = a.num_nodes, a.max_fanin
+    src = fabric._dev("src", a.src, torch.int32)
+    rng = np.random.default_rng(4)
+    vals = torch.as_tensor(rng.integers(0, 1 << 16, n + 1).astype(np.int32),
+                           device=device)
+    vals[n] = 0
+    pointwise = emus[list(routed).index("pointwise")]
+    workloads = {
+        "pointwise": fabric._selects(pointwise.config[None])[0],
+        "random": torch.as_tensor(rng.integers(0, f, n).astype(np.int32),
+                                  device=device)}
+    new_args = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    old_args = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    # (variant, (blocks, threads)); None: the first kernel's own launch.
+    # v nodes a thread take the rule's grid for N v / 4 groups of 4
+    launches = ([("committed", fs.sweep_tiles(n)),
+                 ("committed", (-(-n // 1024), 256)),
+                 ("committed", (-(-n // 256), 64)),
+                 ("first_kernel", None)]
+                + [(f"nodes{v}", fs.sweep_tiles(4 * -(-n // v)))
+                   for v in (1, 2, 8)])
+    out = torch.empty(n, dtype=torch.int32, device=device)
+    rows = []
+    for work, sel in workloads.items():
+        want = fs.fabric_sweep_plain(vals, src, sel)
+        for name, grid in launches:
+            fn = libs["sweep", name].canal_fabric_sweep
+            fn.restype = ctypes.c_int
+            fn.argtypes = old_args if grid is None else new_args
+            launch = (n, f) if grid is None else (n, f, *grid, 1)
+
+            def call():
+                build.check(fn(vals.data_ptr(), src.data_ptr(),
+                               sel.data_ptr(), out.data_ptr(), *launch,
+                               build.stream_ptr(device)), name)
+            out.fill_(-7)
+            call()
+            torch.cuda.synchronize()
+            rows.append({"kernel": "fabric_sweep", "variant": name,
+                         "selects": work, "grid": grid,
+                         "rule": grid == fs.sweep_tiles(n),
+                         "ms": graph_ms(call, 50),
+                         "equal": bool(torch.equal(out, want)),
+                         "changes_result": False})
+    rows.append({"kernel": "fabric_sweep", "N": n, "F": f})
+    return rows + path_rows(fabric, list(routed), emus, ins)
+
+
+def cycle_graph_run(fabric, emu, ext):
+    """``run``'s cycles with a CUDA graph of a whole cycle (start, the
+    sweeps, the clock), captured after an eager first cycle on a side
+    stream and replayed T - 1 times; returns (observations, capture ms)."""
+    r, io = len(fabric.arrays.reg_ids), fabric.num_io
+    cyc = fabric._cycle(emu.config, emu.pe_cfg)
+    out = torch.zeros((ext.shape[0], io), dtype=torch.int32,
+                      device=ext.device)
+    obs = torch.zeros(io, dtype=torch.int32, device=ext.device)
+    stream, side = torch.cuda.current_stream(), torch.cuda.Stream()
+    cyc["pins"][r:r + io].copy_(ext[0])
+    side.wait_stream(stream)
+    with torch.cuda.stream(side):
+        fabric._eager_cycle(cyc, emu.depth, out[0])
+    stream.wait_stream(side)
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fabric._eager_cycle(cyc, emu.depth, obs)
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    for t in range(1, ext.shape[0]):
+        cyc["pins"][r:r + io].copy_(ext[t])
+        graph.replay()
+        out[t].copy_(obs)
+    return out, capture_ms
+
+
+def path_rows(fabric, names, emus, ins):
+    """The deepest routed app's ``T`` cycles three ways, in turns (each
+    way twice): ``run`` (the committed graph of one sweep), the eager
+    sweeps and a graph of a whole cycle; host ms to the observations on
+    the card, each held to ``run``'s. Then the device ms of one sweep of
+    ``run``, graph-timed."""
+    k = max(range(len(emus)), key=lambda i: emus[i].depth)
+    emu = emus[k]
+    ext = fabric._ints(emu.ext_stream(ins[k], T))
+    want = fabric.run(emu.config, ext, emu.pe_cfg, emu.depth)
+
+    def eager():
+        cyc = fabric._cycle(emu.config, emu.pe_cfg)
+        out = torch.zeros_like(want)
+        fabric._eager_cycles(cyc, ext, emu.depth, out)
+        return out, None
+
+    ways = {"graph_of_a_sweep": lambda: (fabric.run(
+                emu.config, ext, emu.pe_cfg, emu.depth), None),
+            "eager": eager,
+            "graph_of_a_cycle": lambda: cycle_graph_run(fabric, emu, ext)}
+    rows = []
+    for name in list(ways) + list(ways)[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, capture_ms = ways[name]()
+        torch.cuda.synchronize()
+        rows.append({"path": name, "app": names[k], "depth": emu.depth,
+                     "cycles": T, "ms": (time.perf_counter() - t0) * 1e3,
+                     "capture_ms": capture_ms,
+                     "equal": bool(torch.equal(got, want))})
+    cyc = fabric._cycle(emu.config, emu.pe_cfg)
+    fabric._start_cycle(cyc, cyc["vals"][0])
+    rows.append({"path": "one sweep of run", "app": names[k],
+                 "device_ms": graph_ms(lambda: fabric._sweep(
+                     cyc, *cyc["vals"]), 50)})
+    return rows
+
 
 def sweep_batch_rows(libs, device):
     """``fabric_sweep_batch`` at verify's chunk (B 2,048 of FULL's
@@ -842,8 +988,8 @@ def ssd_layer_rows(libs, device):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only",
-                        default="flash,minplus,fused,sweep_batch,ssd,"
-                                "ssd_layers")
+                        default="flash,minplus,fused,sweep,sweep_batch,"
+                                "ssd,ssd_layers")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_ablations: CUDA is not available",
@@ -859,6 +1005,8 @@ def main():
         rows += minplus_rows(fns, device)
     if "fused" in kernels:
         rows += fused_rows(fns, device)
+    if "sweep" in kernels:
+        rows += sweep_rows(fns, device)
     if "sweep_batch" in kernels:
         rows += sweep_batch_rows(fns, device)
     if "ssd" in kernels:
