@@ -48,7 +48,24 @@ after; each must have launched the kernels it exists to drive.
              2-5, ``budget=3``, store-backed (the one phase cut in size:
              every candidate is a whole DSE point); its frontier must not
              be empty.
-8. lm_score — the LM substrate's full-sequence forward, ``logits`` of
+8. rv      — the hybrid ready-valid interconnect (``RVFabric``) on
+             ``cgra_amber.FULL`` with ``ready_valid=True``, not cut, in both
+             FIFO modes (``canal_torch.compile``, ``split_fifo`` False /
+             True): a stream of 64 tokens east across all 32 columns (31
+             FIFO stages) under random sink backpressure through
+             ``run_with_sources``, every token delivered once and in order;
+             the same route under a sink never ready, where source ready
+             must drop and full FIFOs absorb more than split ones; the
+             routed ``pointwise`` app (``auto``: minplus router, batched
+             annealer), its bitstream, and ``run_with_sources`` with its
+             PE program for 64 tokens (placed and routed once, on the
+             full-mode point). Each run's sweeps replay from CUDA graphs;
+             the first 4 cycles of each, run again on the card and on the
+             port's CPU path, must agree bit for bit, FIFO state
+             included, and the app's first 4 likewise with the card's
+             eager sweeps. In full mode ``emulate`` runs the app on the static
+             semantics, equal to ``run_apps_batch``.
+9. lm_score — the LM substrate's full-sequence forward, ``logits`` of
              TinyLlama-1.1B and Mamba2-1.3B at their FULL configs (full
              width and depth, random weights from a seed), B 2, S 2,048,
              with ``attn_impl="kernel"``: 22 ``flash_attention`` and 48
@@ -59,8 +76,8 @@ after; each must have launched the kernels it exists to drive.
              kernel path with the kernel's plain version in its place
              (the witness) must pass the gate too, and with a wrong
              function in its place (the control), fail it; the kernel
-             rows of phase 10 must likewise reject the control.
-9. lm_serve — ``ServeEngine`` on each FULL model: 8 requests (prompts of
+             rows of phase 11 must likewise reject the control.
+10. lm_serve — ``ServeEngine`` on each FULL model: 8 requests (prompts of
              3-11 tokens, batch 4, 16 new tokens, ``max_seq`` 128), twice;
              every request gets a token, every logit is finite, and the
              second run returns the same tokens. Serving runs the cached
@@ -68,7 +85,7 @@ after; each must have launched the kernels it exists to drive.
              flash kernel takes queries from position 0; a Mamba-2 cache
              step takes the stateful SSD), so this phase launches no
              kernel and must launch none.
-10. kernels — every kernel against its plain PyTorch version on the card,
+11. kernels — every kernel against its plain PyTorch version on the card,
              at its path's shapes (bit-identical for the fabric kernels,
              min-plus included; within a stated tolerance for the two
              float kernels of the LM path, which must reject
@@ -90,10 +107,14 @@ after; each must have launched the kernels it exists to drive.
              ``global``), the clusters the card holds at once, the sweeps
              a launch runs, the microseconds a sweep and the share of a
              sweep's shared-memory reads that stay in the reading block.
-             ``fabric_sweep``, ``fabric_sweep_batch`` and ``ssd_scan``
-             also give the time of the kernel as it stood before its
-             redesign, built from ``tools/ablation_kernels/`` beside the
-             library, held to the same plain version and timed on the
+             ``net_bboxes`` and ``hpwl`` are also timed at the
+             reference's batched design shape (``design``: 1,048,576
+             nets at K 4), each in turns with its earlier kernel, the
+             median of five rounds. ``fabric_sweep``, ``fabric_sweep_batch``,
+             ``ssd_scan``, ``net_bboxes`` and ``hpwl`` also give the time
+             of the kernel as it stood before its redesign, built from
+             ``tools/ablation_kernels/`` beside the library, held to the
+             same plain version and timed on the
              same inputs (``earlier_ms``); ``fabric_sweep`` also the
              device time of one whole sweep of ``run`` (``sweep_ms``:
              the kernel, the hold, the re-pin and the PE cores, as the
@@ -157,10 +178,24 @@ EARLIER = {"fabric_sweep": ("fabric_sweep_first.cu", [_P] * 4 + [_I] * 2
                             + [_P]),
            "fabric_sweep_batch": ("fabric_sweep_first.cu",
                                   [_P] * 4 + [_I] * 4 + [_P]),
-           "ssd_scan": ("ssd_scan_first.cu", [_P] * 6 + [_I] * 5 + [_P])}
+           "ssd_scan": ("ssd_scan_first.cu", [_P] * 6 + [_I] * 5 + [_P]),
+           "net_bboxes": ("hpwl_first.cu", [_P] * 3 + [_I] * 2 + [_P]),
+           "hpwl": ("hpwl_first.cu", [_P] * 3 + [_I] * 2 + [_P])}
+#: the ready-valid phase: tokens a source sends, cycles of the stream and
+#: of the routed app, the never-ready run's cycles (enough to fill 31 FIFO
+#: stages), the cycles run again on the CPU (few: a CPU cycle at the app's
+#: depth takes ~0.5 s at FULL) and eagerly on the card, and the share of
+#: cycles a backpressured sink is ready
+RV_TOKENS, RV_STREAM_T, RV_APP_T, RV_FILL_T = 64, 192, 96, 96
+RV_CPU_T, RV_EAGER_T, RV_SINK_READY = 4, 4, 0.6
+#: the reference docstring's batched evaluation (``kernels/hpwl.py``):
+#: 64 chains x 4 candidates x 4,096 nets at K 4; the rounds in which the
+#: box kernels and their earlier versions are timed in turns
+BOX_DESIGN = (64 * 4 * 4096, 4)
+BOX_ROUNDS = 5
 
 
-#: the kernels each path exists to launch (phase 8 reads each kernel's
+#: the kernels each path exists to launch (phase 11 reads each kernel's
 #: launches from its path)
 PHASE_KERNELS = {
     "main": ("fabric_fused_batch", "fabric_fused_run", "minplus_step",
@@ -171,6 +206,8 @@ PHASE_KERNELS = {
     "serve": ("fabric_fused_batch", "minplus_step", "net_bboxes"),
     "engines": ("fabric_sweep", "fabric_sweep_batch", "fabric_fused_batch"),
     "search": (),
+    # PnR of the routed app; emulate on the static semantics
+    "rv": ("minplus_step", "net_bboxes", "fabric_sweep"),
     "lm_score": ("flash_attention", "ssd_scan"),
     # the cached forward never reaches a kernel (see the docstring)
     "lm_serve": (),
@@ -530,6 +567,185 @@ def search_phase(device):
                 x for x in used if x), "stats": result.stats}
 
 
+# ------------------------------------------------ the ready-valid fabric
+def rv_sources(fab, src, rng, cycles, ready=RV_SINK_READY, drain=0):
+    """``run_with_sources``'s inputs: ``RV_TOKENS`` random words at IO
+    ``src``, every sink ready at random (``ready`` of cycles) but for the
+    last ``drain`` cycles."""
+    streams = np.zeros((cycles, fab.num_io), np.int32)
+    lens = np.zeros(fab.num_io, np.int32)
+    streams[:RV_TOKENS, src] = rng.integers(1, 1 << 16, RV_TOKENS)
+    lens[src] = RV_TOKENS
+    sink = (rng.random((cycles, fab.num_io)) < ready).astype(np.int32)
+    if drain:
+        sink[-drain:] = 1
+    return streams, lens, sink
+
+
+def rv_timed(fab, *args, **kw):
+    """``run_with_sources`` on the card: its outputs on the host, ms per
+    cycle by CUDA events, and the sweeps it replayed from CUDA graphs."""
+    before = fab.graph_replays
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    outs = fab.run_with_sources(*args, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    cycles = outs[0].shape[0]
+    return ([o.cpu().numpy() for o in outs], start.elapsed_time(end) / cycles,
+            fab.graph_replays - before)
+
+
+def rv_same(name, card, other, args):
+    """The same ``run_with_sources(*args)`` on the card's graphed fabric
+    and on ``other`` (the CPU's, or the card's eager sweeps): io_data,
+    io_valid, accepted and the FIFO state after it equal bit for bit.
+    Returns the seconds ``other`` took."""
+    runs = []
+    for f in (card, other):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = f.run_with_sources(*args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        runs.append([o.cpu().numpy() for o in outs]
+                    + [f.last_state[k].cpu().numpy() for k in ("slots",
+                                                               "occ")])
+    labels = ("io_data", "io_valid", "accepted", "slots", "occ")
+    for label, a, b in zip(labels, *runs):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"rv {name}: {label} differs")
+    return seconds
+
+
+def rv_mode(rv, routed, rng):
+    """One FIFO mode of the ready-valid phase (see the docstring): ``rv``
+    compiled in that mode, ``routed`` the pointwise app's (PnR result,
+    emulator) on the full-mode point."""
+    from repro_torch.fabric import RVFabric, east_route, run_apps_batch
+
+    fab = rv.fabric()
+    mode = fab.fifo_mode
+    t0 = time.perf_counter()
+    cpu = RVFabric(rv.interconnect, fifo_mode=mode, device="cpu")
+    rec = {"cpu_build_s": time.perf_counter() - t0}
+    io = {c: i for i, c in enumerate(fab.io_coords)}
+    width = fab.ic.dims()[0]
+
+    # 1. a stream east across every column
+    edges = east_route(fab.ic)
+    config = fab.route_to_config(edges)
+    # full FIFOs register ready, so a cycle's ready chain ends at the next
+    # stage (``depth_for_route``); split stages chain it combinationally
+    # through every stage of the route, and fewer backward sweeps than its
+    # nodes lose tokens (in the reference too): one sweep an edge
+    depth = len(edges) + 2 if mode == "split" else fab.depth_for_route(edges)
+    src, dst = io[(0, 1)], io[(width - 1, 1)]
+    stages = sum(1 for _, d in edges if d.kind.name == "REGISTER")
+    streams, lens, sink = rv_sources(fab, src, rng, RV_STREAM_T, drain=64)
+    outs, ms, replays = rv_timed(fab, config, streams, lens, sink,
+                                 depth=depth)
+    od, ov, acc = outs
+    got = od[:, dst][acc[:, dst] > 0]
+    if not np.array_equal(got, streams[:RV_TOKENS, src]):
+        raise AssertionError(f"rv {mode}: the stream delivered {len(got)} of "
+                             f"{RV_TOKENS} tokens, or out of order")
+    cpu_s = rv_same(f"{mode} stream", fab, cpu,
+                    (config, streams, lens, sink[:RV_CPU_T], None, depth))
+    valid = np.zeros((RV_FILL_T, fab.num_io), np.int32)
+    valid[:, src] = 1
+    orr = fab.run_stream(config, valid, valid,
+                         np.zeros_like(valid), depth=depth)[2].cpu().numpy()
+    absorbed = int(orr[:, src].sum())
+    if orr[-1, src] != 0 or absorbed >= RV_FILL_T:
+        raise AssertionError(f"rv {mode}: source ready never dropped under a "
+                             f"stalled sink ({absorbed} absorbed)")
+    rec["stream"] = {"cycles": RV_STREAM_T, "depth": depth,
+                     "fifo_stages": stages, "ms_per_cycle": ms,
+                     "graph_replays": replays, "tokens": RV_TOKENS,
+                     "delivered": int(len(got)), "absorbed_never_ready":
+                     absorbed, "cpu_equal_cycles": RV_CPU_T}
+
+    # 2. the routed pointwise app: its configuration and PE program
+    r, emu = routed
+    src, dst = io[r.placement["in0"]], io[r.placement["out0"]]
+    streams, lens, sink = rv_sources(fab, src, rng, RV_APP_T)
+    outs, ms, replays = rv_timed(fab, emu.config, streams, lens, sink,
+                                 pe_cfg=emu.pe_cfg, depth=emu.depth)
+    cpu_s += rv_same(f"{mode} app", fab, cpu,
+                     (emu.config, streams, lens, sink[:RV_CPU_T], emu.pe_cfg,
+                      emu.depth))
+    eager_ms = rv_same(f"{mode} app, eager on the card", fab,
+                       rv.fabric(use_kernels=False),
+                       (emu.config, streams, lens, sink[:RV_EAGER_T],
+                        emu.pe_cfg, emu.depth)) * 1e3 / RV_EAGER_T
+    # the device time of one replayed sweep of each direction
+    cyc = fab._rv_cycle(emu.config, emu.pe_cfg)
+    fab._rv_start(cyc, fab.init_state(), *(fab._zeros(fab.num_io),) * 2,
+                  None)
+    sweep_ms = {"forward": graph_ms(lambda: fab._forward_sweep(cyc, 0, 1)),
+                "backward": graph_ms(lambda: fab._backward_sweep(cyc, 0, 1))}
+    rec["app"] = {"cycles": RV_APP_T, "depth": emu.depth,
+                  "ms_per_cycle": ms, "eager_ms_per_cycle": eager_ms,
+                  "sweep_ms": sweep_ms, "graph_replays": replays,
+                  "tokens": RV_TOKENS, "delivered": int(outs[2][:, dst].sum()),
+                  "cpu_equal_cycles": RV_CPU_T}
+    rec["cpu_leg_s"] = cpu_s
+    if mode == "full":
+        stim = {r.placement["in0"]: np.arange(1, T + 1, dtype=np.int32)}
+        got = rv.emulate(r, stim, cycles=T)
+        want = run_apps_batch([emu], [stim], T)[0]
+        if any(not np.array_equal(got[c], want[c]) for c in want):
+            raise AssertionError("rv: emulate != run_apps_batch")
+        rec["app"]["emulate_equal"] = True
+    log(f"rv {mode}: stream {rec['stream']}; app {rec['app']}")
+    return rec
+
+
+def rv_phase(spec, device):
+    """The ready-valid fabric at ``spec`` (FULL) in both FIFO modes; the
+    pointwise app placed and routed once, on the spec's default (full)
+    point, its configuration run in both."""
+    import canal_torch
+    from repro_torch.core.pnr.app import BENCH_APPS
+    from repro_torch.fabric import AppEmulator, RVFabric
+
+    rng = np.random.default_rng(7)
+    out = {}
+    routed = None
+    for mode, split in (("full", False), ("split", True)):
+        t0 = time.perf_counter()
+        rv = canal_torch.compile(spec.replace(ready_valid=True,
+                                              split_fifo=split),
+                                 device=device, use_kernels=True)
+        fab = rv.fabric()
+        if not isinstance(fab, RVFabric) or fab.fifo_mode != mode:
+            raise AssertionError(f"rv: fabric() is {type(fab).__name__}, "
+                                 f"{getattr(fab, 'fifo_mode', None)}, not "
+                                 f"{mode}")
+        compile_s = time.perf_counter() - t0
+        pnr = {}
+        if routed is None:
+            r = rv.place_and_route(BENCH_APPS["pointwise"]())
+            if not r.success:
+                raise RuntimeError(f"rv: PnR failed: {r.error}")
+            if (r.route_strategy, r.place_strategy) != ("minplus",
+                                                        "batched"):
+                raise AssertionError(f"rv: auto resolved to "
+                                     f"{r.route_strategy}/{r.place_strategy}")
+            routed = (r, AppEmulator.from_pnr(fab, r.packed, r))
+            pnr = {"pnr_s": r.seconds, "bitstream_words": len(rv.bitstream(r))}
+        out[mode] = {"compile_s": compile_s, **pnr,
+                     **rv_mode(rv, routed, rng)}
+    full, split = (out[m]["stream"]["absorbed_never_ready"]
+                   for m in ("full", "split"))
+    if full <= split:
+        raise AssertionError(f"rv: full FIFOs absorbed {full}, split {split}")
+    return out
+
+
 # ------------------------------------------------------------ kernel checks
 def random_workload(fabric, batch, seed):
     """``dse._random_fabric_workload``'s draws on the given fabric: random
@@ -752,11 +968,88 @@ def minplus_row(fab, device):
                          for b, r in by_b.items()}}
 
 
-def bbox_row(routed, device):
+def interleaved_ms(fns, reps, rounds=BOX_ROUNDS):
+    """The median device ms of each of ``fns``, graph-timed (``graph_ms``)
+    in ``rounds`` rounds that take the functions in turns."""
+    times = [[] for _ in fns]
+    for _ in range(rounds):
+        for t, fn in zip(times, fns):
+            t.append(graph_ms(fn, reps))
+    return [float(np.median(t)) for t in times]
+
+
+def box_shape(name, device, pins, mask, earlier, reps):
+    """``net_bboxes`` or ``hpwl`` on one pin table: the kernel (and the
+    kernel as it stood before its redesign, ``earlier``) held bit for bit
+    to the plain version, all three timed on the same inputs, beside the
+    byte bound. The kernel and the earlier one are timed in turns, the
+    median of ``BOX_ROUNDS`` rounds: at the launch floor one reading
+    moves by ~0.1 us."""
+    from repro_torch.kernels import build, hpwl
+
+    fn, plain = {"net_bboxes": (hpwl.net_bboxes, hpwl.net_bboxes_plain),
+                 "hpwl": (hpwl.hpwl, hpwl.hpwl_plain)}[name]
+    p_t = torch.as_tensor(pins, device=device)
+    m_t = torch.as_tensor(mask, device=device)
+    got = fn(p_t, m_t)
+    want = plain(p_t, m_t)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name} differs (max {err})")
+    n, k = mask.shape
+    old = torch.empty_like(want)
+
+    def launch_earlier():
+        build.check(earlier(p_t.data_ptr(), m_t.data_ptr(), old.data_ptr(),
+                            n, k, build.stream_ptr(device)), f"earlier {name}")
+    launch_earlier()
+    torch.cuda.synchronize()
+    if not torch.equal(old, want):
+        raise AssertionError(f"the earlier {name} differs from the plain "
+                             f"version")
+    ms, old_ms = interleaved_ms((lambda: fn(p_t, m_t), launch_earlier), reps)
+    b_ms, b_by = bound(nbytes(p_t, m_t, got), 4 * n * k)
+    return {"max_abs_err": err, "ms": ms,
+            "plain_ms": graph_ms(lambda: plain(p_t, m_t), reps),
+            "call_ms": cuda_ms(lambda: fn(p_t, m_t), reps),
+            "timing": f"graph, median of {BOX_ROUNDS} rounds",
+            "earlier_ms": old_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "shape": {"n_nets": n, "K": k,
+                      "tiles": dict(zip(("G", "blocks", "threads"),
+                                        hpwl.box_tiles(n, k)))}}
+
+
+def design_boxes(seed):
+    """``BOX_DESIGN``'s pin table: random pins, ~30% masked, every fifth
+    net empty."""
+    n, k = BOX_DESIGN
+    rng = np.random.default_rng(seed)
+    pins = rng.integers(0, 32, (n, k, 2)).astype(np.int32)
+    mask = (rng.random((n, k)) < 0.7).astype(np.int32)
+    mask[::5] = 0
+    return pins, mask
+
+
+def box_row(name, replaces, path, earlier, device):
+    """A box kernel's row: ``path`` (its path's pin table) gives the row's
+    numbers, ``design`` those at ``BOX_DESIGN``."""
+    row = box_shape(name, device, *path, earlier[name], reps=50)
+    design = box_shape(name, device, *design_boxes(8), earlier[name],
+                       reps=20)
+    row["max_abs_err"] = max(row["max_abs_err"], design["max_abs_err"])
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/hpwl.cu",
+            "replaces": replaces, **row, "library_ms": None,
+            "design": {k: design[k] for k in
+                       ("ms", "call_ms", "plain_ms", "earlier_ms",
+                        "bound_ms", "bound_by", "shape")}}
+
+
+def bbox_row(routed, device, earlier):
     """Random nets with empty ones, at the (n_nets, K) of the largest
-    bench app's pin table."""
+    bench app's pin table, and at the design shape."""
     from repro_torch.core.pnr.batched_anneal import _net_members
-    from repro_torch.kernels import hpwl
 
     shapes = []
     for r in routed.values():
@@ -768,23 +1061,8 @@ def bbox_row(routed, device):
     pins = rng.integers(0, 32, (n, k, 2)).astype(np.int32)
     mask = (rng.random((n, k)) < 0.7).astype(np.int32)
     mask[:: 5] = 0                                   # empty nets
-    p_t = torch.as_tensor(pins, device=device)
-    m_t = torch.as_tensor(mask, device=device)
-    got = hpwl.net_bboxes(p_t, m_t)
-    want = hpwl.net_bboxes_plain(p_t, m_t)
-    torch.cuda.synchronize()
-    err = int((got - want).abs().max())
-    if not torch.equal(got, want):
-        raise AssertionError("net_bboxes differs")
-    b_ms, b_by = bound(nbytes(p_t, m_t, got), 4 * n * k)
-    return {"name": "net_bboxes", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/hpwl.cu",
-            "replaces": "src/repro/kernels/hpwl.py:111",
-            "max_abs_err": err,
-            **timings(lambda: hpwl.net_bboxes(p_t, m_t),
-                      lambda: hpwl.net_bboxes_plain(p_t, m_t)),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "shape": {"n_nets": n, "K": k}}
+    return box_row("net_bboxes", "src/repro/kernels/hpwl.py:111",
+                   (pins, mask), earlier, device)
 
 
 def sweep_bytes(src, sel):
@@ -949,12 +1227,12 @@ def sweep_rows(fab, routed, device, earlier):
     return rows
 
 
-def hpwl_row(routed, device):
-    """The routed apps' placed-net tables (main path's shapes); times on
-    the largest."""
+def hpwl_row(routed, device, earlier):
+    """The routed apps' placed-net tables (main path's shapes), each held
+    to the plain version; times on the largest and at the design
+    shape."""
     from repro_torch.kernels import hpwl
 
-    err = 0
     tables = [pin_table(r) for r in routed.values()]
     for pins, mask in tables:
         p_t = torch.as_tensor(pins, device=device)
@@ -964,20 +1242,8 @@ def hpwl_row(routed, device):
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError("hpwl differs")
-        err = max(err, int((got - want).abs().max()))
-    pins, mask = max(tables, key=lambda t: t[1].size)
-    p_t = torch.as_tensor(pins, device=device)
-    m_t = torch.as_tensor(mask, device=device)
-    n, k = mask.shape
-    b_ms, b_by = bound(nbytes(p_t, m_t) + 4 * n, 4 * n * k)
-    return {"name": "hpwl", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/hpwl.cu",
-            "replaces": "src/repro/kernels/hpwl.py:80",
-            "max_abs_err": err,
-            **timings(lambda: hpwl.hpwl(p_t, m_t),
-                      lambda: hpwl.hpwl_plain(p_t, m_t)),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "shape": {"n_nets": n, "K": k}}
+    return box_row("hpwl", "src/repro/kernels/hpwl.py:80",
+                   max(tables, key=lambda t: t[1].size), earlier, device)
 
 
 # ------------------------------------------------------------ the LM paths
@@ -1318,7 +1584,7 @@ def main():
 
 
 def drive(spec, device, t_start, earlier):
-    """Phases 2-10 on ``spec`` and ``device`` (the LM phases on the FULL
+    """Phases 2-11 on ``spec`` and ``device`` (the LM phases on the FULL
     models at B 2, S 2,048), with ``earlier`` the entry points of the
     kernels before their redesign; prints their JSON lines."""
     from repro_torch.configs import get_config
@@ -1358,6 +1624,8 @@ def drive(spec, device, t_start, earlier):
         "serve": phase("serve", serve_phase, spec, fab.area(), device),
         "engines": phase("engines", engines_phase, device),
         "search": phase("search", search_phase, device),
+        # 8. the ready-valid fabric at FULL
+        "rv": phase("rv", rv_phase, spec, device),
     }
     for name, need in (("minplus", "minplus_step"),
                        ("batched", "net_bboxes")):
@@ -1365,7 +1633,7 @@ def drive(spec, device, t_start, earlier):
                 not phases["search"]["launches"].get(need):
             raise AssertionError(f"search: {name} ran without {need}")
 
-    # 8.-9. the LM substrate at FULL: one kernel launch per layer
+    # 9.-10. the LM substrate at FULL: one kernel launch per layer
     configs = {name: get_config(name) for name in LM_ARCHS}
     score, served = lm_paths(phase, device, configs)
     want = {}
@@ -1379,12 +1647,12 @@ def drive(spec, device, t_start, earlier):
         raise AssertionError(f"lm_serve launched kernels: "
                              f"{phases['lm_serve']['launches']}")
 
-    # 10. every kernel against its plain version at its path's shapes
+    # 11. every kernel against its plain version at its path's shapes
     rows = fabric_kernel_rows(fab.fabric(), device, batch=len(routed))
     rows.append(minplus_row(fab, device))
-    rows.append(bbox_row(routed, device))
+    rows.append(bbox_row(routed, device, earlier))
     rows.extend(sweep_rows(fab, routed, device, earlier))
-    rows.append(hpwl_row(routed, device))
+    rows.append(hpwl_row(routed, device, earlier))
     rows.append(flash_row(device))
     rows.append(ssd_row(device, earlier["ssd_scan"]))
     for row in rows:
@@ -1397,7 +1665,7 @@ def drive(spec, device, t_start, earlier):
     keys = ("name", "route", "source", "replaces", "launches", "path",
             "max_abs_err", "ms", "plain_ms", "call_ms", "timing",
             "bound_ms", "bound_by", "bound_share", "library_ms", "shape")
-    extra = ("tflops", "by_batch", "earlier_ms", "sweep_ms")
+    extra = ("tflops", "by_batch", "earlier_ms", "sweep_ms", "design")
     rows = [{**{k: row[k] for k in keys},
              **{k: row[k] for k in extra if k in row}} for row in rows]
 
@@ -1423,6 +1691,7 @@ def drive(spec, device, t_start, earlier):
                                  "strategies": search["strategies"],
                                  "executor": search["stats"]["executor"]}},
                      default=str))
+    print(json.dumps({"rv": results["rv"]}))
     print(json.dumps({"lm_score": score}))
     print(json.dumps({"lm_serve": served}))
     print(json.dumps({"kernels": rows}))

@@ -77,18 +77,24 @@ class CompiledFabric:
 
     # ------------------------------------------------------------- backends
     def fabric(self, use_kernels: Optional[bool] = None):
-        """The lowered functional model (:class:`FabricModule`) of the
-        static interconnect, memoized per engine. The ready-valid fabric
-        (``RVFabric``) is not ported yet."""
-        if self.spec.ready_valid:
-            raise NotImplementedError(
-                "the ready-valid fabric (RVFabric) is not ported yet "
-                "(ROADMAP.md queue 1)")
+        """The lowered functional model: :class:`FabricModule` for the
+        static interconnect, :class:`repro_torch.fabric.RVFabric` when the
+        spec requests the hybrid ready-valid interconnect. Memoized per
+        engine."""
         uk = self.use_kernels if use_kernels is None else use_kernels
         fab = self._fabrics.get(uk)
         if fab is None:
-            from .lowering import FabricModule
-            fab = FabricModule(self._ic, device=self.device, use_kernels=uk)
+            if self.spec.ready_valid:
+                from repro_torch.fabric import RVFabric
+                # the readyvalid_transform pass annotated the IR; the
+                # lowering consumes that annotation, not the raw spec
+                mode = self._ic.params["rv_fifo_mode"]
+                fab = RVFabric(self._ic, fifo_mode=mode, device=self.device,
+                               use_kernels=uk)
+            else:
+                from .lowering import FabricModule
+                fab = FabricModule(self._ic, device=self.device,
+                                   use_kernels=uk)
             self._fabrics[uk] = fab
         return fab
 

@@ -8,7 +8,9 @@ the port must accept, is:
   by the port's router and emulator;
 * a routing, as lists of node keys: ``Node.node_key()``, the structural
   identity (kind, tile, side/port, track, width) that the two IRs share
-  (``Node`` itself hashes on a per-process id, which does not carry).
+  (``Node`` itself hashes on a per-process id, which does not carry);
+* a ready-valid fabric's state (FIFO slots, occupancy, memory), as numpy
+  arrays (:func:`rv_state_from_numpy`).
 
 The LM substrate has weights and configurations:
 
@@ -126,6 +128,28 @@ def pnr_result(ic: Interconnect, app, placement: Mapping[str, Tuple[int,
     return PnRResult(success=True, placement=placement, packed=packed,
                      routing=routing, timing=timing,
                      wirelength=routing.total_wirelength())
+
+
+#: the ready-valid fabric's state, the same keys in both packages
+RV_STATE_KEYS = ("slots", "occ", "mem")
+
+
+def rv_state_from_numpy(fab, state: Mapping[str, np.ndarray]
+                        ) -> Dict[str, torch.Tensor]:
+    """An ``RVFabric`` state (FIFO ``slots`` (R, 2), occupancy ``occ``
+    (R,), ``mem``) given as numpy arrays — the reference's, say — as the
+    port fabric's int32 tensors on its device."""
+    return {k: torch.as_tensor(np.array(state[k], dtype=np.int32),
+                               device=fab.device)
+            for k in RV_STATE_KEYS}
+
+
+def rv_state_to_numpy(state: Mapping[str, torch.Tensor]
+                      ) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`rv_state_from_numpy`: a port ``RVFabric``
+    state as int32 numpy arrays."""
+    return {k: np.asarray(state[k].cpu().numpy(), dtype=np.int32)
+            for k in RV_STATE_KEYS}
 
 
 # ------------------------------------------------------------ LM substrate

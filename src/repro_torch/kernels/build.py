@@ -56,8 +56,8 @@ _SIGNATURES = {
     "canal_fabric_fused_run": [_P] * 18 + [_P] * 5 + [_I] * 11 + [_P],
     "canal_fabric_fused_clusters": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)],
     "canal_minplus_step": [_P, _P, _P, _I, _I, _P],
-    "canal_net_bboxes": [_P, _P, _P, _I, _I, _P],
-    "canal_hpwl": [_P, _P, _P, _I, _I, _P],
+    "canal_net_bboxes": [_P, _P, _P] + [_I] * 6 + [_P],
+    "canal_hpwl": [_P, _P, _P] + [_I] * 6 + [_P],
     "canal_flash_attention": [_P] * 4 + [_I] * 8 + [_P],
     "canal_ssd_scan": [_P] * 8 + [_I] * 5 + [_P],
 }

@@ -10,16 +10,47 @@ pins read as ``+/-SENTINEL``:
 * ``hpwl`` — per-net half-perimeter wirelength ``(xmax - xmin) +
   (ymax - ymin)``, the Eq. 2 distance term; 0 for a net with no live pin.
 
-CUDA tensors run the hand-written kernels in ``csrc/hpwl.cu``; CPU
-tensors the plain PyTorch versions beside them.
+CUDA tensors run the hand-written kernels in ``csrc/hpwl.cu`` (a group
+of lanes a net, sized by :func:`box_tiles`); CPU tensors the plain
+PyTorch versions beside them.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from . import build
+from .fabric_step import SM_COUNT, SM_THREADS
 
 SENTINEL = 1 << 20
+#: the kernels' block, and the widest group of lanes a net
+BOX_THREADS = 256
+BOX_MAX_GROUP = 32
+
+
+def box_group(k: int) -> int:
+    """Lanes a net: the least power of two at least K, at most 32 (past
+    32 pins the lanes stride over K)."""
+    g = 1
+    while g < min(k, BOX_MAX_GROUP):
+        g *= 2
+    return g
+
+
+def box_tiles(n: int, k: int) -> Tuple[int, int, int]:
+    """The size rule of both kernels: ``(G, blocks, threads)``.
+
+    Group w of the grid's W = blocks x threads / G groups of G lanes
+    takes nets w, w + W, ...; a warp holds 32 / G consecutive nets.
+    Blocks of ``BOX_THREADS`` (a block of one warp is slower at the
+    path's dozen nets), as many as cover the nets, at least one and at
+    most as many as the card holds at once (``SM_COUNT x SM_THREADS /
+    BOX_THREADS``), past which groups stride. The rule reads n and K
+    only."""
+    g = box_group(k)
+    blocks = -(-max(n, 1) * g // BOX_THREADS)
+    return g, min(blocks, SM_COUNT * SM_THREADS // BOX_THREADS), BOX_THREADS
 
 
 def net_bboxes_plain(pins: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -55,11 +86,13 @@ def _launch(kernel: str, pins: torch.Tensor, mask: torch.Tensor,
     out = torch.empty(shape, dtype=torch.int32, device=pins.device)
     if n == 0:
         return out
+    aligned = pins.data_ptr() % 8 == 0          # one int2 load a pin
     err = getattr(build.library(), f"canal_{kernel}")(
         pins.data_ptr(), mask.data_ptr(), out.data_ptr(), n, k,
-        build.stream_ptr(pins.device))
+        *box_tiles(n, k), int(aligned), build.stream_ptr(pins.device))
     build.check(err, kernel)
-    build.LAUNCHES[kernel] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        build.LAUNCHES[kernel] += 1
     return out
 
 

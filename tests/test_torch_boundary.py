@@ -83,14 +83,27 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 def test_unported_paths_raise():
-    """The ready-valid fabric (``RVFabric``) is a later slice: building
-    it raises, and so does its lowered verification (as in the
-    reference, which verifies only the static interconnect)."""
-    rv = canal_torch.compile(
-        canal_torch.InterconnectSpec(width=4, height=4, num_tracks=2,
-                                     ready_valid=True),
-        device="cpu", analyze="off")
-    with pytest.raises(NotImplementedError):
-        rv.fabric()
-    with pytest.raises(NotImplementedError):
-        rv.verify()
+    """The ready-valid fabric builds (the port's ``RVFabric``, in the mode
+    the IR's ``rv_fifo_mode`` names), while its lowered verification
+    raises, as in the reference, which verifies only the static
+    interconnect."""
+    from repro_torch.fabric import RVFabric
+
+    for split, mode in ((False, "full"), (True, "split")):
+        rv = canal_torch.compile(
+            canal_torch.InterconnectSpec(width=4, height=4, num_tracks=2,
+                                         ready_valid=True, split_fifo=split),
+            device="cpu", analyze="off")
+        fab = rv.fabric()
+        assert isinstance(fab, RVFabric)
+        assert fab.fifo_mode == rv.interconnect.params["rv_fifo_mode"] == mode
+        with pytest.raises(NotImplementedError):
+            rv.verify()
+
+
+def test_readyvalid_rejects_unsupported_fifo_depth():
+    """As in the reference: the lowering implements depth-2 FIFOs only."""
+    spec = canal_torch.InterconnectSpec(width=4, height=4, num_tracks=2,
+                                        ready_valid=True, fifo_depth=8)
+    with pytest.raises(ValueError, match="depth-2"):
+        canal_torch.compile(spec, device="cpu")

@@ -67,3 +67,53 @@ def test_graph_run_equals_eager_loop_and_oracle(cuda, size):
     oracle = fab.fabric(use_kernels=False).run(*args)
     assert got.any()
     assert torch.equal(got, eager) and torch.equal(got, oracle)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [False, True])
+def test_rv_graph_run_equals_eager_loop(cuda, split):
+    """``RVFabric`` on the card: its sweeps replay from CUDA graphs (two
+    a sweep pair, the first cycle's first pair run eagerly), with the
+    same outputs and FIFO state as the same sweeps run eagerly
+    (``use_kernels=False``) and as the CPU: the east route across
+    ``cgra_amber.FULL`` (31 FIFO stages), 16 cycles of
+    ``run_with_sources`` under random backpressure and of
+    ``run_stream``."""
+    from repro_torch.configs.cgra_amber import FULL
+    from repro_torch.core.compile import compile_spec
+    from repro_torch.fabric import RVFabric, east_route
+
+    rv = compile_spec(FULL.replace(ready_valid=True, split_fifo=split),
+                      device=cuda, use_kernels=True)
+    fab, eager = rv.fabric(), rv.fabric(use_kernels=False)
+    cpu = RVFabric(rv.interconnect, fifo_mode=fab.fifo_mode, device="cpu")
+    edges = east_route(fab.ic)
+    config = fab.route_to_config(edges)
+    depth = len(edges) + 2 if split else fab.depth_for_route(edges)
+    io = {c: i for i, c in enumerate(fab.io_coords)}
+    src = io[(0, 1)]
+    t_len = 16
+    rng = np.random.default_rng(5)
+    streams = np.zeros((t_len, fab.num_io), np.int32)
+    streams[:, src] = rng.integers(1, 1 << 16, t_len)
+    lens = np.zeros(fab.num_io, np.int32)
+    lens[src] = t_len
+    sink = (rng.random((t_len, fab.num_io)) < 0.6).astype(np.int32)
+    before = fab.graph_replays
+    got = fab.run_with_sources(config, streams, lens, sink, depth=depth)
+    torch.cuda.synchronize()
+    assert fab.graph_replays - before == 2 * (t_len * depth - 1)
+    assert fab.last_state["occ"].any()
+    for other in (eager, cpu):
+        want = other.run_with_sources(config, streams, lens, sink,
+                                      depth=depth)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.cpu())
+        for k in ("slots", "occ"):
+            assert torch.equal(fab.last_state[k].cpu(),
+                               other.last_state[k].cpu())
+    valid = (streams > 0).astype(np.int32)
+    got = fab.run_stream(config, streams, valid, sink, depth=depth)
+    want = eager.run_stream(config, streams, valid, sink, depth=depth)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert got[2].any()

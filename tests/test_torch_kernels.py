@@ -214,6 +214,68 @@ def test_net_bboxes_plain_matches_pallas(jref, seed, n, k):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def wide_box_case(seed, n, k):
+    """``bbox_case`` with a tenth of the live pins beyond +/- SENTINEL, so
+    that a live pin must win over the sentinel a masked pin reads."""
+    pins, mask = bbox_case(seed, n, k)
+    rng = np.random.default_rng(seed + 1)
+    far = (mask > 0) & (rng.random((n, k)) < 0.1)
+    pins[far] = rng.choice([-(1 << 22), (1 << 20) + 1, -(1 << 20) - 1,
+                            1 << 23], (int(far.sum()), 2))
+    return pins, mask
+
+
+def design_box_case(seed=0, n=1 << 20, k=4):
+    """The reference docstring's batched shape: 64 chains x 4 candidates x
+    4,096 nets at K 4, random pins, ~30% of them masked, every fifth net
+    empty."""
+    rng = np.random.default_rng(seed)
+    pins = rng.integers(0, 32, (n, k, 2)).astype(np.int32)
+    mask = (rng.random((n, k)) < 0.7).astype(np.int32)
+    mask[::5] = 0
+    return pins, mask
+
+
+def test_box_group_is_the_next_power_of_two_up_to_a_warp():
+    """G for K 1..70: the least power of two at least K, 32 past a warp."""
+    for k in range(1, 71):
+        g = hpwl.box_group(k)
+        assert g in (1, 2, 4, 8, 16, 32)
+        assert g >= min(k, 32) and (g == 1 or g // 2 < min(k, 32)), k
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 17, 33, 64])
+@pytest.mark.parametrize("n", [0, 1, 15, 1 << 20])
+def test_box_tiles_cover_every_net_once_in_one_wave(n, k):
+    """``net_bboxes``/``hpwl``'s size rule: blocks of whole warps, groups
+    of G lanes that divide them, one block while n is small, never more
+    than one wave; the kernel's walk (each warp's groups take nets w +
+    j W, four at a time, while the warp's first group has nets left)
+    covers every net exactly once, every pin of a net by one of its
+    lanes."""
+    g, blocks, threads = hpwl.box_tiles(n, k)
+    sms, per_sm = fabric_step.SM_COUNT, fabric_step.SM_THREADS
+    assert g == hpwl.box_group(k)
+    assert threads == hpwl.BOX_THREADS and threads % 32 == 0
+    assert blocks >= 1 and blocks * threads <= sms * per_sm
+    if max(n, 1) * g <= hpwl.BOX_THREADS:
+        assert blocks == 1
+    if n == 1 << 20:
+        assert blocks * threads == sms * per_sm        # one full wave
+    assert all(len(range(lane, k, g)) >= 1 for lane in range(min(k, g)))
+    groups = blocks * threads // g
+    group = np.arange(groups)
+    warp_first = group - group % (32 // g)
+    seen = np.zeros(n, np.int64)
+    base = 0
+    while (warp_first + base < n).any():
+        for u in range(4):
+            net = group + base + u * groups
+            np.add.at(seen, net[(warp_first + base < n) & (net < n)], 1)
+        base += 4 * groups
+    assert (seen == 1).all()
+
+
 def sweep_case(seed, b=5, n=300, f=6):
     """Random sweep tables: every src entry in [0, N] (N is the zero
     sentinel of absent fan-in, so some nodes read it), selects in
@@ -935,6 +997,44 @@ class TestCudaKernels:
         torch.cuda.synchronize()
         assert build.LAUNCHES["hpwl"] == before + 1
         assert torch.equal(got, hpwl.hpwl_plain(p_t, m_t))
+
+    @pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 8, 17, 32, 33, 64])
+    @pytest.mark.parametrize("n", [0, 1, 15, 3001])
+    def test_boxes_every_group_size(self, cuda, n, k):
+        """Both kernels bit for bit against their plain versions at every
+        group size (K up to a warp, and past it), with empty nets, masked
+        pins at +/- 2^21 and live pins beyond the sentinel; n 0 launches
+        nothing."""
+        pins, mask = wide_box_case(n * 97 + k, n, k)
+        p_t = torch.as_tensor(pins, device=cuda)
+        m_t = torch.as_tensor(mask, device=cuda)
+        for name, fn, plain in (("net_bboxes", hpwl.net_bboxes,
+                                 hpwl.net_bboxes_plain),
+                                ("hpwl", hpwl.hpwl, hpwl.hpwl_plain)):
+            before = build.LAUNCHES[name]
+            got = fn(p_t, m_t)
+            torch.cuda.synchronize()
+            assert build.LAUNCHES[name] == before + (1 if n else 0)
+            assert torch.equal(got, plain(p_t, m_t)), name
+
+    @pytest.mark.parametrize("aligned", [True, False])
+    def test_boxes_design_shape(self, cuda, aligned):
+        """1,048,576 nets at K 4 (the reference's batched evaluation), and
+        int32-wrapping HPWL; pins one word into a larger tensor take the
+        two-load path."""
+        pins, mask = design_box_case()
+        p_t = torch.as_tensor(pins, device=cuda)
+        if not aligned:
+            p_t = torch.cat([p_t.new_zeros(1), p_t.reshape(-1)])[1:].view(
+                p_t.shape)
+            assert p_t.data_ptr() % 8
+        m_t = torch.as_tensor(mask, device=cuda)
+        assert torch.equal(hpwl.net_bboxes(p_t, m_t),
+                           hpwl.net_bboxes_plain(p_t, m_t))
+        assert torch.equal(hpwl.hpwl(p_t, m_t), hpwl.hpwl_plain(p_t, m_t))
+        wide = torch.as_tensor(_edge_ints(np.random.default_rng(1),
+                                          pins.shape), device=cuda)
+        assert torch.equal(hpwl.hpwl(wide, m_t), hpwl.hpwl_plain(wide, m_t))
 
     def test_cuda_tensor_never_takes_plain_path(self, cuda):
         """A CUDA tensor the kernel does not take raises; it is never

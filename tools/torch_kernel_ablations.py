@@ -3,7 +3,7 @@
 committed ones, on one CUDA card.
 
     python3 tools/torch_kernel_ablations.py \
-        [--only flash,minplus,fused,sweep,sweep_batch,ssd,ssd_layers]
+        [--only flash,minplus,fused,sweep,sweep_batch,ssd,ssd_layers,boxes]
 
 Each variant is the committed source (``src/repro_torch/kernels/csrc/``)
 with one change made by text substitution. Every variant is compiled by
@@ -65,6 +65,16 @@ its own ``nvcc`` process (all started together) into a library under
   the plain version and its 1e-4 gate). The forward's logits with each
   in place of ``ssd_scan``, and with the float64 recurrence in place,
   are compared with the plain path's (``chip_smoke.logit_gap``).
+
+- ``boxes``: ``net_bboxes`` and ``hpwl`` on random pin tables from the
+  path's shapes (15 nets at K 2, 12 at K 3) through 4,096 and 65,536 to
+  the reference's batched design shape (1,048,576 nets at K 4): the
+  committed kernels at the size rule's launch (``hpwl.box_tiles``), in
+  blocks of one warp, and with a warp a net (G 32); the kernels as first
+  ported, at their own launch, and as the committed source's one-pass
+  path; liveness by one vote of the warp instead of shuffles; the unrolled
+  grid stride even where one pass covers the nets; 64-bit indices
+  throughout.
 
 The earlier kernels that variants time are kept, unchanged, in
 ``tools/ablation_kernels/``.
@@ -306,6 +316,67 @@ __device__ void refresh_record(const Fabric& f, const Lane& l, int j) {
 
 """
 
+#: the kernels as first ported (tools/ablation_kernels/hpwl_first.cu), as
+#: the one-pass path of the committed source
+OLD_BOXES = """
+constexpr int kWarpsPerBlock = 8;
+
+__device__ __forceinline__ int4 warp_box(const int* __restrict__ pins,
+                                         const int* __restrict__ mask,
+                                         int net, int K, int lane,
+                                         int* live_out) {
+    int xmin = kIntMax, xmax = kIntMin;
+    int ymin = kIntMax, ymax = kIntMin;
+    int live = 0;
+    for (int k = lane; k < K; k += 32) {
+        const size_t p = (size_t)net * K + k;
+        const bool m = mask[p] > 0;
+        const int x = pins[2 * p], y = pins[2 * p + 1];
+        xmin = min(xmin, m ? x : kSentinel);
+        xmax = max(xmax, m ? x : -kSentinel);
+        ymin = min(ymin, m ? y : kSentinel);
+        ymax = max(ymax, m ? y : -kSentinel);
+        live |= m;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        xmin = min(xmin, __shfl_xor_sync(0xffffffffu, xmin, off));
+        xmax = max(xmax, __shfl_xor_sync(0xffffffffu, xmax, off));
+        ymin = min(ymin, __shfl_xor_sync(0xffffffffu, ymin, off));
+        ymax = max(ymax, __shfl_xor_sync(0xffffffffu, ymax, off));
+    }
+    *live_out = __any_sync(0xffffffffu, live);
+    return make_int4(xmin, xmax, ymin, ymax);
+}
+
+template <class Store>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+old_kernel(const int* __restrict__ pins, const int* __restrict__ mask,
+           int n, int K, Store store) {
+    const int lane = threadIdx.x & 31;
+    const int warps = gridDim.x * kWarpsPerBlock;
+    for (int net = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+         net < n; net += warps) {
+        int live = 0;
+        const int4 b = warp_box(pins, mask, net, K, lane, &live);
+        if (lane == 0) store(net, Box{b.x, b.y, b.z, b.w, live});
+    }
+}
+
+"""
+
+
+#: liveness by one vote of the warp instead of shuffles
+LIVE_VOTE = sub(
+    "        b.live |= __shfl_xor_sync(0xffffffffu, b.live, off);\n"
+    "    }\n",
+    "    }\n"
+    "    const unsigned votes = __ballot_sync(0xffffffffu, b.live);\n"
+    "    b.live = G == 32 ? votes != 0\n"
+    "                     : ((votes >> ((threadIdx.x & 31) & ~(G - 1)))\n"
+    "                        & ((1u << G) - 1)) != 0;\n")
+
+
 def earlier(name):
     """A variant that is a kernel as an earlier change committed it
     (``tools/ablation_kernels/``), in place of the committed source."""
@@ -463,6 +534,23 @@ VARIANTS = {
         "pass2_only": (chain(NO_STATE_PASS, NO_OUTPUT_PASS), True),
         "pass3_only": (chain(NO_STATE_PASS, NO_CARRY_PASS), True),
     },
+    "boxes": {
+        "committed": (None, False),
+        "old_one_pass": (chain(
+            sub("// One pass, one net a group (n small)",
+                OLD_BOXES + "// One pass, one net a group (n small)"),
+            sub("    if (groups >= n && narrow) {\n        if (aligned) {",
+                "    if (groups >= n && narrow) {\n        old_kernel<<<"
+                "(n + kWarpsPerBlock - 1) / kWarpsPerBlock, 32 * "
+                "kWarpsPerBlock, 0, s>>>(pins, mask, n, K, store);\n"
+                "    } else if (false) {\n        if (aligned) {")), False),
+        "live_vote": (LIVE_VOTE, False),
+        "unroll_always": (sub("    if (groups >= n && narrow) {",
+                              "    if (false) {"), False),
+        "wide_index": (sub("    const bool narrow = ",
+                           "    const bool narrow = false && "), False),
+        "first_kernel": (earlier("hpwl_first.cu"), False),
+    },
     "ssd_layers": {
         "committed": (None, False),
         "first_kernel": (earlier("ssd_scan_first.cu"), False),
@@ -471,7 +559,8 @@ VARIANTS = {
 SOURCES = {"flash": "flash_attention.cu", "minplus": "minplus.cu",
            "fused": "fabric_step.cu", "sweep": "fabric_sweep.cu",
            "sweep_batch": "fabric_sweep.cu",
-           "ssd": "ssd_scan.cu", "ssd_layers": "ssd_scan.cu"}
+           "ssd": "ssd_scan.cu", "ssd_layers": "ssd_scan.cu",
+           "boxes": "hpwl.cu"}
 ENTRY = {"flash": "canal_flash_attention", "minplus": "canal_minplus_step"}
 
 
@@ -703,6 +792,64 @@ def sweep_rows(libs, device):
                          "changes_result": False})
     rows.append({"kernel": "fabric_sweep", "N": n, "F": f})
     return rows + path_rows(fabric, list(routed), emus, ins)
+
+
+def box_rows(libs, device):
+    """``net_bboxes`` and ``hpwl`` on random pin tables (~30% masked, every
+    fifth net empty) from the path's shapes (15 nets at K 2, 12 at K 3) to
+    the reference's batched design shape (1,048,576 at K 4): every variant
+    at the size rule's launch, the committed kernel also in blocks of one
+    warp and with a warp a net (G 32), and the kernel as first ported at
+    its own launch; each held bit for bit to the plain version."""
+    from repro_torch.kernels import hpwl
+
+    new_args = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    old_args = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    plains = {"net_bboxes": hpwl.net_bboxes_plain, "hpwl": hpwl.hpwl_plain}
+    rows = []
+    for n, k in ((15, 2), (12, 3), (4096, 4), (65536, 4), (1 << 20, 4)):
+        rng = np.random.default_rng(n + k)
+        pins = torch.as_tensor(rng.integers(0, 32, (n, k, 2)).astype(
+            np.int32), device=device)
+        mask = (rng.random((n, k)) < 0.7).astype(np.int32)
+        mask[::5] = 0
+        mask = torch.as_tensor(mask, device=device)
+        g, blocks, threads = hpwl.box_tiles(n, k)
+        lanes = -(-n * 32 // 256)
+        rule = (g, blocks, threads)
+        # in turns, eight each at the path's shapes and three beyond: the
+        # committed kernel, the one before it, the one before it as the
+        # committed one-pass path, liveness by one vote, and the committed
+        # kernel in blocks of one warp
+        warp_blocks = (g, min(-(-n * g // 32), fs.SM_COUNT * 32), 32)
+        launches = ([("committed", rule), ("first_kernel", None),
+                     ("old_one_pass", rule), ("live_vote", rule),
+                     ("committed", warp_blocks)] * (8 if n < 64 else 3)
+                    + [("committed", (32, min(lanes, 1056), 256)),
+                       ("unroll_always", rule), ("wide_index", rule)])
+        for kernel, plain in plains.items():
+            want = plain(pins, mask)
+            out = torch.empty_like(want)
+            for name, launch in launches:
+                fn = getattr(libs["boxes", name], "canal_" + kernel)
+                fn.restype = ctypes.c_int
+                fn.argtypes = old_args if launch is None else new_args
+                extra = (n, k) if launch is None else (n, k, *launch, 1)
+
+                def call():
+                    build.check(fn(pins.data_ptr(), mask.data_ptr(),
+                                   out.data_ptr(), *extra,
+                                   build.stream_ptr(device)), name)
+                out.fill_(-7)
+                call()
+                torch.cuda.synchronize()
+                rows.append({"kernel": kernel, "variant": name,
+                             "n_nets": n, "K": k, "launch": launch,
+                             "rule": launch == (g, blocks, threads),
+                             "ms": graph_ms(call, 50 if n < 1 << 16 else 20),
+                             "equal": bool(torch.equal(out, want)),
+                             "changes_result": VARIANTS["boxes"][name][1]})
+    return rows
 
 
 def cycle_graph_run(fabric, emu, ext):
@@ -989,7 +1136,7 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only",
                         default="flash,minplus,fused,sweep,sweep_batch,"
-                                "ssd,ssd_layers")
+                                "ssd,ssd_layers,boxes")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_ablations: CUDA is not available",
@@ -1013,6 +1160,8 @@ def main():
         rows += ssd_rows(fns, device)
     if "ssd_layers" in kernels:
         rows += ssd_layer_rows(fns, device)
+    if "boxes" in kernels:
+        rows += box_rows(fns, device)
     print(card_line())
     print(json.dumps({"ablations": rows,
                       "device": torch.cuda.get_device_name(0)}))
