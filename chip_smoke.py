@@ -43,7 +43,10 @@ after; each must have launched the kernels it exists to drive.
              an equal record and no PnR.
 6. engines — ``batched_vs_serial_emulation`` and
              ``fused_vs_unfused_emulation`` at 32x32, 5 tracks, B 8, T 16
-             (each asserts bit-identical engines).
+             (each asserts bit-identical engines), and
+             ``sharded_emulation_probe`` at the same size: ``run_batch``
+             split over the card named twice (two threads, two streams),
+             bit-identical to the unsplit run.
 7. search  — ``canal_torch.search`` on an 8x8 base over ``num_tracks``
              2-5, ``budget=3``, store-backed (the one phase cut in size:
              every candidate is a whole DSE point); its frontier must not
@@ -120,9 +123,31 @@ after; each must have launched the kernels it exists to drive.
              the kernel, the hold, the re-pin and the PE cores, as the
              graph replays them).
 
+12. train — the training path through ``repro_torch.launch.train.train`` (the
+             ``Supervisor``, ``SyntheticTokens``, the plain branch under
+             autograd; no kernel, and it must launch none), after ``lm_serve``
+             has freed its models. Throughput: TinyLlama-1.1B at FULL (22
+             layers, remat ``dots``), global batch 8 x S 2,048 in 4
+             microbatches, AdamW, 6 steps; Mamba2-1.3B at FULL (48 layers),
+             batch 4 x S 2,048, 4 steps; random weights from a seed, no
+             checkpoint writes. Every loss and gradient norm must be finite,
+             and the lowest loss of the last half of the steps must sit
+             ``TRAIN_DROP`` of the first below it; the same run at rate 0 (the
+             control) must fail that check. Per model: the median seconds a
+             step without the first, tokens/s, the peak of
+             ``torch.cuda.max_memory_allocated`` and ``mfu`` (6 N D over the
+             step time and the card's dense bf16 peak). Restart: TinyLlama at
+             full width and 2 layers, Adafactor, under
+             ``torch.use_deterministic_algorithms``: a checkpoint every 2
+             steps, a ``TrainingFailure`` injected at step 3, the supervisor
+             restores step 2 and finishes; the final state must equal an
+             uninterrupted run's bit for bit, and a save then restore of it
+             must give every tensor back bit for bit (in a temporary directory,
+             removed afterwards).
+
 Before the last line it prints each phase's seconds and launches, the
-per-app PnR seconds, the emulation times, the ``kernels`` JSON line and
-the card's name and power limit; the last line is ``{"ok": true,
+per-app PnR seconds, the emulation times, the ``train`` and ``kernels``
+JSON lines and the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``. Without CUDA, or outside a checkout, it exits
 non-zero and prints no result.
 """
@@ -193,6 +218,22 @@ RV_CPU_T, RV_EAGER_T, RV_SINK_READY = 4, 4, 0.6
 #: box kernels and their earlier versions are timed in turns
 BOX_DESIGN = (64 * 4 * 4096, 4)
 BOX_ROUNDS = 5
+#: the training phase: (arch, global batch, microbatches, steps) at S
+#: 2,048, the peak rate (cosine from the first step), and the share of
+#: the first step's loss by which the lowest loss of the last half of the
+#: steps must be lower. On an H100 80GB HBM3 at 700 W the loss of a FULL
+#: model jumps from step to step (random bf16 weights; TinyLlama at 3e-4
+#: read 11.04, 10.06, 15.90, 10.67, 13.31, 9.35) and diverged at 1e-3; at
+#: 1e-4 the last half's lowest loss sat 34% (TinyLlama) and 43% (Mamba2)
+#: below the first, at rate 0 within 1% of it. TinyLlama takes 4
+#: microbatches of 2: with 2 of 4, ``dots`` keeps 22 f32 score matrices
+#: of 2 GiB, and the first forward ran out of the card's 80 GB (75.3 GiB
+#: allocated)
+TRAIN_SEQ = 2048
+TRAIN_RUNS = (("tinyllama-1.1b", 8, 4, 6), ("mamba2-1.3b", 4, 0, 4))
+TRAIN_LR, TRAIN_DROP = 1e-4, 0.05
+#: the restart leg: steps, batch, a checkpoint every, the failure's step
+RESTART_STEPS, RESTART_BATCH, RESTART_EVERY, RESTART_FAIL = 5, 4, 2, 3
 
 
 #: the kernels each path exists to launch (phase 11 reads each kernel's
@@ -211,6 +252,8 @@ PHASE_KERNELS = {
     "lm_score": ("flash_attention", "ssd_scan"),
     # the cached forward never reaches a kernel (see the docstring)
     "lm_serve": (),
+    # training runs the plain branch: the kernels have no backward
+    "train": (),
 }
 KERNEL_PATH = {"fabric_sweep": "emulate", "fabric_sweep_batch": "verify",
                "hpwl": "smoke", "flash_attention": "lm_score",
@@ -540,9 +583,13 @@ def engines_phase(device):
 
     kw = dict(width=32, height=32, num_tracks=5, batch=8, cycles=T,
               use_kernels=True, device=device)
+    split = dse.sharded_emulation_probe(devices=2, **kw)
+    if "error" in split or split["devices"] != 2:
+        raise AssertionError(f"engines: the batch split failed: {split}")
     return {"batched_vs_serial": dse.batched_vs_serial_emulation(**kw),
             "fused_vs_unfused": dse.fused_vs_unfused_emulation(
-                repeats=1, **kw)}
+                repeats=1, **kw),
+            "split": split}
 
 
 def search_phase(device):
@@ -1433,6 +1480,122 @@ def lm_serve_phase(models, serve):
     return out
 
 
+def train_run(device, arch, batch, microbatches, steps, lr):
+    """One throughput run of ``launch.train.train`` at FULL; its record
+    and whether its loss fell by ``TRAIN_DROP`` (the lowest of the last
+    half of the steps against the first)."""
+    from repro_torch.launch.train import train
+    from repro_torch.roofline.analysis import count_params, model_flops
+    from repro_torch.roofline.hw import H100_SXM
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    out = train(arch=arch, steps=steps, seq=TRAIN_SEQ, batch=batch,
+                microbatches=microbatches, device=device, lr=lr, warmup=1,
+                ckpt_every=steps + 1)
+    hist = [h for h in out["history"] if h["event"] == "step"]
+    losses = [h["metrics"]["loss"] for h in hist]
+    norms = [h["metrics"]["grad_norm"] for h in hist]
+    if len(hist) != steps or not np.isfinite(losses + norms).all():
+        raise AssertionError(f"train {arch} lr {lr}: losses {losses}, "
+                             f"gradient norms {norms}")
+    seconds = [h["seconds"] for h in hist]
+    step_s = float(np.median(seconds[1:]))
+    tokens = batch * TRAIN_SEQ
+    n_params = count_params(out["model"])
+    drop = (losses[0] - min(losses[steps // 2:])) / abs(losses[0])
+    rec = {"steps": steps, "batch": batch, "seq": TRAIN_SEQ,
+           "microbatches": microbatches, "remat": out["config"].remat,
+           "lr": lr, "params": n_params, "losses": losses,
+           "grad_norms": norms, "loss_drop": drop, "step_seconds": seconds,
+           "step_s": step_s, "tokens_per_s": tokens / step_s,
+           "max_memory_bytes": torch.cuda.max_memory_allocated(device),
+           "mfu": model_flops(n_params, tokens, "train")
+           / (step_s * H100_SXM.peak_flops_bf16)}
+    del out
+    torch.cuda.empty_cache()
+    return rec, drop >= TRAIN_DROP
+
+
+def restart_leg(device):
+    """Fail at step 3, restore step 2, finish: equal to an uninterrupted
+    run bit for bit; a save then restore of the end state, too."""
+    import tempfile
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.launch.train import train
+    from repro_torch.tree import tree_items
+
+    kw = dict(arch="tinyllama-1.1b", steps=RESTART_STEPS, seq=TRAIN_SEQ,
+              batch=RESTART_BATCH, device=device, optimizer="adafactor",
+              lr=TRAIN_LR, warmup=1, overrides={"num_layers": 2})
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        plain = train(ckpt_every=RESTART_STEPS + 1, **kw)
+        hurt = train(ckpt_every=RESTART_EVERY, fail_at=(RESTART_FAIL,),
+                     **kw)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    events = [(h["event"], h.get("step", h.get("at_step")))
+              for h in hurt["history"]]
+    want = ([("step", i) for i in range(RESTART_FAIL)]
+            + [("restart", RESTART_EVERY)]
+            + [("step", i) for i in range(RESTART_EVERY, RESTART_STEPS)])
+    if events != want:
+        raise AssertionError(f"restart: events {events} != {want}")
+    state = hurt["state"]
+    mine, other = dict(tree_items(state)), dict(tree_items(plain["state"]))
+    differ = [k for k in mine if not torch.equal(mine[k], other[k])]
+    if differ:
+        raise AssertionError(f"restart: the restored run ends apart from "
+                             f"the uninterrupted one at {differ[:5]}")
+    with tempfile.TemporaryDirectory(prefix="repro_torch_ckpt_") as d:
+        mgr = CheckpointManager(d)
+        t0 = time.perf_counter()
+        mgr.save(RESTART_STEPS, state, blocking=True)
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = sum(os.path.getsize(os.path.join(root, f))
+                         for root, _, files in os.walk(d) for f in files)
+        t0 = time.perf_counter()
+        back = dict(tree_items(mgr.restore(RESTART_STEPS, like=state)))
+        restore_s = time.perf_counter() - t0
+    differ = [k for k in mine if back[k].dtype != mine[k].dtype
+              or not torch.equal(back[k], mine[k])]
+    if differ:
+        raise AssertionError(f"restart: save/restore changed {differ[:5]}")
+    losses = [h["metrics"]["loss"] for h in hurt["history"]
+              if h["event"] == "step"]
+    return {"steps": RESTART_STEPS, "batch": RESTART_BATCH,
+            "seq": TRAIN_SEQ, "layers": 2, "optimizer": "adafactor",
+            "events": events, "losses": losses, "leaves": len(mine),
+            "checkpoint_bytes": ckpt_bytes, "save_s": save_s,
+            "restore_s": restore_s, "equal": True}
+
+
+def train_phase(device):
+    """Phase 12: the FULL models' training steps (each with its rate-0
+    control) and the restart leg."""
+    runs = {}
+    for arch, batch, microbatches, steps in TRAIN_RUNS:
+        rec, falls = train_run(device, arch, batch, microbatches, steps,
+                               TRAIN_LR)
+        control, control_falls = train_run(device, arch, batch,
+                                           microbatches, steps, 0.0)
+        log(f"train {arch}: {rec['step_s']:.3f} s/step, mfu "
+            f"{rec['mfu']:.3f}, losses {rec['losses']}; control "
+            f"{control['losses']}")
+        if not falls:
+            raise AssertionError(f"train {arch}: the loss fell "
+                                 f"{rec['loss_drop']:.4f} < {TRAIN_DROP}")
+        if control_falls:
+            raise AssertionError(f"train {arch}: the loss check passes "
+                                 f"the rate-0 control")
+        rec["control"] = {k: control[k] for k in ("losses", "loss_drop",
+                                                  "step_s")}
+        runs[arch] = rec
+    return {"runs": runs, "restart": restart_leg(device)}
+
+
 def row_control(name, bad, want, **tol):
     """A kernel row's check must reject ``bad``, the output of the wrong
     function that ``lm_score`` uses as its control."""
@@ -1561,6 +1724,10 @@ def main():
     from repro_torch.configs.cgra_amber import FULL
     from repro_torch.kernels import build
 
+    # the restart leg runs under torch.use_deterministic_algorithms,
+    # which asks for a fixed cuBLAS workspace (set before cuBLAS starts;
+    # 32 MiB, the size PyTorch already takes on Hopper)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     device = torch.device("cuda")
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1584,7 +1751,7 @@ def main():
 
 
 def drive(spec, device, t_start, earlier):
-    """Phases 2-11 on ``spec`` and ``device`` (the LM phases on the FULL
+    """Phases 2-12 on ``spec`` and ``device`` (the LM phases on the FULL
     models at B 2, S 2,048), with ``earlier`` the entry points of the
     kernels before their redesign; prints their JSON lines."""
     from repro_torch.configs import get_config
@@ -1655,6 +1822,11 @@ def drive(spec, device, t_start, earlier):
     rows.append(hpwl_row(routed, device, earlier))
     rows.append(flash_row(device))
     rows.append(ssd_row(device, earlier["ssd_scan"]))
+    # 12. the training path (after the LM models are freed)
+    trained = phase("train", train_phase, device)
+    if phases["train"]["launches"]:
+        raise AssertionError(f"train launched kernels: "
+                             f"{phases['train']['launches']}")
     for row in rows:
         row["path"] = KERNEL_PATH.get(row["name"], "main")
         row["launches"] = phases[row["path"]]["launches"].get(row["name"],
@@ -1694,6 +1866,7 @@ def drive(spec, device, t_start, earlier):
     print(json.dumps({"rv": results["rv"]}))
     print(json.dumps({"lm_score": score}))
     print(json.dumps({"lm_serve": served}))
+    print(json.dumps({"train": trained}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"seconds": time.perf_counter() - t_start}))
 

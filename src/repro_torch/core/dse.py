@@ -12,10 +12,11 @@ engine behind the paper's "fast design space exploration" claim: it caches
 independent design points concurrently, and emulates every routed app of a
 design point as one batched ``FabricModule.run_batch`` loop — the fused
 batched CUDA kernel (PE cores evaluated in-kernel, per-app depth
-masking) when ``use_kernels=True``. PnR's device stages and emulation run
-on ``device`` (``None``: the CUDA card); with several visible cards each
-gets its own emulation queue. Records have the reference's shape, field
-for field; the port keeps its own store root
+masking) when ``use_kernels=True``. PnR's device stages and emulation
+run on ``device`` (``None``: the CUDA card); with several visible cards
+each batch splits across them (``shard=None``/``True``), or each card
+gets its own emulation queue (``shard=False``). Records have the
+reference's shape, field for field; the port keeps its own store root
 (:mod:`repro_torch.core.store`).
 
 Design points are :class:`repro_torch.core.spec.InterconnectSpec` objects
@@ -255,17 +256,20 @@ class SweepExecutor:
     # ----------------------------------------------------- emulation queue
     def _emu_queue(self) -> Tuple[ThreadPoolExecutor, Any]:
         """Lazily build the per-device emulation queue and pick the next
-        device round-robin: each visible CUDA card (this executor's
-        device when it is the CPU) gets its own dispatch thread and points
-        are distributed across them. ``shard=True`` with several cards
-        keeps a single queue feeding ``run_batch``'s batch split (which
-        the port has not got yet: it raises there)."""
+        device round-robin. The devices are every visible CUDA card (this
+        executor's device when it is the CPU). With the batch split
+        active (``shard=None`` and more than one card, or ``shard=True``)
+        a single queue feeds ``run_batch``, which already spans every
+        card; otherwise each card gets its own dispatch thread and points
+        are distributed across them."""
         with self._lock:
             if self._emu_pool is None:
                 devs = ([torch.device("cuda", i)
                          for i in range(torch.cuda.device_count())]
                         if self.device.type == "cuda" else [self.device])
-                self._emu_devices = ([None] if self.shard and len(devs) > 1
+                use_shard = ((len(devs) > 1) if self.shard is None
+                             else self.shard)
+                self._emu_devices = ([None] if use_shard and len(devs) > 1
                                      else devs)
                 self._emu_pool = ThreadPoolExecutor(
                     max_workers=len(self._emu_devices),
@@ -1058,34 +1062,56 @@ def sharded_vs_single_emulation(width: int = 5, height: int = 5,
                                 num_tracks: int = 3, batch: int = 8,
                                 cycles: int = 8, use_kernels: bool = True,
                                 seed: int = 0, repeats: int = 3,
-                                device: DeviceLike = None) -> Dict:
-    """``run_batch`` with ``shard=True`` vs the same workload with
-    ``shard=False``. Bit-identical outputs asserted. The port has no
-    multi-GPU batch split yet: with one visible device the sharded call
-    takes the local path, so the record is a no-regression check; with
-    several CUDA cards ``shard=True`` raises. (The reference's
-    forced-host-device subprocess probe, ``sharded_emulation_probe``,
-    has no PyTorch counterpart and waits for the split.)"""
+                                device: DeviceLike = None,
+                                _devices: Optional[Sequence] = None) -> Dict:
+    """``run_batch`` with the batch split across every visible device
+    (``shard=True``) vs the same workload on one device. Bit-identical
+    outputs asserted. With a single visible device the split call takes
+    the local path, so the record degenerates to a no-regression check;
+    ``_devices`` hands the split an explicit device list (as
+    :func:`sharded_emulation_probe` does) to see the split itself."""
     import numpy as np
 
     fab, cfgs, ext, depths = _random_fabric_workload(
         width, height, num_tracks, batch, cycles, use_kernels, seed, device)
 
+    def sharded_run():
+        return _host(fab.run_batch(cfgs, ext, depth=depths, shard=True,
+                                   _devices=_devices))
+
     fab.run_batch(cfgs, ext, depth=depths, shard=False)
-    fab.run_batch(cfgs, ext, depth=depths, shard=True)
+    sharded_run()
 
     single, single_s = _timed_min(
         lambda: _host(fab.run_batch(cfgs, ext, depth=depths,
                                     shard=False)), repeats)
-    sharded, sharded_s = _timed_min(
-        lambda: _host(fab.run_batch(cfgs, ext, depth=depths,
-                                    shard=True)), repeats)
+    sharded, sharded_s = _timed_min(sharded_run, repeats)
     if not np.array_equal(single, sharded):
         raise AssertionError("sharded emulation diverged from single-device")
-    devices = (torch.cuda.device_count() if fab.device.type == "cuda"
-               else 1)
     return {"batch": batch, "cycles": cycles,
             "nodes": fab.arrays.num_nodes, "use_kernels": use_kernels,
-            "devices": devices,
+            "devices": len(fab._split_devices(_devices)),
             "single_seconds": single_s, "sharded_seconds": sharded_s,
             "speedup": single_s / max(sharded_s, 1e-9)}
+
+
+def sharded_emulation_probe(devices: int = 4, width: int = 4,
+                            height: int = 4, num_tracks: int = 2,
+                            batch: int = 8, cycles: int = 6,
+                            use_kernels: bool = False,
+                            device: DeviceLike = None) -> Dict:
+    """Run :func:`sharded_vs_single_emulation` with the batch split over
+    ``device`` named ``devices`` times (``None``: the CUDA card), in this
+    process. The reference forces ``devices`` XLA host devices in a
+    subprocess; PyTorch needs no flag for that, since ``run_batch``
+    takes an explicit device list. Returns the record, or ``{"error":
+    ...}`` when the probe cannot run or the split diverges (where the
+    reference's child would exit non-zero)."""
+    dev = resolve_device(device)
+    try:
+        return sharded_vs_single_emulation(
+            width=width, height=height, num_tracks=num_tracks, batch=batch,
+            cycles=cycles, use_kernels=use_kernels, device=dev,
+            _devices=[dev] * devices)
+    except Exception as e:                      # the reference's child fails
+        return {"error": f"{type(e).__name__}: {e}"}

@@ -33,6 +33,8 @@ time each.
 """
 from __future__ import annotations
 
+import copy
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -101,6 +103,8 @@ class FabricModule:
                                          enumerate(self.nodes)}
         self.config_slots: List[ConfigSlot] = []
         self._on_device: Dict[Tuple[str, torch.dtype], torch.Tensor] = {}
+        #: this fabric lowered on the other devices of a batch split
+        self._replicas: Dict[torch.device, "FabricModule"] = {}
         self._build_tables()
         self._build_cores()
 
@@ -737,7 +741,9 @@ class FabricModule:
                   depth: Optional[DepthSpec] = None,
                   fused: Optional[bool] = None,
                   shard: Optional[bool] = None,
-                  io_chunk: Optional[int] = None) -> torch.Tensor:
+                  io_chunk: Optional[int] = None,
+                  _devices: Optional[Sequence[torch.device]] = None
+                  ) -> torch.Tensor:
         """Evaluate B configurations together.
 
         configs: (B, num_config); ext_streams: (B, T, num_io); pe_cfgs
@@ -752,15 +758,16 @@ class FabricModule:
         launch (requires ``use_kernels`` and the fused engine; ignored
         otherwise), bit-identical to the per-cycle loop.
 
-        ``shard=True`` with more than one visible GPU raises: the
-        multi-GPU batch split is not ported yet, so the default keeps the
-        batch on this module's device."""
-        n_dev = (torch.cuda.device_count() if self.device.type == "cuda"
-                 else 1)
-        if shard and n_dev > 1 and len(configs) > 0:
-            raise NotImplementedError(
-                "the multi-GPU run_batch split is not ported yet "
-                "(ROADMAP.md queue 1); pass shard=False")
+        ``shard`` splits the batch over the devices of
+        :meth:`_split_devices` (every CUDA card for a CUDA module):
+        ``None`` splits whenever there is more than one, ``True`` too,
+        ``False`` keeps the batch on this module's device. The split pads
+        B to a multiple of the device count (zero configurations at depth
+        0), runs each chunk on the fabric lowered on its device, all
+        chunks at once, and returns the first B rows on this module's
+        device: bit-identical to the local run. ``_devices`` hands the
+        split an explicit device list (the probe names one device
+        several times)."""
         configs = self._ints(configs)
         ext = self._ints(ext_streams)
         b = configs.shape[0]
@@ -776,9 +783,97 @@ class FabricModule:
         max_depth = int(depths_np.max()) if b else 1
         if pe_cfgs is None:
             pe_cfgs = self.default_pe_cfg_batch(b)
-        return self._run_batch_local(configs, ext, pe_cfgs,
-                                     self._ints(depths_np), max_depth,
-                                     fused, io_chunk)
+        devices = self._split_devices(_devices)
+        use_shard = (len(devices) > 1) if shard is None else shard
+        if not use_shard or len(devices) <= 1 or b == 0:
+            return self._run_batch_local(configs, ext, pe_cfgs,
+                                         self._ints(depths_np), max_depth,
+                                         fused, io_chunk)
+        return self._run_batch_split(devices, configs, ext, pe_cfgs,
+                                     depths_np, max_depth, fused, io_chunk)
+
+    def _split_devices(self, devices: Optional[Sequence[torch.device]] = None
+                       ) -> List[torch.device]:
+        """The devices ``run_batch`` splits a batch over: ``devices``
+        when given, else every CUDA card for a CUDA module and this
+        module's own device otherwise."""
+        if devices is not None:
+            return [torch.device(d) for d in devices]
+        if self.device.type == "cuda":
+            return [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+        return [self.device]
+
+    def _on(self, device: torch.device) -> "FabricModule":
+        """This fabric lowered on ``device``: the same host tables, its
+        own cache of device tables (``_dev``); this module itself for its
+        own device."""
+        def indexed(d: torch.device) -> torch.device:
+            if d.type == "cuda" and d.index is None:
+                return torch.device("cuda", torch.cuda.current_device())
+            return d
+
+        device = indexed(device)
+        if device == indexed(self.device):
+            return self
+        fab = self._replicas.get(device)
+        if fab is None:
+            fab = copy.copy(self)
+            fab.device = device
+            fab._on_device = {}
+            fab._replicas = {}
+            fab = self._replicas.setdefault(device, fab)
+        return fab
+
+    def _run_batch_split(self, devices: List[torch.device],
+                         configs: torch.Tensor, ext: torch.Tensor,
+                         pe_cfgs: State, depths_np: np.ndarray,
+                         max_depth: int, fused: Optional[bool],
+                         io_chunk: Optional[int]) -> torch.Tensor:
+        """``run_batch`` over ``devices``: one chunk of the padded batch
+        a device, each in its own thread (and, on a card, its own stream)
+        so that the chunks run at once; the rows come back in order."""
+        n_dev, b = len(devices), configs.shape[0]
+        per = -(-b // n_dev)                            # ceil to devices
+        pad = per * n_dev - b
+
+        def pad_b(x: torch.Tensor) -> torch.Tensor:
+            x = self._ints(x)
+            return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+
+        configs, ext = pad_b(configs), pad_b(ext)
+        pe_cfgs = {k: pad_b(v) for k, v in pe_cfgs.items()}
+        depths = self._ints(np.pad(depths_np, (0, pad)))
+        caller = (torch.cuda.current_stream(self.device)
+                  if self.device.type == "cuda" else None)
+
+        def chunk(i: int) -> torch.Tensor:
+            fab, sl = self._on(devices[i]), slice(i * per, (i + 1) * per)
+
+            def run() -> torch.Tensor:
+                return fab._run_batch_local(
+                    fab._ints(configs[sl]), fab._ints(ext[sl]),
+                    {k: fab._ints(v[sl]) for k, v in pe_cfgs.items()},
+                    fab._ints(depths[sl]), max_depth, fused,
+                    io_chunk).to(self.device)
+
+            if fab.device.type != "cuda":
+                return run()
+            with torch.cuda.device(fab.device):
+                side = torch.cuda.Stream()
+                if caller is not None:
+                    side.wait_stream(caller)
+                with torch.cuda.stream(side):
+                    out = run()
+                side.synchronize()
+            if caller is not None:
+                out.record_stream(caller)
+            return out
+
+        with ThreadPoolExecutor(max_workers=n_dev,
+                                thread_name_prefix="run-batch") as pool:
+            outs = list(pool.map(chunk, range(n_dev)))
+        return torch.cat(outs)[:b]
 
     # ------------------------------------------------- combinational depth
     def _selected_src_host(self, config: np.ndarray) -> np.ndarray:

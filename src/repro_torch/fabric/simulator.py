@@ -102,7 +102,7 @@ def run_apps_batch(emulators: Sequence[AppEmulator],
     with shallower routes freeze early instead of padding to the batch
     max — so this is bit-identical to ``[e.run(i, cycles) for e, i in
     zip(...)]`` — the DSE bulk-evaluation path. ``shard`` forwards to
-    ``run_batch`` (the multi-GPU split is not ported yet). ``io_chunk``
+    ``run_batch`` (the batch split over the visible cards). ``io_chunk``
     forwards too: on the fused kernel engine the whole T-cycle emulation
     runs as one ``fabric_fused_run`` launch."""
     if not emulators:

@@ -17,7 +17,9 @@ The LM substrate has weights and configurations:
 * a model configuration, as the dict ``dataclasses.asdict`` makes of the
   reference's ``ModelConfig`` (:func:`lm_config_from_fields`);
 * a parameter tree, as nested dicts of numpy arrays with every layer
-  stacked on a leading axis (:func:`lm_params_from_numpy`).
+  stacked on a leading axis (:func:`lm_params_from_numpy`);
+* a training state (parameters, optimizer state, step) in the same
+  stacked layout (:func:`train_state_from_numpy`).
 
 Everything here takes numpy arrays, dicts and tuples, never objects of
 the reference package, and builds the port's objects from them.
@@ -37,6 +39,7 @@ from .core.pnr.route import (RoutedNet, RoutingResources, RoutingResult,
 from .core.pnr.timing import sta_critical_path
 from .models.config import (EncDecConfig, HybridConfig, ModelConfig,
                             MoEConfig, SSMConfig, VLMConfig)
+from .models.stacking import PARAM_RENAMES, STACKED_GROUPS
 
 NodeKey = Tuple
 #: one routed net: (name, source key, sink keys, tree edges (parent, child))
@@ -157,10 +160,6 @@ def rv_state_to_numpy(state: Mapping[str, torch.Tensor]
 ATTN_IMPL_NAMES = {"xla": "plain", "pallas": "kernel"}
 _SUB_CONFIGS = {"moe": MoEConfig, "ssm": SSMConfig, "hybrid": HybridConfig,
                 "encdec": EncDecConfig, "vlm": VLMConfig}
-#: parameter groups the reference stacks on a leading layer axis
-STACKED_GROUPS = ("dense_layers", "moe_layers", "layers")
-#: reference tree key -> port state key where the two differ
-PARAM_RENAMES = {"unembed": "unembed_w"}
 
 
 def lm_config_from_fields(fields: Mapping) -> ModelConfig:
@@ -220,3 +219,70 @@ def lm_params_from_numpy(cfg: ModelConfig,
         out[key] = torch.from_numpy(np.array(arr, dtype=np.float32)).to(
             want.dtype)
     return out
+
+
+# ---------------------------------------------------------- training state
+def _leaf_tensor(arr, dtype: Optional[torch.dtype], device) -> torch.Tensor:
+    """A numpy leaf as a tensor. A float leaf goes through float32, so
+    the reference's bf16 (``ml_dtypes.bfloat16`` in numpy) casts
+    exactly; ``dtype`` defaults to bf16 for such a leaf, else to the
+    array's own."""
+    arr = np.asarray(arr)
+    if str(arr.dtype) == "bfloat16":
+        t = torch.from_numpy(np.asarray(arr, np.float32))
+        dtype = dtype or torch.bfloat16
+    else:
+        t = torch.from_numpy(np.array(arr))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def _leaf_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def train_state_from_numpy(cfg: ModelConfig, tree: Mapping,
+                           device=None):
+    """The port's :class:`~repro_torch.train.step.TrainState` from the
+    reference's as nested dicts of numpy arrays (``{"params", "opt",
+    "step"}``, every layer stacked on a leading axis, as
+    ``jax.tree.map(np.asarray, state._asdict())`` gives it).
+
+    Parameters take the dtypes of the model of ``cfg`` and must fit it
+    (the reference's stacked tree of it, key for key and shape for
+    shape: ``ValueError`` otherwise); optimizer leaves keep their dtype.
+    """
+    from .models import build_model
+    from .models.stacking import stack_params
+    from .train.step import TrainState
+    from .tree import tree_items, tree_map, tree_unflatten
+
+    template = stack_params(build_model(cfg, "meta"))
+    want = dict(tree_items(template))
+    got = dict(tree_items(tree["params"]))
+    if want.keys() != got.keys():
+        raise ValueError(f"parameter tree does not fit {cfg.name}: "
+                         f"missing {sorted(want.keys() - got.keys())}, "
+                         f"extra {sorted(got.keys() - want.keys())}")
+    for key, t in want.items():
+        if tuple(np.shape(got[key])) != tuple(t.shape):
+            raise ValueError(f"{key}: shape {tuple(np.shape(got[key]))}, "
+                             f"expected {tuple(t.shape)}")
+    return TrainState(
+        params=tree_unflatten(template, [
+            _leaf_tensor(got[key], t.dtype, device)
+            for key, t in want.items()]),
+        opt=tree_map(lambda a: _leaf_tensor(a, None, device), tree["opt"]),
+        step=torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32,
+                          device=device))
+
+
+def train_state_to_numpy(state) -> Dict:
+    """The inverse of :func:`train_state_from_numpy`: ``{"params",
+    "opt", "step"}`` as nested dicts of numpy arrays in the reference's
+    stacked layout, bf16 leaves as float32 (exact)."""
+    from .tree import tree_map
+
+    return {"params": tree_map(_leaf_numpy, state.params),
+            "opt": tree_map(_leaf_numpy, state.opt),
+            "step": np.int32(int(state.step))}

@@ -63,14 +63,23 @@ _SIGNATURES = {
 }
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 #: seconds the last build took (0.0 when the library was reused)
 build_seconds = 0.0
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launch(kernel: str) -> None:
+    """Add one to ``kernel``'s launch count (the wrappers run on several
+    threads: the DSE queues, the ``run_batch`` split)."""
+    with _count_lock:
+        LAUNCHES[kernel] += 1
 
 
 def _sources() -> List[Path]:

@@ -265,7 +265,7 @@ def fabric_sweep(vals_ext: torch.Tensor, src: torch.Tensor,
         build.stream_ptr(vals_ext.device))
     build.check(err, kernel)
     if not torch.cuda.is_current_stream_capturing():
-        build.LAUNCHES[kernel] += 1
+        build.count_launch(kernel)
     return out
 
 
@@ -351,7 +351,7 @@ def fabric_sweep_batch(vals_ext: torch.Tensor, src: torch.Tensor,
         b, n, f, v_len, *tiles, int(aligned),
         build.stream_ptr(vals_ext.device))
     build.check(err, kernel)
-    build.LAUNCHES[kernel] += 1
+    build.count_launch(kernel)
     return out
 
 
@@ -523,7 +523,7 @@ def fabric_fused_batch(vals0: torch.Tensor, sel: torch.Tensor,
         _ptr(scratch, "picked"), b, n, src.shape[1], p,
         int(max_depth), int(word), cluster, build.stream_ptr(vals0.device))
     build.check(err, kernel)
-    build.LAUNCHES[kernel] += 1
+    build.count_launch(kernel)
     return out
 
 
@@ -591,5 +591,5 @@ def fabric_fused_run(sel: torch.Tensor, ext: torch.Tensor,
         b, n, src.shape[1], p, t_len, n_reg, n_io, n_mem, int(max_depth),
         int(word), cluster, build.stream_ptr(dev))
     build.check(err, kernel)
-    build.LAUNCHES[kernel] += 1
+    build.count_launch(kernel)
     return obs

@@ -94,7 +94,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         b, hq, hkv, sq, skv, d, int(causal), _DTYPE_CODE[q.dtype],
         build.stream_ptr(q.device))
     build.check(err, name)
-    build.LAUNCHES[name] += 1
+    build.count_launch(name)
     return out
 
 

@@ -92,7 +92,7 @@ def _launch(kernel: str, pins: torch.Tensor, mask: torch.Tensor,
         *box_tiles(n, k), int(aligned), build.stream_ptr(pins.device))
     build.check(err, kernel)
     if not torch.cuda.is_current_stream_capturing():
-        build.LAUNCHES[kernel] += 1
+        build.count_launch(kernel)
     return out
 
 

@@ -41,7 +41,7 @@ def minplus_step(d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         d.data_ptr(), w.data_ptr(), out.data_ptr(), b, n,
         build.stream_ptr(d.device))
     build.check(err, "minplus_step")
-    build.LAUNCHES["minplus_step"] += 1
+    build.count_launch("minplus_step")
     return out
 
 

@@ -100,7 +100,7 @@ def _launch(x, dt, a, b, c, chunk: int) -> torch.Tensor:
         c.data_ptr(), y.data_ptr(), states.data_ptr(), decay.data_ptr(),
         bh, l, p, n, chunk, build.stream_ptr(x.device))
     build.check(err, name)
-    build.LAUNCHES[name] += 1
+    build.count_launch(name)
     return y
 
 

@@ -1,2 +1,3 @@
-"""Launchers of the port (counterpart of repro/launch): ``serve`` so far;
-``train`` and the dry-run come with later slices."""
+"""Launchers of the port (counterpart of repro/launch): ``serve`` and
+``train``. The reference's ``dryrun`` and ``mesh`` lower XLA programs on
+a forced host mesh and are not ported."""

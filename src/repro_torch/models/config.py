@@ -91,8 +91,8 @@ class ModelConfig:
     vlm: Optional[VLMConfig] = None
     param_dtype: str = "bfloat16"
     activation_dtype: str = "bfloat16"
-    #: activation checkpointing policy (none|full|dots); the forward-only
-    #: path has nothing to checkpoint and ignores it
+    #: activation checkpointing policy (none|full|dots|dots_no_batch),
+    #: applied where autograd records (``models.stacking.remat_wrap``)
     remat: str = "none"
     attn_impl: str = "plain"        # plain | kernel
     #: mesh axes of the batch dim in the reference (inert here)

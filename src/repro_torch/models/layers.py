@@ -9,7 +9,9 @@ builds and draws a mixer in one call, as the reference's does). The
 apply functions (``rms_norm``, ``attention``, ``mlp``, ``mamba2``, ...)
 are plain functions on tensors that take the module as ``p``, as the
 reference's take their parameter dict. MoE, RG-LRU and ``layer_norm`` come with the
-models that use them.
+models that use them. Parameters are made with ``requires_grad=False``,
+so that scoring and serving never record a graph; the training step
+(``repro_torch.train.step``) turns gradients on for the model it trains.
 
 Numerics follow the reference step for step, since bf16 rounds wherever
 a cast sits: ``rms_norm`` normalises in float32, casts to ``x.dtype`` and
@@ -408,11 +410,15 @@ def _ssd_xla(x, dt, a, bmat, cmat, chunk: int, return_state: bool = False):
     cc = cmat.reshape(bh, nc, chunk, n)
     seg = torch.cumsum(dtc * a[:, None, None], dim=-1)     # (BH,NC,C)
     scores = torch.einsum("bntk,bnuk->bntu", cc, bc)
-    lmat = torch.exp(seg[..., :, None] - seg[..., None, :])
-    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                device=x.device))
-    w = (torch.where(tri, scores * lmat, torch.zeros((), device=x.device))
-         * dtc[..., None, :])
+    above = torch.ones((chunk, chunk), dtype=torch.bool,
+                       device=x.device).triu(1)
+    # exp only on and below the diagonal, where the causal mask keeps a
+    # value: above it the exponents are positive and can overflow, and
+    # the reference's masking ``where`` then turns the gradient into NaN
+    # (0 * inf). exp(-inf) = 0 masks those entries here instead
+    lmat = (seg[..., :, None] - seg[..., None, :]).masked_fill_(
+        above, -math.inf).exp_()
+    w = scores * lmat * dtc[..., None, :]
     y_intra = torch.einsum("bntu,bnup->bntp", w, xc)
 
     # inter-chunk state carry (in order over chunks)

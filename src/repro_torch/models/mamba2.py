@@ -59,7 +59,7 @@ class Mamba2LM(nn.Module):
     def hidden(self, batch: Dict) -> torch.Tensor:
         cfg = self.cfg
         x = self.embed[batch["tokens"]].to(cfg.adtype)
-        x = scan_layers(self._block, self.layers, x)
+        x = scan_layers(self._block, self.layers, x, remat=cfg.remat)
         return L.rms_norm(x, self.ln_f, cfg.norm_eps)
 
     def unembed(self) -> torch.Tensor:

@@ -96,7 +96,7 @@ class TransformerLM(nn.Module):
         cfg = self.cfg
         x, positions = self._embed(batch)
         x = scan_layers(self._block, self.dense_layers, x,
-                        carry_extra=positions)
+                        remat=cfg.remat, carry_extra=positions)
         return L.rms_norm(x, self.ln_f, cfg.norm_eps)
 
     def unembed(self) -> torch.Tensor:

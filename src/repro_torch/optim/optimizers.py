@@ -1,0 +1,144 @@
+"""Optimizers (counterpart of repro/optim/optimizers.py): AdamW (f32
+states) and Adafactor (factored second moment, bf16 first moment), with
+global-norm clipping.
+
+They are plain ``init``/``update`` functions over the reference's
+stacked parameter tree (:mod:`repro_torch.tree`), not
+``torch.optim.Optimizer`` subclasses: the state is a value that the
+training state carries, the checkpoint writes leaf for leaf in the
+reference's layout and the supervisor restores as a new value, and
+Adafactor factors each *stacked* matrix (a layer's norm scale is a row
+of an (L, d) matrix in the reference, so it is factored there too). The
+arithmetic is the reference's, in its order and dtypes; in particular
+weight decay is added to ``delta`` and ``(-lr * delta)`` is cast to the
+parameter's dtype before it is added (``torch.optim.AdamW`` decays the
+parameter separately, which rounds otherwise in bf16). The reference's
+``state_specs`` (mesh ``PartitionSpec`` trees) are not ported: the port
+has no device mesh.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Tuple
+
+import torch
+
+from ..tree import tree_leaves, tree_map
+
+
+@dataclass(frozen=True)
+class Optimizer:
+    init: Callable[[Any], Any]
+    #: (grads, state, params, step) -> (updates, new state)
+    update: Callable[[Any, Any, Any, torch.Tensor], Tuple[Any, Any]]
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in tree_leaves(tree)))
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """Grads scaled to at most ``max_norm`` (as float32, where the
+    reference's bf16 x f32 product promotes), and the norm."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return tree_map(lambda g: g.float() * scale, grads), norm
+
+
+def _lr_fn(lr):
+    return lr if callable(lr) else (
+        lambda step: torch.tensor(lr, dtype=torch.float32,
+                                  device=torch.as_tensor(step).device))
+
+
+def _unzip(out, n: int):
+    return tuple(tree_map(lambda o: o[i], out) for i in range(n))
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+
+def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+          weight_decay: float = 0.1, clip_norm: float = 1.0) -> Optimizer:
+    lr_fn = _lr_fn(lr)
+
+    def init(params):
+        def zeros(p):
+            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
+
+    def update(grads, state, params, step):
+        grads, _ = clip_by_global_norm(grads, clip_norm)
+        t = torch.as_tensor(step).to(torch.float32) + 1.0
+        lr_t = lr_fn(step)
+
+        def upd(g, m, v, p):
+            gf = g.float()
+            m_new = b1 * m + (1 - b1) * gf
+            v_new = b2 * v + (1 - b2) * gf * gf
+            m_hat = m_new / (1 - b1 ** t)
+            v_hat = v_new / (1 - b2 ** t)
+            delta = m_hat / (torch.sqrt(v_hat) + eps) \
+                + weight_decay * p.float()
+            return (-lr_t * delta).to(p.dtype), m_new, v_new
+
+        updates, m, v = _unzip(tree_map(upd, grads, state["m"], state["v"],
+                                        params), 3)
+        return updates, {"m": m, "v": v}
+
+    return Optimizer(init, update)
+
+
+# ---------------------------------------------------------------------------
+# Adafactor (factored v for matrices, bf16 m)
+# ---------------------------------------------------------------------------
+
+def adafactor(lr, b1: float = 0.9, decay: float = 0.99, eps: float = 1e-30,
+              weight_decay: float = 0.0, clip_norm: float = 1.0
+              ) -> Optimizer:
+    lr_fn = _lr_fn(lr)
+
+    def init(params):
+        def per_param(p):
+            def zeros(shape, dtype):
+                return torch.zeros(shape, dtype=dtype, device=p.device)
+            if p.ndim >= 2:
+                return {"m": zeros(p.shape, torch.bfloat16),
+                        "vr": zeros(p.shape[:-1], torch.float32),
+                        "vc": zeros(p.shape[:-2] + p.shape[-1:],
+                                    torch.float32)}
+            return {"m": zeros(p.shape, torch.bfloat16),
+                    "v": zeros(p.shape, torch.float32)}
+
+        return tree_map(per_param, params)
+
+    def update(grads, state, params, step):
+        grads, _ = clip_by_global_norm(grads, clip_norm)
+        lr_t = lr_fn(step)
+
+        def upd(g, st, p):
+            gf = g.float()
+            g2 = gf * gf + eps
+            if p.ndim >= 2:
+                vr = decay * st["vr"] + (1 - decay) * torch.mean(g2, dim=-1)
+                vc = decay * st["vc"] + (1 - decay) * torch.mean(g2, dim=-2)
+                denom = (vr[..., None] * vc[..., None, :]
+                         / torch.clamp(
+                             torch.mean(vr, dim=-1, keepdim=True)[..., None],
+                             min=eps))
+                precond = gf * torch.rsqrt(torch.clamp(denom, min=eps))
+                new_st = {"vr": vr, "vc": vc}
+            else:
+                v = decay * st["v"] + (1 - decay) * g2
+                precond = gf * torch.rsqrt(torch.clamp(v, min=eps))
+                new_st = {"v": v}
+            m = b1 * st["m"].float() + (1 - b1) * precond
+            new_st["m"] = m.to(torch.bfloat16)
+            delta = m + weight_decay * p.float()
+            return (-lr_t * delta).to(p.dtype), new_st
+
+        return _unzip(tree_map(upd, grads, state, params), 2)
+
+    return Optimizer(init, update)

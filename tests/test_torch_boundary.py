@@ -15,6 +15,7 @@ from repro_torch.configs.cgra_amber import smoke
 from repro_torch.core.lowering import FabricModule
 from repro_torch.core.passes import PassManager
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models import build_model
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -30,6 +31,9 @@ import repro_torch.interop, repro_torch.fabric, repro_torch.core.pnr
 import repro_torch.kernels.ops, repro_torch.configs.cgra_amber
 import repro_torch.models, repro_torch.serve.engine, repro_torch.launch.serve
 import repro_torch.configs.tinyllama_1_1b, repro_torch.configs.mamba2_1_3b
+import repro_torch.train.step, repro_torch.optim, repro_torch.ckpt
+import repro_torch.data, repro_torch.runtime, repro_torch.launch.train
+import repro_torch.roofline, repro_torch.core.ici
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "canal"))
 print("LOADED", bad)
@@ -73,12 +77,14 @@ def test_default_device_raises_without_cuda(monkeypatch):
     # the CPU is used only when asked for
     assert canal_torch.compile(smoke(), device="cpu",
                                analyze="off").device.type == "cpu"
-    # the LM substrate: models and the serving launcher
+    # the LM substrate: models, the serving and training launchers
     lm = get_smoke("tinyllama-1.1b")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_model(lm)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         launch_serve.main(["--smoke", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_train.main(["--smoke", "--steps", "1"])
     assert build_model(lm, "cpu").device.type == "cpu"
 
 

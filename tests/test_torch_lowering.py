@@ -220,8 +220,9 @@ def test_step_and_run_plain_branch_match_reference():
 
 
 def test_shard_true_and_unported_sweeps_raise_on_cuda(monkeypatch):
-    """``shard=True`` across several GPUs is a later slice: it raises
-    instead of falling back. The sweeps are ported: under ``use_kernels``
+    """``shard=True`` across several GPUs splits the batch over every
+    card (``cuda:0`` to ``cuda:3`` here), never falling back to the
+    module's one device. The sweeps are ported: under ``use_kernels``
     on CUDA they go to the ``fabric_sweep`` / ``fabric_sweep_batch``
     wrappers (which launch the kernel or raise), never to a plain
     PyTorch path of the fabric's own."""
@@ -255,5 +256,17 @@ def test_shard_true_and_unported_sweeps_raise_on_cuda(monkeypatch):
     assert calls == [("fabric_sweep_batch", (1, n + 1), torch.int32, None),
                      ("fabric_sweep", (n + 1,), torch.int32, (n,))]
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        fab_cuda.run_batch(cfgs, ext, shard=True)
+    split = []
+
+    def fake_split(devices, *args):
+        split.append(devices)
+        raise RuntimeError("split: no card")
+
+    monkeypatch.setattr(fab_cuda, "_ints", lambda x: torch.as_tensor(
+        np.asarray(x, dtype=np.int32)))
+    monkeypatch.setattr(fab_cuda, "_run_batch_split", fake_split)
+    for shard in (True, None):
+        with pytest.raises(RuntimeError, match="split: no card"):
+            fab_cuda.run_batch(cfgs, ext, shard=shard, depth=3,
+                               pe_cfgs=fab.default_pe_cfg_batch(len(cfgs)))
+    assert split == [[torch.device("cuda", i) for i in range(4)]] * 2
