@@ -69,25 +69,39 @@ after; each must have launched the kernels it exists to drive.
              eager sweeps. In full mode ``emulate`` runs the app on the static
              semantics, equal to ``run_apps_batch``.
 9. lm_score — the LM substrate's full-sequence forward, ``logits`` of
-             TinyLlama-1.1B and Mamba2-1.3B at their FULL configs (full
-             width and depth, random weights from a seed), B 2, S 2,048,
-             with ``attn_impl="kernel"``: 22 ``flash_attention`` and 48
-             ``ssd_scan`` launches. The same forward with
+             the ten LM configs at full width (``LM_DEPTHS``: every one
+             at its full depth but Kimi K2, cut to its dense layer and
+             one MoE layer of 384 experts; random weights from a seed),
+             B 2, S 2,048 (InternVL2 with 256 patches before the tokens,
+             Whisper over 1,500 frames), with ``attn_impl="kernel"``,
+             one model at a time (built, scored, served, freed; its
+             build seconds and peak memory recorded): one
+             ``flash_attention`` launch a layer for the dense, MoE and
+             VLM families (TinyLlama 22, Phi-3 32 at head dim 96, Qwen3
+             40, DeepSeek-Coder 62, Kimi K2 2 at 112, Granite 32,
+             InternVL2 24), one ``ssd_scan`` a layer for Mamba2 (48), and
+             none for RecurrentGemma (windowed attention) and Whisper,
+             which stay on the plain path as in the reference. Each
+             model's launches are checked exactly. The same forward with
              ``attn_impl="plain"`` (the same weights) must pass the
              ``LM_*`` gate (largest difference, largest per-position
              relative error, argmax agreement); both must be finite. The
              kernel path with the kernel's plain version in its place
              (the witness) must pass the gate too, and with a wrong
              function in its place (the control), fail it; the kernel
-             rows of phase 11 must likewise reject the control.
-10. lm_serve — ``ServeEngine`` on each FULL model: 8 requests (prompts of
-             3-11 tokens, batch 4, 16 new tokens, ``max_seq`` 128), twice;
-             every request gets a token, every logit is finite, and the
-             second run returns the same tokens. Serving runs the cached
-             forward, which the reference keeps on its plain path (the
-             flash kernel takes queries from position 0; a Mamba-2 cache
-             step takes the stateful SSD), so this phase launches no
-             kernel and must launch none.
+             rows of phase 11 must likewise reject the control. The two
+             kernel-free models are held instead to the port's CPU path
+             on the same weights, at full width and a cut depth, in
+             float32 (``CPU_CHECK``).
+10. lm_serve — ``ServeEngine`` on each model: 8 requests (prompts of
+             3-11 tokens, batch 4, 16 new tokens, ``max_seq`` 128, 512
+             for InternVL2's patches; patches and frames as
+             ``extra_inputs``), twice; every request gets a token, every
+             logit is finite, and the second run returns the same tokens.
+             Serving runs the cached forward, which the reference keeps
+             on its plain path (the flash kernel takes queries from
+             position 0; a Mamba-2 cache step takes the stateful SSD), so
+             this phase launches no kernel and must launch none.
 11. kernels — every kernel against its plain PyTorch version on the card,
              at its path's shapes (bit-identical for the fabric kernels,
              min-plus included; within a stated tolerance for the two
@@ -99,7 +113,8 @@ after; each must have launched the kernels it exists to drive.
              ``scaled_dot_product_attention`` on the same inputs
              (``library_ms``, a yardstick the port never calls) and the
              achieved TFLOP/s by the function's 4 D FLOPs a causal pair
-             (``tflops``); ``minplus_step`` is timed at B 32 (the row)
+             (``tflops``), at TinyLlama's shape and, under ``shapes``,
+             at Phi-3's (D 96) and Kimi K2's (D 112); ``minplus_step`` is timed at B 32 (the row)
              and at B 8 (``by_batch``). ``ms`` and
              ``plain_ms`` are device time: back-to-back calls captured in
              one CUDA graph and timed over a replay (``timing: graph``;
@@ -153,6 +168,7 @@ non-zero and prints no result.
 """
 import contextlib
 import ctypes
+import dataclasses
 import json
 import os
 import subprocess
@@ -176,10 +192,40 @@ CUDA_CORE_OPS_PER_S = 67e12
 #: attention's bf16 products
 TENSOR_BF16_FLOPS_PER_S = 989e12
 
-#: the LM path: batch and sequence of ``lm_score``; the serving run
-LM_ARCHS = ("tinyllama-1.1b", "mamba2-1.3b")
+#: the LM path: the archs and the depth each runs (``None``: its FULL
+#: depth; every arch at full width), batch and sequence of ``lm_score``;
+#: the serving run. Kimi K2 at its 61 layers is ~2 TB of bf16 weights:
+#: cut to its leading dense layer and one MoE layer of 384 experts
+#: (~40 GB). InternVL2 scores 256 patches before its 2,048 tokens and
+#: serves with them, so its serving cache holds 512 positions
+LM_DEPTHS = {"tinyllama-1.1b": None, "mamba2-1.3b": None,
+             "phi3-mini-3.8b": None, "qwen3-14b": None,
+             "deepseek-coder-33b": None, "kimi-k2-1t-a32b": 2,
+             "granite-moe-3b-a800m": None, "internvl2-2b": None,
+             "recurrentgemma-2b": None, "whisper-medium": None}
 LM_BATCH, LM_SEQ = 2, 2048
 SERVE = dict(requests=8, batch=4, max_new=16, max_seq=128)
+SERVE_MAX_SEQ = {"vlm": 512}
+#: the kernel each family's ``lm_score`` launches once a layer (RG-LRU
+#: models and Whisper attend on the plain path, as the reference does)
+FAMILY_KERNEL = {"dense": "flash_attention", "moe": "flash_attention",
+                 "vlm": "flash_attention", "ssm": "ssd_scan",
+                 "hybrid": None, "audio": None}
+#: the kernel-free families' card logits against the port's CPU path:
+#: the depth cut (full width: one RecurrentGemma group and its two tail
+#: layers; two Whisper encoder and decoder layers), batch and sequence,
+#: float32 on both (TF32 off: sums in another order only), max
+#: |difference| over the largest |logit|
+CPU_CHECK = {
+    "recurrentgemma-2b": lambda cfg: cfg.replace(num_layers=5),
+    "whisper-medium": lambda cfg: cfg.replace(
+        num_layers=2, encdec=dataclasses.replace(cfg.encdec,
+                                                 encoder_layers=2)),
+}
+CPU_CHECK_BATCH, CPU_CHECK_SEQ, CPU_CHECK_TOL = 1, 256, 1e-3
+#: ``flash_attention`` is also timed at the head dims of Phi-3 (96, MHA)
+#: and Kimi K2 (112, 64 q heads on 8 kv heads), B 2, S 2,048
+FLASH_SHAPES = ((32, 32, 96), (64, 8, 112))
 #: kernel vs plain logits at bf16, at full depth with random weights
 #: (``logit_gap``): max |difference| over the largest |logit|, the
 #: largest per-position relative error, and the share of positions whose
@@ -249,6 +295,8 @@ PHASE_KERNELS = {
     "search": (),
     # PnR of the routed app; emulate on the static semantics
     "rv": ("minplus_step", "net_bboxes", "fabric_sweep"),
+    # each model's ``lm_score:<arch>`` phase launches its family's kernel
+    # (FAMILY_KERNEL); ``lm_score`` sums them
     "lm_score": ("flash_attention", "ssd_scan"),
     # the cached forward never reaches a kernel (see the docstring)
     "lm_serve": (),
@@ -1294,26 +1342,57 @@ def hpwl_row(routed, device, earlier):
 
 
 # ------------------------------------------------------------ the LM paths
-def lm_models(configs, device, seed=0):
-    """For each config: the model with ``attn_impl="kernel"``, random
-    weights drawn on ``device`` from ``seed``, and the same weights (no
-    copy) under ``attn_impl="plain"``."""
+def lm_configs():
+    """name -> the config ``lm_score`` and ``lm_serve`` run (FULL, its
+    depth cut where ``LM_DEPTHS`` says)."""
+    from repro_torch.configs import get_config
+
+    configs = {}
+    for name, depth in LM_DEPTHS.items():
+        cfg = get_config(name)
+        if depth is not None:
+            log(f"{name}: depth cut from {cfg.num_layers} to {depth} "
+                f"layers, full width")
+            cfg = cfg.replace(num_layers=depth)
+        configs[name] = cfg
+    return configs
+
+
+def lm_model(cfg, device, seed=0):
+    """The model with ``attn_impl="kernel"``, random weights drawn on
+    ``device`` from ``seed``, and the same weights (no copy) under
+    ``attn_impl="plain"``."""
     from repro_torch.models import build_model
 
-    models = {}
-    for name, cfg in configs.items():
-        model = build_model(cfg.replace(attn_impl="kernel"), device)
-        model.init_params(torch.Generator(device).manual_seed(seed))
-        plain = build_model(cfg.replace(attn_impl="plain"), "meta")
-        plain.load_state_dict(model.state_dict(), assign=True)
-        models[name] = (model, plain)
-    return models
+    model = build_model(cfg.replace(attn_impl="kernel"), device)
+    model.init_params(torch.Generator(device).manual_seed(seed))
+    plain = build_model(cfg.replace(attn_impl="plain"), "meta")
+    plain.load_state_dict(model.state_dict(), assign=True)
+    return model, plain
 
 
 def lm_tokens(cfg, batch, seq, device, seed=1):
     g = torch.Generator(device).manual_seed(seed)
     return torch.randint(3, cfg.vocab_size - 1, (batch, seq), generator=g,
                          device=device)
+
+
+def lm_extra(cfg, batch, device, seed=2):
+    """The inputs a family takes beside its tokens, random from ``seed``
+    at the reference tests' scale (0.1): InternVL2's patch embeddings,
+    Whisper's frame embeddings."""
+    g = torch.Generator(device).manual_seed(seed)
+    shape = {"patches": None if cfg.vlm is None
+             else (batch, cfg.vlm.num_patches, cfg.vlm.d_patch),
+             "frames": None if cfg.encdec is None
+             else (batch, cfg.encdec.encoder_seq, cfg.encdec.d_frame)}
+    return {k: (0.1 * torch.randn(v, generator=g, device=device))
+            .to(cfg.adtype) for k, v in shape.items() if v is not None}
+
+
+def lm_inputs(cfg, batch, seq, device):
+    return {"tokens": lm_tokens(cfg, batch, seq, device),
+            **lm_extra(cfg, batch, device)}
 
 
 def leaky_attention(q, k, v, causal=True):
@@ -1341,16 +1420,56 @@ def carry_dropped_ssd(x, dt, a, b, c, chunk=128):
 def kernel_swaps(cfg):
     """The module attribute through which ``cfg``'s family reaches its
     kernel, and what ``lm_score`` puts there in its place: the kernel's
-    plain version (the witness) and a wrong function (the control)."""
+    plain version (the witness) and a wrong function (the control);
+    ``None`` for a family that reaches no kernel."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
 
-    if cfg.family == "dense":
+    kernel = FAMILY_KERNEL[cfg.family]
+    if kernel == "flash_attention":
         return fa, "flash_attention_gqa", {
             "witness": fa.flash_attention_gqa_plain,
             "control": leaky_attention}
-    return ssd, "ssd_scan", {"witness": ssd.ssd_scan_plain,
-                             "control": carry_dropped_ssd}
+    if kernel == "ssd_scan":
+        return ssd, "ssd_scan", {"witness": ssd.ssd_scan_plain,
+                                 "control": carry_dropped_ssd}
+    return None
+
+
+def recording(routes):
+    """``moe_route`` that appends each MoE layer's expert choices to
+    ``routes``, in call order."""
+    from repro_torch.models import layers as L
+
+    route = L.moe_route
+
+    def rec(p, xf, cfg):
+        weights, experts = route(p, xf, cfg)
+        routes.append(experts)
+        return weights, experts
+    return rec
+
+
+def replaying(routes, flips):
+    """``moe_route`` that takes each MoE layer's experts from ``routes``
+    (the kernel path's, in call order) with this path's own gates at
+    them, renormalised; ``flips`` counts the tokens whose own top k
+    would have been another set."""
+    from repro_torch.models import layers as L
+
+    route, calls = L.moe_route, iter(routes)
+
+    def rep(p, xf, cfg):
+        experts = next(calls)
+        _, own = route(p, xf, cfg)
+        flips[0] += int((own.sort(-1).values != experts.sort(-1).values)
+                        .any(-1).sum())
+        flips[1] += own[..., 0].numel()
+        gates = torch.softmax(xf.float() @ p.router, dim=-1)
+        weights = torch.gather(gates, -1, experts)
+        return weights / weights.sum(-1, keepdim=True).clamp_min(1e-9), \
+            experts
+    return rep
 
 
 @contextlib.contextmanager
@@ -1381,55 +1500,112 @@ def passes(gap):
             and gap["argmax_agree"] >= LM_ARGMAX)
 
 
-def lm_score_phase(models, device, batch, seq):
-    """``logits`` of each model on the kernel path and the plain path:
+def cpu_check(name, cfg, device):
+    """A kernel-free family's card logits held to the port's CPU path on
+    the same weights: full width, the depth ``CPU_CHECK`` cuts to, in
+    float32 (drawn on the card, copied to the CPU)."""
+    from repro_torch.models import build_model
+
+    cut = CPU_CHECK[name](cfg).replace(param_dtype="float32",
+                                       activation_dtype="float32")
+    card, _ = lm_model(cut, device, seed=3)
+    host = build_model(cut, "cpu")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    batch = lm_inputs(cut, CPU_CHECK_BATCH, CPU_CHECK_SEQ, device)
+    with torch.inference_mode():
+        got = card.logits(batch).cpu()
+        want = host.logits({k: v.cpu() for k, v in batch.items()})
+    del card, host
+    torch.cuda.empty_cache()
+    err = float((got - want).abs().max() / want.abs().max())
+    if not err <= CPU_CHECK_TOL:
+        raise AssertionError(f"{name}: card logits {err} of the largest "
+                             f"from the CPU's (float32, {cut.num_layers} "
+                             f"layers)")
+    return {"layers": cut.num_layers,
+            "encoder_layers": cut.encdec and cut.encdec.encoder_layers,
+            "batch": CPU_CHECK_BATCH, "seq": CPU_CHECK_SEQ,
+            "dtype": "float32", "rel_err": err}
+
+
+def lm_score_phase(name, model, plain, device, batch, seq):
+    """``logits`` of one model on the kernel path and the plain path:
     finite, of shape (B, S, padded vocab), within the ``LM_*`` gate. Two
     more forwards of the kernel path hold the gate to account: with the
     kernel's plain version in its place (the witness) the logits must
     pass it too, and with a wrong function in its place (the control),
-    fail it."""
-    out = {}
-    for name, (model, plain) in models.items():
-        cfg = model.cfg
-        tokens = {"tokens": lm_tokens(cfg, batch, seq, device)}
-        rec, logits = {}, {}
-        with torch.inference_mode():
-            for impl, m in (("kernel", model), ("plain", plain)):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                got = m.logits(tokens)
-                torch.cuda.synchronize()
-                rec[f"{impl}_s"] = time.perf_counter() - t0
-                if tuple(got.shape) != (batch, seq, cfg.padded_vocab):
-                    raise AssertionError(f"{name} {impl}: logits shape "
-                                         f"{tuple(got.shape)}")
-                if not bool(torch.isfinite(got).all()):
-                    raise AssertionError(f"{name} {impl}: logits not finite")
-                logits[impl] = got
-            gaps = {"plain": logit_gap(logits["kernel"], logits["plain"])}
-            module, attr, swaps = kernel_swaps(cfg)
-            for label, fn in swaps.items():
-                with swapped(module, attr, fn):
-                    got = model.logits(tokens)
+    fail it. A kernel-free family has no witness or control: its card
+    logits are held to the CPU instead (``cpu_check``).
+
+    An MoE model's expert choice is a top k: where two gates nearly tie,
+    the last bf16 ulp of the attention picks the expert, and the chosen
+    expert moves that token's logits by far more than the gate allows.
+    So the plain, witness and control runs replay the kernel path's
+    expert choices (``moe_route``) with their own gates; ``route_flips``
+    counts the tokens (summed over the MoE layers) whose own choice
+    would have differed on the plain run."""
+    from repro_torch.models import layers as L
+
+    cfg = model.cfg
+    inputs = lm_inputs(cfg, batch, seq, device)
+    rec, logits = {"layers": cfg.num_layers}, {}
+    routes = [] if cfg.moe is not None and cfg.moe.num_experts else None
+    flips = [0, 0]
+
+    def routing(impl):
+        if routes is None:
+            return contextlib.nullcontext()
+        if impl == "kernel":
+            return swapped(L, "moe_route", recording(routes))
+        return swapped(L, "moe_route", replaying(
+            routes, flips if impl == "plain" else [0, 0]))
+
+    with torch.inference_mode():
+        for impl, m in (("kernel", model), ("plain", plain)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with routing(impl):
+                got = m.logits(inputs)
+            torch.cuda.synchronize()
+            rec[f"{impl}_s"] = time.perf_counter() - t0
+            if tuple(got.shape) != (batch, seq, cfg.padded_vocab):
+                raise AssertionError(f"{name} {impl}: logits shape "
+                                     f"{tuple(got.shape)}")
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{name} {impl}: logits not finite")
+            logits[impl] = got
+        gaps = {"plain": logit_gap(logits["kernel"], logits["plain"])}
+        if routes is not None:
+            rec["route_flips"], rec["route_tokens"] = flips
+        swaps = kernel_swaps(cfg)
+        if swaps is not None:
+            module, attr, fns = swaps
+            for label, fn in fns.items():
+                with swapped(module, attr, fn), routing(label):
+                    got = model.logits(inputs)
                 gaps[label] = (logit_gap(logits["kernel"], got)
                                if label == "witness"
                                else logit_gap(got, logits["plain"]))
-            plain_top = int(logits["plain"].argmax(-1).unique().numel())
-        del logits, got
-        log(f"lm_score {name}: {gaps}, {plain_top} distinct argmax tokens")
-        for label, gap in gaps.items():
-            if passes(gap) == (label == "control"):
-                raise AssertionError(f"{name}: the gate misjudges the "
-                                     f"{label} logits: {gap}")
-        out[name] = {**rec, "gaps": gaps, "plain_argmax_tokens": plain_top,
-                     "batch": batch, "seq": seq,
-                     "tokens_per_s": batch * seq / rec["kernel_s"]}
-    return out
+        plain_top = int(logits["plain"].argmax(-1).unique().numel())
+    del logits, got
+    log(f"lm_score {name}: {gaps}, {plain_top} distinct argmax tokens"
+        + (f", {flips[0]} of {flips[1]} routed tokens would flip"
+           if routes is not None else ""))
+    for label, gap in gaps.items():
+        if passes(gap) == (label == "control"):
+            raise AssertionError(f"{name}: the gate misjudges the "
+                                 f"{label} logits: {gap}")
+    if name in CPU_CHECK:
+        rec["cpu_check"] = cpu_check(name, cfg, device)
+        log(f"lm_score {name}: card against CPU {rec['cpu_check']}")
+    return {**rec, "gaps": gaps, "plain_argmax_tokens": plain_top,
+            "batch": batch, "seq": seq,
+            "tokens_per_s": batch * seq / rec["kernel_s"]}
 
 
 class CheckedModel:
-    """A model whose cached forward records whether every logit it
-    returned was finite."""
+    """A model whose prefill and decode steps record whether every logit
+    they returned was finite."""
 
     def __init__(self, model):
         self.model = model
@@ -1439,45 +1615,48 @@ class CheckedModel:
     def init_cache(self, batch, max_seq):
         return self.model.init_cache(batch, max_seq)
 
-    def forward_cached(self, cache, batch):
-        logits, cache = self.model.forward_cached(cache, batch)
-        self.finite &= bool(torch.isfinite(logits).all())
-        return logits, cache
+    def _checked(self, out):
+        self.finite &= bool(torch.isfinite(out[0]).all())
+        return out
 
-    prefill = decode_step = forward_cached
+    def prefill(self, cache, batch):
+        return self._checked(self.model.prefill(cache, batch))
+
+    def decode_step(self, cache, batch):
+        return self._checked(self.model.decode_step(cache, batch))
 
 
-def lm_serve_phase(models, serve):
-    """``ServeEngine.generate`` twice on the same prompts per model."""
+def lm_serve_phase(name, model, serve):
+    """``ServeEngine.generate`` twice on the same prompts (InternVL2 with
+    its patches, Whisper with its frames, as ``extra_inputs``)."""
     from repro_torch.launch.serve import make_prompts
     from repro_torch.serve import ServeEngine
 
-    out = {}
-    for name, (model, _) in models.items():
-        checked = CheckedModel(model)
-        engine = ServeEngine(checked, batch_size=serve["batch"],
-                             max_seq=serve["max_seq"])
-        prompts = make_prompts(model.cfg.vocab_size, serve["requests"])
-        runs, seconds = [], []
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            runs.append(engine.generate(prompts,
-                                        max_new_tokens=serve["max_new"]))
-            torch.cuda.synchronize()
-            seconds.append(time.perf_counter() - t0)
-        first, second = runs
-        if len(first) != len(prompts) or not all(first):
-            raise AssertionError(f"{name}: a request got no token")
-        if first != second:
-            raise AssertionError(f"{name}: a second generate differs")
-        if not checked.finite:
-            raise AssertionError(f"{name}: non-finite serving logits")
-        n_tok = sum(len(o) for o in second)
-        out[name] = {"requests": len(prompts), "tokens": n_tok,
-                     "seconds": seconds, "tokens_per_s": n_tok / seconds[1],
-                     "first_tokens": first[0][:8]}
-    return out
+    checked = CheckedModel(model)
+    max_seq = SERVE_MAX_SEQ.get(model.cfg.family, serve["max_seq"])
+    engine = ServeEngine(checked, batch_size=serve["batch"],
+                         max_seq=max_seq)
+    prompts = make_prompts(model.cfg.vocab_size, serve["requests"])
+    extra = lm_extra(model.cfg, serve["batch"], model.device) or None
+    runs, seconds = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(engine.generate(prompts, max_new_tokens=serve["max_new"],
+                                    extra_inputs=extra))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    first, second = runs
+    if len(first) != len(prompts) or not all(first):
+        raise AssertionError(f"{name}: a request got no token")
+    if first != second:
+        raise AssertionError(f"{name}: a second generate differs")
+    if not checked.finite:
+        raise AssertionError(f"{name}: non-finite serving logits")
+    n_tok = sum(len(o) for o in second)
+    return {"requests": len(prompts), "tokens": n_tok, "max_seq": max_seq,
+            "seconds": seconds, "tokens_per_s": n_tok / seconds[1],
+            "first_tokens": first[0][:8]}
 
 
 def train_run(device, arch, batch, microbatches, steps, lr):
@@ -1606,7 +1785,18 @@ def row_control(name, bad, want, **tol):
 
 
 def flash_row(device, b=LM_BATCH, hq=32, hkv=4, s=LM_SEQ, d=64):
-    """``flash_attention`` at TinyLlama's shape on the LM path, bf16."""
+    """``flash_attention`` at TinyLlama's shape on the LM path, bf16,
+    with the same measurements at ``FLASH_SHAPES`` under ``shapes``."""
+    row = flash_shape(device, b, hq, hkv, s, d)
+    row["shapes"] = [flash_shape(device, b, h, kv, s, dd)
+                     for h, kv, dd in FLASH_SHAPES]
+    return row
+
+
+def flash_shape(device, b, hq, hkv, s, d):
+    """One shape of the ``flash_attention`` row: held to the plain
+    version, its control rejected, timed beside the plain version and
+    SDPA, with its bound."""
     from repro_torch.kernels import flash_attention as fa
 
     g = torch.Generator(device).manual_seed(5)
@@ -1619,9 +1809,12 @@ def flash_row(device, b=LM_BATCH, hq=32, hkv=4, s=LM_SEQ, d=64):
     err = float((got.float() - want.float()).abs().max())
     if not torch.allclose(got.float(), want.float(), atol=FLASH_ATOL,
                           rtol=FLASH_RTOL):
-        raise AssertionError(f"flash_attention differs by {err}")
-    row_control("flash_attention", leaky_attention(q, k, v), want,
-                atol=FLASH_ATOL, rtol=FLASH_RTOL)
+        raise AssertionError(f"flash_attention (D {d}) differs by {err}")
+    bad = leaky_attention(q, k, v)
+    row_control(f"flash_attention (D {d})", bad, want, atol=FLASH_ATOL,
+                rtol=FLASH_RTOL)
+    control_err = float((bad.float() - want.float()).abs().max())
+    del bad
     pairs = s * (s + 1) // 2                    # causal (q, k) pairs
     flops = 4 * b * hq * d * pairs              # the function's 4 D a pair
     b_ms, b_by = bound(nbytes(q, k, v, got), flops, TENSOR_BF16_FLOPS_PER_S)
@@ -1638,6 +1831,7 @@ def flash_row(device, b=LM_BATCH, hq=32, hkv=4, s=LM_SEQ, d=64):
             "library_ms": graph_ms(lambda: sdpa(q, k, v, is_causal=True,
                                                 enable_gqa=True), 10),
             "tflops": flops / (times["ms"] * 1e-3) / 1e12,
+            "control_err": control_err,
             "shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d,
                       "dtype": "bfloat16", "causal": True}}
 
@@ -1695,18 +1889,35 @@ def ssd_row(device, earlier, bh=LM_BATCH * 64, seq=LM_SEQ, p=64, n=128,
 
 def lm_paths(phase, device, configs, batch=LM_BATCH, seq=LM_SEQ,
              serve=SERVE):
-    """The two LM phases on ``configs`` (name -> ModelConfig); each
-    model is freed after its phases."""
-    models = lm_models(configs, device)
-    with torch.inference_mode():          # first-call set-up, off the clock
-        for model, plain in models.values():
-            warm = {"tokens": lm_tokens(model.cfg, 1, 128, device)}
+    """The two LM phases on ``configs`` (name -> ModelConfig), one model
+    at a time: build, score (``lm_score:<name>``), serve
+    (``lm_serve:<name>``), free. Each phase must launch its family's
+    kernel once a layer, and serving none; the peak of
+    ``max_memory_allocated`` is the model's, build to free."""
+    score, served = {}, {}
+    for name, cfg in configs.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        model, plain = lm_model(cfg, device)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        with torch.inference_mode():      # first-call set-up, off the clock
+            warm = lm_inputs(cfg, 1, 128, device)
             model.logits(warm)
             plain.logits(warm)
-    score = phase("lm_score", lm_score_phase, models, device, batch, seq)
-    served = phase("lm_serve", lm_serve_phase, models, serve)
-    del models
-    torch.cuda.empty_cache()
+        kernel = FAMILY_KERNEL[cfg.family]
+        need = (kernel,) if kernel else ()
+        score[name] = phase(f"lm_score:{name}", lm_score_phase, name, model,
+                            plain, device, batch, seq, need=need)
+        served[name] = phase(f"lm_serve:{name}", lm_serve_phase, name,
+                             model, serve, need=())
+        score[name]["build_s"] = build_s
+        score[name]["max_memory_bytes"] = torch.cuda.max_memory_allocated(
+            device)
+        score[name]["params"] = sum(p.numel() for p in model.parameters())
+        del model, plain
+        torch.cuda.empty_cache()
     return score, served
 
 
@@ -1754,14 +1965,14 @@ def drive(spec, device, t_start, earlier):
     """Phases 2-12 on ``spec`` and ``device`` (the LM phases on the FULL
     models at B 2, S 2,048), with ``earlier`` the entry points of the
     kernels before their redesign; prints their JSON lines."""
-    from repro_torch.configs import get_config
     from repro_torch.kernels import build
 
     phases = {}
 
-    def phase(name, fn, *args):
+    def phase(name, fn, *args, need=None):
         """Run one path with the launch counts zeroed just before and
-        read just after; it must launch every kernel it exists for."""
+        read just after; it must launch every kernel it exists for
+        (``need``, else ``PHASE_KERNELS[name]``)."""
         build.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1769,7 +1980,8 @@ def drive(spec, device, t_start, earlier):
         torch.cuda.synchronize()
         launches = dict(build.LAUNCHES)
         seconds = time.perf_counter() - t0
-        missing = [k for k in PHASE_KERNELS[name] if launches[k] == 0]
+        need = PHASE_KERNELS[name] if need is None else need
+        missing = [k for k in need if launches[k] == 0]
         if missing:
             raise AssertionError(f"{name}: kernels never launched: "
                                  f"{missing} ({launches})")
@@ -1800,19 +2012,27 @@ def drive(spec, device, t_start, earlier):
                 not phases["search"]["launches"].get(need):
             raise AssertionError(f"search: {name} ran without {need}")
 
-    # 9.-10. the LM substrate at FULL: one kernel launch per layer
-    configs = {name: get_config(name) for name in LM_ARCHS}
+    # 9.-10. the LM substrate at full width: one kernel launch per layer
+    configs = lm_configs()
     score, served = lm_paths(phase, device, configs)
-    want = {}
-    for cfg in configs.values():
-        kernel = {"dense": "flash_attention", "ssm": "ssd_scan"}[cfg.family]
-        want[kernel] = want.get(kernel, 0) + cfg.num_layers
-    if phases["lm_score"]["launches"] != want:
-        raise AssertionError(f"lm_score: launches "
-                             f"{phases['lm_score']['launches']} != {want}")
-    if phases["lm_serve"]["launches"]:
-        raise AssertionError(f"lm_serve launched kernels: "
-                             f"{phases['lm_serve']['launches']}")
+    for name, cfg in configs.items():
+        kernel = FAMILY_KERNEL[cfg.family]
+        want = {kernel: cfg.num_layers} if kernel else {}
+        got = phases[f"lm_score:{name}"]["launches"]
+        if got != want:
+            raise AssertionError(f"lm_score {name}: launches {got} != "
+                                 f"{want}")
+        if phases[f"lm_serve:{name}"]["launches"]:
+            raise AssertionError(f"lm_serve {name} launched kernels: "
+                                 f"{phases[f'lm_serve:{name}']['launches']}")
+    for path in ("lm_score", "lm_serve"):
+        runs = [phases[f"{path}:{name}"] for name in configs]
+        total = {}
+        for run in runs:
+            for k, v in run["launches"].items():
+                total[k] = total.get(k, 0) + v
+        phases[path] = {"seconds": sum(r["seconds"] for r in runs),
+                        "launches": total}
 
     # 11. every kernel against its plain version at its path's shapes
     rows = fabric_kernel_rows(fab.fabric(), device, batch=len(routed))
@@ -1837,7 +2057,8 @@ def drive(spec, device, t_start, earlier):
     keys = ("name", "route", "source", "replaces", "launches", "path",
             "max_abs_err", "ms", "plain_ms", "call_ms", "timing",
             "bound_ms", "bound_by", "bound_share", "library_ms", "shape")
-    extra = ("tflops", "by_batch", "earlier_ms", "sweep_ms", "design")
+    extra = ("tflops", "control_err", "shapes", "by_batch", "earlier_ms",
+             "sweep_ms", "design")
     rows = [{**{k: row[k] for k in keys},
              **{k: row[k] for k in extra if k in row}} for row in rows]
 

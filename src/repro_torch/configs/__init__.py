@@ -1,14 +1,12 @@
 """Configs of the port (counterpart of repro/configs).
 
 Each module defines ``FULL`` (the published configuration) and
-``smoke()`` (a reduced same-family configuration for CPU tests).
-``get_config(name)`` / ``get_smoke(name)`` / ``list_archs()`` are the
-public API, as in the reference. Ported so far: the paper's own artifact
-(:mod:`cgra_amber`) and the LM substrate's dense and ssm families
-(:mod:`tinyllama_1_1b`, :mod:`mamba2_1_3b`). Every other arch the
-reference lists is known here and raises ``NotImplementedError`` naming
-the slice that ports its model. The reference's ``input_specs`` builds
-JAX stand-ins for its dry-run, which is not ported.
+``smoke()`` (a reduced same-family configuration for CPU tests), field
+for field the reference's. ``get_config(name)`` / ``get_smoke(name)`` /
+``list_archs()`` are the public API, as in the reference: the ten LM
+archs and the paper's own artifact (:mod:`cgra_amber`). The reference's
+``input_specs`` builds JAX stand-ins for its dry-run, which is not
+ported.
 """
 from __future__ import annotations
 
@@ -29,22 +27,6 @@ _ARCHS = [
     "cgra_amber",            # the paper's own CGRA config (Canal side)
 ]
 
-PORTED = ("tinyllama_1_1b", "mamba2_1_3b", "cgra_amber")
-
-#: the later slice that ports each remaining arch's model
-_LATER = {
-    "phi3_mini_3_8b": "the remaining-models slice (dense TransformerLM)",
-    "deepseek_coder_33b": "the remaining-models slice (dense "
-                          "TransformerLM)",
-    "qwen3_14b": "the remaining-models slice (qk-norm dense)",
-    "kimi_k2_1t_a32b": "the remaining-models slice (MoE TransformerLM)",
-    "granite_moe_3b_a800m": "the remaining-models slice (MoE "
-                            "TransformerLM)",
-    "internvl2_2b": "the remaining-models slice (VLM TransformerLM)",
-    "recurrentgemma_2b": "the remaining-models slice (RecurrentGemma)",
-    "whisper_medium": "the remaining-models slice (Whisper)",
-}
-
 ALIASES = {name.replace("_", "-"): name for name in _ARCHS}
 
 
@@ -60,12 +42,7 @@ def list_archs(lm_only: bool = True) -> List[str]:
 
 
 def _module(name: str):
-    arch = canonical(name)
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet: it comes with "
-            f"{_LATER[arch]}")
-    return importlib.import_module(f"repro_torch.configs.{arch}")
+    return importlib.import_module(f"repro_torch.configs.{canonical(name)}")
 
 
 def get_config(name: str):

@@ -12,7 +12,12 @@
 // instead. For GQA a block reads kv head h / (Hq / Hkv) in place.
 //
 // Two kernels, chosen by dtype in canal_flash_attention below; nothing
-// falls back from one to the other.
+// falls back from one to the other. Both take head dim D 64, 96, 112 or
+// 128. A D that is not a tile width runs at the next one up (DP: 128 on
+// the tensor cores, a multiple of 32 on the CUDA cores) with the columns
+// past D read as zeros, so Q K^T is unchanged; only D columns of the
+// output are stored, and the scale is 1/sqrt(D) of the true D. Phi-3's
+// D 96 and Kimi K2's 112 do 4/3 and 8/7 of the work of their own width.
 //
 // bfloat16 (the LM path: B 2, Hq 32, Hkv 4, S 2048, D 64, causal) runs
 // flash_tc_kernel on the tensor cores, with bf16 wgmma. Bound: 4 D FLOPs
@@ -81,10 +86,15 @@ constexpr int kLd = kBQ + 4;     // padded stride of the transposed tiles
 
 static_assert(kBQ == kBK, "the transposed tiles share one stride");
 
+// the CUDA-core kernel's tile width for head dim D
+template <int D>
+__host__ __device__ constexpr int f32_width() { return (D + 31) / 32 * 32; }
+
 template <int D>
 constexpr size_t f32_smem_bytes() {
-    // qt [D][kLd], kt [D][kLd], vs [kBK][D], pt [kBK][kLd]
-    return (size_t)(2 * D * kLd + kBK * D + kBK * kLd) * sizeof(float);
+    // qt [DP][kLd], kt [DP][kLd], vs [kBK][DP], pt [kBK][kLd]
+    constexpr int DP = f32_width<D>();
+    return (size_t)(2 * DP * kLd + kBK * DP + kBK * kLd) * sizeof(float);
 }
 
 template <int D>
@@ -93,13 +103,13 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
                  int hq, int hkv, int sq, int skv, int causal,
                  float scale) {
-    static_assert(D % 32 == 0, "head dim must be a multiple of 32");
-    constexpr int DJ = D / 32;   // float4 column groups of the output
+    constexpr int DP = f32_width<D>();   // columns D..DP-1 read as 0
+    constexpr int DJ = DP / 32;  // float4 column groups of the output
     extern __shared__ float4 smem4[];
     float* qt = reinterpret_cast<float*>(smem4);
-    float* kt = qt + D * kLd;
-    float* vs = kt + D * kLd;
-    float* pt = vs + kBK * D;
+    float* kt = qt + DP * kLd;
+    float* vs = kt + DP * kLd;
+    float* pt = vs + kBK * DP;
 
     const int tid = threadIdx.x;
     const int tx = tid & 7;      // column group: lanes 0-7 of a row group
@@ -112,11 +122,11 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float* kp = k + (size_t)kvh * skv * D;
     const float* vp = v + (size_t)kvh * skv * D;
 
-    for (int i = tid; i < kBQ * D; i += kThreads) {
-        const int r = i / D, d = i % D;
+    for (int i = tid; i < kBQ * DP; i += kThreads) {
+        const int r = i / DP, d = i % DP;
         const int qr = q0 + r;
-        qt[d * kLd + r] = qr < sq ? qp[(size_t)qr * D + d] * scale
-                                  : 0.f;
+        qt[d * kLd + r] = qr < sq && d < D
+                              ? qp[(size_t)qr * D + d] * scale : 0.f;
     }
 
     float m[4], l[4], acc[4][4 * DJ];
@@ -139,12 +149,12 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int t = 0; t < n_kt; ++t) {
         const int k0 = t * kBK;
         __syncthreads();     // the last tile's readers are done
-        for (int i = tid; i < kBK * D; i += kThreads) {
-            const int r = i / D, d = i % D;
-            const bool live = k0 + r < skv;
+        for (int i = tid; i < kBK * DP; i += kThreads) {
+            const int r = i / DP, d = i % DP;
+            const bool live = k0 + r < skv && d < D;
             const size_t g = (size_t)(k0 + r) * D + d;
             kt[d * kLd + r] = live ? kp[g] : 0.f;
-            vs[r * D + d] = live ? vp[g] : 0.f;
+            vs[r * DP + d] = live ? vp[g] : 0.f;
         }
         __syncthreads();
 
@@ -155,7 +165,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
             for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-        for (int d = 0; d < D; ++d) {
+        for (int d = 0; d < DP; ++d) {
             const float4 a = *reinterpret_cast<const float4*>(
                 &qt[d * kLd + ty * 4]);
             const float4 b0 = *reinterpret_cast<const float4*>(
@@ -219,7 +229,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
             for (int g = 0; g < DJ; ++g) {
                 const float4 vv = *reinterpret_cast<const float4*>(
-                    &vs[c * D + g * 32 + tx * 4]);
+                    &vs[c * DP + g * 32 + tx * 4]);
                 const float vv4[4] = {vv.x, vv.y, vv.z, vv.w};
 #pragma unroll
                 for (int i = 0; i < 4; ++i)
@@ -241,7 +251,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int g = 0; g < DJ; ++g)
 #pragma unroll
             for (int e = 0; e < 4; ++e)
-                orow[g * 32 + tx * 4 + e] = acc[i][g * 4 + e] / den;
+                if (g * 32 + tx * 4 + e < D)
+                    orow[g * 32 + tx * 4 + e] = acc[i][g * 4 + e] / den;
     }
 }
 
@@ -626,14 +637,17 @@ __device__ __forceinline__ Item item_of(int n, int n_qt, int bh_count,
     return w;
 }
 
-template <int D>
+// DP: the tile width (64 or 128), D <= DP the head dim: the tensor maps
+// read columns D..DP-1 as zeros, and only D columns are stored.
+template <int DP, int D>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
                 __nv_bfloat16* __restrict__ out, int bh_count, int hq,
                 int hkv, int sq, int skv, int causal, float scale) {
-    using Tile = TcTile<D>;
+    static_assert(D <= DP && D % 16 == 0, "head dim fits the tile");
+    using Tile = TcTile<DP>;
     constexpr int BK = Tile::kKeys;
     constexpr int KSTEPS = BK / 16;     // 16-key steps of P V
     extern __shared__ uint8_t smem_raw[];
@@ -738,7 +752,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
             mbar_wait(q_full, j & 1);
             turn_wait(g);
             mbar_wait(k_full + 8 * s, (it / kStages) & 1);
-            start_scores<D>(sc, q_base, s_k + s * Tile::kKvBytes);
+            start_scores<DP>(sc, q_base, s_k + s * Tile::kKvBytes);
             turn_pass(g);
             wgmma_wait_all();
             fence_regs(sc);
@@ -752,10 +766,10 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
             const int s = (it + t) % kStages, sp = (it + t - 1) % kStages;
             turn_wait(g);
             mbar_wait(k_full + 8 * s, ((it + t) / kStages) & 1);
-            start_scores<D>(sc, q_base, s_k + s * Tile::kKvBytes);
-            rescale<D>(acc, alpha);
+            start_scores<DP>(sc, q_base, s_k + s * Tile::kKvBytes);
+            rescale<DP>(acc, alpha);
             mbar_wait(v_full + 8 * sp, ((it + t - 1) / kStages) & 1);
-            start_pv<D>(acc, p_hi, p_lo, s_v + sp * Tile::kKvBytes);
+            start_pv<DP>(acc, p_hi, p_lo, s_v + sp * Tile::kKvBytes);
             turn_pass(g);
             asm volatile("wgmma.wait_group.sync.aligned %0;\n"
                          :: "n"(1) : "memory");      // the scores are in
@@ -776,9 +790,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
             // every score of this item is in: the next Q may load
             const int sp = (it + w.n_kt - 1) % kStages;
             mbar_arrive(q_empty);
-            rescale<D>(acc, alpha);
+            rescale<DP>(acc, alpha);
             mbar_wait(v_full + 8 * sp, ((it + w.n_kt - 1) / kStages) & 1);
-            start_pv<D>(acc, p_hi, p_lo, s_v + sp * Tile::kKvBytes);
+            start_pv<DP>(acc, p_hi, p_lo, s_v + sp * Tile::kKvBytes);
             wgmma_wait_all();
 #pragma unroll
             for (int p = 0; p < Tile::kPanels; ++p) fence_regs(acc[p]);
@@ -802,10 +816,12 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
             for (int p = 0; p < Tile::kPanels; ++p)
 #pragma unroll
                 for (int jj = 0; jj < 8; ++jj)
-                    *reinterpret_cast<__nv_bfloat162*>(
-                        orow + p * kPanel + 8 * jj) = __floats2bfloat162_rn(
-                        acc[p][4 * jj + 2 * r] / den,
-                        acc[p][4 * jj + 2 * r + 1] / den);
+                    if (p * kPanel + 8 * jj < D)   // known at compile time
+                        *reinterpret_cast<__nv_bfloat162*>(
+                            orow + p * kPanel + 8 * jj) =
+                            __floats2bfloat162_rn(
+                                acc[p][4 * jj + 2 * r] / den,
+                                acc[p][4 * jj + 2 * r + 1] / den);
         }
     }
     if (g == 0 && skv > 0) turn_wait(g);
@@ -837,7 +853,9 @@ EncodeTiled encode_tiled() {
 }
 
 // (heads, rows, D) bf16, contiguous, as a 3-D map of {64, box_rows, 1}
-// boxes in the 128-byte swizzle; rows past `rows` read as zeros.
+// boxes in the 128-byte swizzle; rows past `rows` and columns past D read
+// as zeros. The row stride, 2 D bytes, is a multiple of 16 for every D
+// the kernel takes (128, 192, 224, 256), as TMA asks.
 bool encode(CUtensorMap* map, const void* ptr, int d, int rows, int heads,
             int box_rows) {
     const EncodeTiled fn = encode_tiled();
@@ -855,11 +873,11 @@ bool encode(CUtensorMap* map, const void* ptr, int d, int rows, int heads,
               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int DP, int D>
 int launch_tc(const void* q, const void* k, const void* v, void* out,
               int batch, int hq, int hkv, int sq, int skv, int causal,
               cudaStream_t stream) {
-    using Tile = TcTile<D>;
+    using Tile = TcTile<DP>;
     CUtensorMap tm_q, tm_k, tm_v;
     // with no keys nothing is loaded from k/v: map q in their place
     const void* kp = skv > 0 ? k : q;
@@ -871,7 +889,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
         !encode(&tm_v, vp, D, kv_rows, kv_heads, Tile::kKeys))
         return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
-        flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_tc_kernel<DP, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)Tile::kSmem);
     if (err != cudaSuccess) return (int)err;
     int dev = 0, n_sm = 0;
@@ -879,12 +897,12 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
         (err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
                                       dev)) != cudaSuccess)
         return (int)err;
-    // D 64: 2^-3 exactly; D 128: 1 / sqrt(128) in double, then float32
+    // D 64: 2^-3 exactly; else 1 / sqrt(D) in double, then float32
     const float scale = (float)(1.0 / std::sqrt((double)D));
     const long long n_items =
         (long long)((sq + kTcRows - 1) / kTcRows) * batch * hq;
     const int grid = (int)(n_items < n_sm ? n_items : n_sm);
-    flash_tc_kernel<D><<<grid, kTcThreads, Tile::kSmem, stream>>>(
+    flash_tc_kernel<DP, D><<<grid, kTcThreads, Tile::kSmem, stream>>>(
         tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), batch * hq, hq,
         hkv, sq, skv, causal, scale);
     return (int)cudaGetLastError();
@@ -893,7 +911,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // dtype: 0 float32 (the CUDA-core kernel), 1 bfloat16 (the tensor-core
-// kernel); d: 64 or 128. Anything else is refused with
+// kernel); d: 64, 96, 112 or 128. Anything else is refused with
 // cudaErrorInvalidValue (the wrapper checks first), as is a bf16 tensor
 // TMA cannot map (a base not 16-byte aligned).
 extern "C" int canal_flash_attention(const void* q, const void* k,
@@ -902,17 +920,22 @@ extern "C" int canal_flash_attention(const void* q, const void* k,
                                      int causal, int dtype, void* stream) {
     const cudaStream_t st = (cudaStream_t)stream;
     if (hkv < 1 || hq % hkv) return (int)cudaErrorInvalidValue;
-    if (dtype == 0 && d == 64)
-        return launch_f32<64>(q, k, v, out, batch, hq, hkv, sq, skv, causal,
-                              st);
-    if (dtype == 0 && d == 128)
-        return launch_f32<128>(q, k, v, out, batch, hq, hkv, sq, skv, causal,
-                               st);
-    if (dtype == 1 && d == 64)
-        return launch_tc<64>(q, k, v, out, batch, hq, hkv, sq, skv, causal,
-                             st);
-    if (dtype == 1 && d == 128)
-        return launch_tc<128>(q, k, v, out, batch, hq, hkv, sq, skv, causal,
-                              st);
+#define CANAL_FLASH_ARGS q, k, v, out, batch, hq, hkv, sq, skv, causal, st
+    if (dtype == 0) {
+        switch (d) {
+            case 64: return launch_f32<64>(CANAL_FLASH_ARGS);
+            case 96: return launch_f32<96>(CANAL_FLASH_ARGS);
+            case 112: return launch_f32<112>(CANAL_FLASH_ARGS);
+            case 128: return launch_f32<128>(CANAL_FLASH_ARGS);
+        }
+    } else if (dtype == 1) {
+        switch (d) {
+            case 64: return launch_tc<64, 64>(CANAL_FLASH_ARGS);
+            case 96: return launch_tc<128, 96>(CANAL_FLASH_ARGS);
+            case 112: return launch_tc<128, 112>(CANAL_FLASH_ARGS);
+            case 128: return launch_tc<128, 128>(CANAL_FLASH_ARGS);
+        }
+    }
+#undef CANAL_FLASH_ARGS
     return (int)cudaErrorInvalidValue;
 }

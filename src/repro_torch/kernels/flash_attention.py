@@ -15,7 +15,9 @@ within one bf16 ulp of the plain version), float32 the CUDA-core kernel
 (full float32). Both run the online softmax, skip causal tiles above the
 diagonal and index the GQA kv head ``h // rep`` instead of repeating it.
 CPU tensors run the plain PyTorch version beside it. The kernels take
-head dim 64 or 128 and raise on anything else; nothing falls back.
+head dim 64, 96, 112 or 128 (96 and 112, Phi-3's and Kimi K2's, at the
+tile width of 128 with the columns past D read as zeros) and raise on
+anything else before any launch; nothing falls back.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch
 from . import build
 
 NEG_INF = -1.0e30
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 96, 112, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -7,7 +7,11 @@
 The weights are random, drawn from a ``torch.Generator`` seeded 0; the
 prompts are drawn as in the reference (numpy, seed 0, lengths 3-11).
 ``--device`` is the port's own flag: without it the model runs on the
-CUDA card.
+CUDA card. Every arch is taken, and like the reference's launcher this
+one passes no patches and no frames: InternVL2 serves text alone, and
+Whisper, whose prefill needs ``frames``, raises ``KeyError`` in both
+(serve it through :class:`~repro_torch.serve.ServeEngine` with
+``extra_inputs``).
 """
 from __future__ import annotations
 

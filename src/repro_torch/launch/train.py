@@ -39,7 +39,9 @@ def train(arch: str = "tinyllama-1.1b", steps: int = 50,
     (the supervisor restores the newest checkpoint). On a card each step
     ends with a device synchronization, so the history's ``seconds``
     are the step's. Returns ``{"history", "state", "model", "seconds",
-    "resumed_from", "config"}``.
+    "resumed_from", "config"}``. An arch of the MoE, VLM, hybrid or
+    audio family raises ``NotImplementedError``: its training comes with
+    a later slice.
     """
     import torch
 
@@ -50,12 +52,14 @@ def train(arch: str = "tinyllama-1.1b", steps: int = 50,
     from repro_torch.models import build_model
     from repro_torch.optim import adafactor, adamw, cosine_schedule
     from repro_torch.runtime import StragglerMonitor, Supervisor
-    from repro_torch.train.step import init_train_state, make_train_step
+    from repro_torch.train.step import (init_train_state, make_train_step,
+                                        require_trainable)
 
-    dev = resolve_device(device)
     cfg = get_smoke(arch) if smoke else get_config(arch)
     cfg = cfg.replace(ce_seq_chunk=min(seq, 512), moe_groups=2,
                       **(overrides or {}))
+    require_trainable(cfg)
+    dev = resolve_device(device)
     model = build_model(cfg, dev)
     peak = lr if lr is not None else (3e-3 if smoke else 3e-4)
     make_opt = {"adamw": adamw, "adafactor": adafactor}[optimizer]

@@ -1,6 +1,7 @@
 """Shared neural blocks of the LM substrate (counterpart of
-repro/models/layers.py): RMSNorm, RoPE, GQA attention (full-sequence and
-cached), the SwiGLU/GELU MLP and the Mamba-2 (SSD) mixer.
+repro/models/layers.py): RMSNorm, LayerNorm, RoPE, GQA attention
+(full-sequence and cached), the SwiGLU/GELU MLP, the top-k mixture of
+experts, the RG-LRU and the Mamba-2 (SSD) mixer.
 
 Each block is an ``nn.Module`` that owns its parameters under the
 reference's names (``wq``, ``w_in``, ``a_log``, ...) and draws them with
@@ -8,17 +9,17 @@ reference's names (``wq``, ``w_in``, ``a_log``, ...) and draws them with
 builds and draws a mixer in one call, as the reference's does). The
 apply functions (``rms_norm``, ``attention``, ``mlp``, ``mamba2``, ...)
 are plain functions on tensors that take the module as ``p``, as the
-reference's take their parameter dict. MoE, RG-LRU and ``layer_norm`` come with the
-models that use them. Parameters are made with ``requires_grad=False``,
-so that scoring and serving never record a graph; the training step
-(``repro_torch.train.step``) turns gradients on for the model it trains.
+reference's take their parameter dict. Parameters are made with
+``requires_grad=False``, so that scoring and serving never record a
+graph; the training step (``repro_torch.train.step``) turns gradients on
+for the model it trains.
 
 Numerics follow the reference step for step, since bf16 rounds wherever
 a cast sits: ``rms_norm`` normalises in float32, casts to ``x.dtype`` and
 only then multiplies by the scale; RoPE rotates concatenated halves with
 float32 angles; attention scores are float32 and the probabilities are
-cast to the activation dtype before the PV product; the SSD runs in
-float32.
+cast to the activation dtype before the PV product; the MoE router and
+the RG-LRU recurrence run in float32, the SSD too.
 """
 from __future__ import annotations
 
@@ -38,12 +39,28 @@ def _param(shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+#: the most elements drawn at once: a larger tensor is drawn in slices
+#: along its leading axis (Kimi K2's expert ``w_up``, 5.6 G elements,
+#: would take a 22.5 GB float32 draw whole)
+DRAW_ELEMENTS = 1 << 28
+
+
 def _normal_(p: torch.Tensor, scale: float,
              generator: torch.Generator) -> None:
-    """``p <- (N(0, 1) * scale)`` drawn in float32, cast to p's dtype."""
-    draw = torch.randn(p.shape, generator=generator, dtype=torch.float32,
-                       device=p.device)
-    p.copy_(draw * scale)
+    """``p <- (N(0, 1) * scale)`` drawn in float32, cast to p's dtype.
+
+    Up to ``DRAW_ELEMENTS`` elements in one draw; a larger tensor takes
+    consecutive draws of whole leading-axis slices, so its values are
+    still a function of the generator's seed alone."""
+    rows = p.shape[0] if p.dim() else 1
+    step = rows
+    if p.numel() > DRAW_ELEMENTS:
+        step = max(1, DRAW_ELEMENTS // max(1, p.numel() // rows))
+    for i in range(0, rows, step):
+        part = p[i:i + step] if step < rows else p
+        draw = torch.randn(part.shape, generator=generator,
+                           dtype=torch.float32, device=p.device)
+        part.copy_(draw * scale)
 
 
 # ---------------------------------------------------------------------------
@@ -64,6 +81,29 @@ def rms_norm(x: torch.Tensor, p: RMSNorm, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * p.scale.to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, d: int, dtype, device):
+        super().__init__()
+        self.scale = _param((d,), dtype, device)
+        self.bias = _param((d,), dtype, device)
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> None:
+        self.scale.fill_(1.0)
+        self.bias.zero_()
+
+
+def layer_norm(x: torch.Tensor, p: LayerNorm,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Mean and (biased) variance in float32; the normalised value is cast
+    to x's dtype before the scale and bias, as the reference's."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * p.scale.to(x.dtype) + p.bias.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -264,6 +304,188 @@ def mlp(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:
         act = F.gelu(up, approximate="tanh")     # jax.nn.gelu's default
     return act @ p.w_down
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (grouped, sort-based capacity dispatch)
+# ---------------------------------------------------------------------------
+
+class MoE(nn.Module):
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        m = cfg.moe
+        d, f, e = cfg.d_model, m.d_ff_expert, m.num_experts
+        self.router = _param((d, e), torch.float32, device)
+        self.w_up = _param((e, d, f), cfg.pdtype, device)
+        self.w_gate = _param((e, d, f), cfg.pdtype, device)
+        self.w_down = _param((e, f, d), cfg.pdtype, device)
+        if m.d_ff_shared:
+            self.shared = MLP(cfg, device, d_ff=m.d_ff_shared)
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> None:
+        _, d, f = self.w_up.shape
+        s = 1.0 / math.sqrt(d)
+        for w in (self.router, self.w_up, self.w_gate):
+            _normal_(w, s, generator)
+        _normal_(self.w_down, 1.0 / math.sqrt(f), generator)
+        if hasattr(self, "shared"):
+            self.shared.init_params(generator)
+
+
+def moe_capacity(cfg: ModelConfig, tokens: int) -> Tuple[int, int, int]:
+    """(groups G, tokens a group TL, slots an expert a group C) of the
+    dispatch of ``tokens`` tokens, as the reference sizes them."""
+    m = cfg.moe
+    g = max(1, math.gcd(cfg.moe_groups, tokens))
+    tl = tokens // g
+    cap = int(math.ceil(tl * m.top_k / m.num_experts * m.capacity_factor))
+    return g, tl, max(4, min(cap, tl))
+
+
+def moe_route(p: MoE, xf: torch.Tensor,
+              cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The router of :func:`moe`: float32 softmax gates of xf (G, TL, D)
+    over the experts, the top k of each token (descending, as
+    ``lax.top_k``) renormalised to sum to 1. Returns (weights, experts),
+    each (G, TL, k)."""
+    gates = torch.softmax(xf.float() @ p.router, dim=-1)
+    top_g, top_e = torch.topk(gates, cfg.moe.top_k, dim=-1)
+    return top_g / top_g.sum(-1, keepdim=True).clamp_min(1e-9), top_e
+
+
+def moe(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Top-k token-choice MoE with the reference's grouped dispatch.
+
+    The B*S tokens split into G groups (``moe_capacity``). Within a group
+    the (token, choice) entries are sorted by expert (a stable sort, as
+    ``jnp.argsort``: an expert's entries stay in token order), an entry's
+    rank within its expert is its slot, and entries past the capacity C
+    go to a spare row that is dropped. The experts run as batched
+    products over a (G, E, C, D) buffer. The combine sums each token's
+    gated expert outputs in the activation dtype in the order of their
+    sorted positions, the order in which the reference's scatter-add
+    visits them, and on the card in a fixed order (no atomics).
+    """
+    m = cfg.moe
+    b, s, d = x.shape
+    k, e = m.top_k, m.num_experts
+    g, tl, cap = moe_capacity(cfg, b * s)
+    adt = cfg.adtype
+    dev = x.device
+
+    xf = x.reshape(g, tl, d)
+    top_g, top_e = moe_route(p, xf, cfg)                         # (G,TL,k)
+
+    flat_e = top_e.reshape(g, tl * k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    se = torch.gather(flat_e, 1, order)                          # sorted
+    tok = order // k
+    starts = torch.searchsorted(
+        se, torch.arange(e, device=dev).expand(g, e).contiguous())
+    pos = torch.arange(tl * k, device=dev) - torch.gather(starts, 1, se)
+    keep = pos < cap
+    slot = torch.where(keep, se * cap + pos, e * cap)            # spare row
+
+    buf = torch.zeros((g, e * cap + 1, d), dtype=adt, device=dev)
+    rows = torch.gather(xf, 1, tok[..., None].expand(g, tl * k, d))
+    buf.scatter_(1, slot[..., None].expand(g, tl * k, d), rows.to(adt))
+    h = buf[:, :e * cap].reshape(g, e, cap, d)
+
+    up = torch.einsum("gecd,edf->gecf", h, p.w_up)
+    gate = torch.einsum("gecd,edf->gecf", h, p.w_gate)
+    out_e = torch.einsum("gecf,efd->gecd", F.silu(gate) * up, p.w_down)
+
+    flat = torch.cat([out_e.reshape(g, e * cap, d),
+                      out_e.new_zeros((g, 1, d))], dim=1)
+    weight = torch.gather(top_g.reshape(g, tl * k), 1, order).to(adt)
+    picked = torch.gather(flat, 1, slot[..., None].expand(g, tl * k, d))
+    picked = torch.where(keep[..., None], picked * weight[..., None],
+                         torch.zeros((), dtype=adt, device=dev))
+    # each token's k entries by sorted position (its experts in order)
+    by_pos = torch.sort(torch.argsort(order, dim=-1).reshape(g, tl, k),
+                        dim=-1).values
+    y = torch.zeros((g, tl, d), dtype=adt, device=dev)
+    for i in range(k):
+        y = y + torch.gather(picked, 1,
+                             by_pos[:, :, i, None].expand(g, tl, d))
+    y = y.reshape(b, s, d)
+    if m.d_ff_shared:
+        y = y + mlp(p.shared, x, cfg)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (RecurrentGemma): a diagonal linear recurrence
+# ---------------------------------------------------------------------------
+
+class RGLRU(nn.Module):
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        d = cfg.d_model
+        w = cfg.hybrid.lru_width or d
+        self.w_x = _param((d, w), cfg.pdtype, device)
+        self.w_gate_a = _param((d, w), cfg.pdtype, device)
+        self.w_gate_x = _param((d, w), cfg.pdtype, device)
+        self.w_out = _param((w, d), cfg.pdtype, device)
+        self.lam = _param((w,), torch.float32, device)
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> None:
+        d, w = self.w_x.shape
+        for p in (self.w_x, self.w_gate_a, self.w_gate_x):
+            _normal_(p, 1.0 / math.sqrt(d), generator)
+        _normal_(self.w_out, 1.0 / math.sqrt(w), generator)
+        # Lambda, through softplus: a decay in (0, 1)
+        _normal_(self.lam, 1.0, generator)
+        self.lam.mul_(0.5).add_(4.0)
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t along dim 1 from h_{-1} = 0: a log-depth
+    doubling scan over the pairs (a, b), combining an earlier (a1, b1)
+    with a later (a2, b2) into (a1 a2, b1 a2 + b2), as the reference's
+    ``associative_scan`` does (in another tree, so float32 sums round
+    in another order)."""
+    a, h = a.clone(), b.clone()
+    n, off = a.shape[1], 1
+    while off < n:
+        h_new = h.clone()
+        h_new[:, off:] = h[:, :-off] * a[:, off:] + h[:, off:]
+        a_new = a.clone()
+        a_new[:, off:] = a[:, :-off] * a[:, off:]
+        a, h = a_new, h_new
+        off *= 2
+    return h
+
+
+def rglru(p: RGLRU, x: torch.Tensor, cfg: ModelConfig,
+          state: Optional[torch.Tensor] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D). Real-gated LRU, h_t = a_t h_{t-1} + sqrt(1 - a_t^2)
+    (i_t x_t), in float32; returns the output and h at the last position.
+
+    Without a state and with S > 1 it scans (:func:`linear_scan`). With a
+    state, or at S = 1, it applies the one-step formula h = a state + x
+    to every position, as the reference does even when S > 1: each
+    position then starts from ``state``, not from the position before.
+    """
+    xb = x @ p.w_x                                          # (B, S, W)
+    ga = torch.sigmoid((x @ p.w_gate_a).float())
+    gx = torch.sigmoid((x @ p.w_gate_x).float())
+    neg_lam = -p.lam
+    c = -8.0 * torch.logaddexp(neg_lam, torch.zeros_like(neg_lam))
+    log_a = c[None, None, :] * ga                           # (B, S, W)
+    a = torch.exp(log_a)
+    gated_x = (xb.float() * gx) * torch.sqrt(
+        torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
+    if state is None and x.shape[1] > 1:
+        h = linear_scan(a, gated_x)
+    else:
+        st = state if state is not None else a.new_zeros(
+            (x.shape[0], a.shape[-1]))
+        h = a * st[:, None, :] + gated_x
+    return h.to(x.dtype) @ p.w_out, h[:, -1]
 
 
 # ---------------------------------------------------------------------------

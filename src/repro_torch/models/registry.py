@@ -1,25 +1,21 @@
 """Model registry: family -> model class (counterpart of
-repro/models/registry.py). Ported: ``dense`` and ``ssm``; the other
-families of the reference raise ``NotImplementedError`` naming the slice
-that ports them."""
+repro/models/registry.py)."""
 from __future__ import annotations
 
 from ..device import DeviceLike
 from .config import ModelConfig
 from .mamba2 import Mamba2LM
+from .recurrentgemma import RecurrentGemmaLM
 from .transformer import TransformerLM
+from .whisper import WhisperEncDec
 
 ARCH_FAMILIES = {
     "dense": TransformerLM,
+    "moe": TransformerLM,
+    "vlm": TransformerLM,
+    "hybrid": RecurrentGemmaLM,
+    "audio": WhisperEncDec,
     "ssm": Mamba2LM,
-}
-
-#: the reference's other families and the model each needs
-LATER_FAMILIES = {
-    "moe": "MoE TransformerLM",
-    "vlm": "VLM TransformerLM",
-    "hybrid": "RecurrentGemmaLM",
-    "audio": "WhisperEncDec",
 }
 
 
@@ -27,10 +23,6 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None):
     """The model of ``cfg.family`` on ``device`` (``None`` means CUDA),
     its parameters allocated but not drawn: call ``init_params`` or
     load a state."""
-    if cfg.family in LATER_FAMILIES:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} ({LATER_FAMILIES[cfg.family]}) "
-            f"is not ported yet: it comes with the remaining-models slice")
     try:
         cls = ARCH_FAMILIES[cfg.family]
     except KeyError:

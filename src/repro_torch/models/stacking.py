@@ -25,8 +25,10 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-#: parameter groups the reference stacks on a leading layer axis
-STACKED_GROUPS = ("dense_layers", "moe_layers", "layers")
+#: parameter groups the reference stacks on a leading layer axis (a
+#: RecurrentGemma group nests its ``r1``, ``r2`` and ``a`` layers)
+STACKED_GROUPS = ("dense_layers", "moe_layers", "layers", "groups", "tail",
+                  "enc_layers", "dec_layers")
 #: reference tree key -> port parameter name where the two differ
 PARAM_RENAMES = {"unembed": "unembed_w"}
 _TREE_KEYS = {v: k for k, v in PARAM_RENAMES.items()}

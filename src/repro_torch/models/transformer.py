@@ -1,8 +1,12 @@
 """Decoder-only transformer LM (counterpart of
-repro/models/transformer.py), ported for the dense family (TinyLlama):
-pre-norm blocks, GQA attention (+ optional qk-norm), SwiGLU MLP, RoPE.
-The MoE and VLM variants come with the slice that ports their models
-and raise here.
+repro/models/transformer.py) for the dense, MoE and VLM families
+(TinyLlama, Phi-3, DeepSeek-Coder, Qwen3, Kimi K2, Granite, InternVL2):
+pre-norm blocks, GQA attention (+ optional qk-norm), SwiGLU MLP or top-k
+MoE, RoPE; optional leading dense layers before the MoE layers (Kimi
+style, ``moe.first_k_dense``) and an optional vision-patch prefix
+(InternVL's stub frontend: precomputed patch embeddings under
+``batch["patches"]``, projected by ``patch_proj`` and put before the
+text; their positions are dropped from the hidden states).
 
 Parameters live in the module (``init_params(generator)`` draws them;
 ``interop.lm_params_from_numpy`` carries the reference's in), so the
@@ -38,17 +42,28 @@ class DenseBlock(nn.Module):
             m.init_params(generator)
 
 
+class MoEBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.ln1 = L.RMSNorm(cfg.d_model, cfg.pdtype, device)
+        self.attn = L.Attention(cfg, device)
+        self.ln2 = L.RMSNorm(cfg.d_model, cfg.pdtype, device)
+        self.moe = L.MoE(cfg, device)
+
+    def init_params(self, generator: torch.Generator) -> None:
+        for m in (self.ln1, self.attn, self.ln2, self.moe):
+            m.init_params(generator)
+
+
 class TransformerLM(nn.Module):
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         super().__init__()
-        if cfg.family != "dense" or (cfg.moe is not None
-                                     and cfg.moe.num_experts) or cfg.vlm:
-            raise NotImplementedError(
-                f"TransformerLM family {cfg.family!r} (MoE/VLM) is not "
-                f"ported yet: it comes with the remaining-models slice")
         self.cfg = cfg
         dev = resolve_device(device)
-        self.n_dense = cfg.num_layers
+        m = cfg.moe
+        self.n_dense = (cfg.num_layers if m is None or m.num_experts == 0
+                        else m.first_k_dense)
+        self.n_moe = cfg.num_layers - self.n_dense
         self.embed = L._param((cfg.padded_vocab, cfg.d_model), cfg.pdtype,
                               dev)
         self.ln_f = L.RMSNorm(cfg.d_model, cfg.pdtype, dev)
@@ -57,6 +72,11 @@ class TransformerLM(nn.Module):
                                       cfg.pdtype, dev)
         self.dense_layers = nn.ModuleList(
             DenseBlock(cfg, dev) for _ in range(self.n_dense))
+        self.moe_layers = nn.ModuleList(
+            MoEBlock(cfg, dev) for _ in range(self.n_moe))
+        if cfg.vlm is not None:
+            self.patch_proj = L._param((cfg.vlm.d_patch, cfg.d_model),
+                                       cfg.pdtype, dev)
 
     @property
     def device(self) -> torch.device:
@@ -72,32 +92,61 @@ class TransformerLM(nn.Module):
         self.ln_f.init_params(generator)
         if not cfg.tie_embeddings:
             L._normal_(self.unembed_w, 1.0 / cfg.d_model ** 0.5, generator)
-        for layer in self.dense_layers:
+        for layer in (*self.dense_layers, *self.moe_layers):
             layer.init_params(generator)
+        if cfg.vlm is not None:
+            L._normal_(self.patch_proj, 1.0 / cfg.vlm.d_patch ** 0.5,
+                       generator)
         return self
 
+    def _groups(self):
+        """The layer groups in order: (cache key, layers)."""
+        return [(key, layers) for key, layers in (("dense",
+                                                   self.dense_layers),
+                                                  ("moe", self.moe_layers))
+                if len(layers)]
+
     # ------------------------------------------------------------ forward
-    def _block(self, lp: DenseBlock, x, positions):
+    def _ffn(self, lp, z):
+        if isinstance(lp, MoEBlock):
+            return L.moe(lp.moe, z, self.cfg)
+        return L.mlp(lp.mlp, z, self.cfg)
+
+    def _block(self, lp, x, positions):
         cfg = self.cfg
         h, _ = L.attention(lp.attn, L.rms_norm(x, lp.ln1, cfg.norm_eps),
                            cfg, positions)
         x = x + h
-        z = L.rms_norm(x, lp.ln2, cfg.norm_eps)
-        return x + L.mlp(lp.mlp, z, cfg)
+        return x + self._ffn(lp, L.rms_norm(x, lp.ln2, cfg.norm_eps))
+
+    def _inputs(self, batch) -> torch.Tensor:
+        """Token embeddings, after the projected patches when the model
+        has a vision prefix and the batch brings ``patches``."""
+        adt = self.cfg.adtype
+        x = self.embed[batch["tokens"]].to(adt)
+        if self.cfg.vlm is not None and "patches" in batch:
+            vis = batch["patches"].to(adt) @ self.patch_proj.to(adt)
+            x = torch.cat([vis, x], dim=1)
+        return x
 
     def _embed(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = self.embed[batch["tokens"]].to(self.cfg.adtype)
+        x = self._inputs(batch)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         return x, positions
 
     def hidden(self, batch: Dict) -> torch.Tensor:
-        """Final-norm hidden states (B, S, D)."""
+        """Final-norm hidden states (B, S_tokens, D): patch positions are
+        dropped."""
         cfg = self.cfg
         x, positions = self._embed(batch)
-        x = scan_layers(self._block, self.dense_layers, x,
-                        remat=cfg.remat, carry_extra=positions)
-        return L.rms_norm(x, self.ln_f, cfg.norm_eps)
+        for _, layers in self._groups():
+            x = scan_layers(self._block, layers, x, remat=cfg.remat,
+                            carry_extra=positions)
+        x = L.rms_norm(x, self.ln_f, cfg.norm_eps)
+        if cfg.vlm is not None and "patches" in batch:
+            x = x[:, -batch["tokens"].shape[1]:]
+        return x
 
     def unembed(self) -> torch.Tensor:
         return (self.embed.T if self.cfg.tie_embeddings
@@ -112,40 +161,47 @@ class TransformerLM(nn.Module):
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch: int, max_seq: int) -> Dict:
+        """K/V caches (L, B, Hkv, max_seq, D) per layer group; the index
+        is a Python int."""
         cfg = self.cfg
-        shape = (self.n_dense, batch, cfg.kv_heads, max_seq, cfg.hd)
         zeros = dict(dtype=cfg.adtype, device=self.device)
-        return {"index": 0,
-                "dense": {"k": torch.zeros(shape, **zeros),
-                          "v": torch.zeros(shape, **zeros)}}
+        cache = {"index": 0}
+        for key, layers in self._groups():
+            shape = (len(layers), batch, cfg.kv_heads, max_seq, cfg.hd)
+            cache[key] = {"k": torch.zeros(shape, **zeros),
+                          "v": torch.zeros(shape, **zeros)}
+        return cache
 
-    def _block_cached(self, lp: DenseBlock, x, layer_cache, extra):
+    def _block_cached(self, lp, x, layer_cache, extra):
         cfg = self.cfg
         positions, idx = extra
         h, (k_c, v_c, _) = L.attention(
             lp.attn, L.rms_norm(x, lp.ln1, cfg.norm_eps), cfg, positions,
             cache=(layer_cache["k"], layer_cache["v"], idx))
         x = x + h
-        z = L.rms_norm(x, lp.ln2, cfg.norm_eps)
-        return x + L.mlp(lp.mlp, z, cfg), {"k": k_c, "v": v_c}
+        x = x + self._ffn(lp, L.rms_norm(x, lp.ln2, cfg.norm_eps))
+        return x, {"k": k_c, "v": v_c}
 
     def forward_cached(self, cache: Dict,
                        batch: Dict) -> Tuple[torch.Tensor, Dict]:
-        """Shared prefill/decode: consumes tokens at positions
+        """Shared prefill/decode: consumes tokens (after the projected
+        patches, when the batch brings them) at positions
         ``cache["index"]`` on, appends their K/V to the cache (in place)
         and returns the last position's (B, 1, padded_vocab) float32
         logits with the cache at its new index."""
         cfg = self.cfg
         idx = cache["index"]
-        x = self.embed[batch["tokens"]].to(cfg.adtype)
+        x = self._inputs(batch)
         b, s, _ = x.shape
         positions = idx + torch.arange(s, device=x.device)[None].expand(b, s)
-        x, kv = scan_layers_with_cache(self._block_cached,
-                                       self.dense_layers, x, cache["dense"],
-                                       carry_extra=(positions, idx))
+        new_cache = {"index": idx + s}
+        for key, layers in self._groups():
+            x, new_cache[key] = scan_layers_with_cache(
+                self._block_cached, layers, x, cache[key],
+                carry_extra=(positions, idx))
         x = L.rms_norm(x, self.ln_f, cfg.norm_eps)
         logits = (x[:, -1:] @ self.unembed().to(cfg.adtype)).float()
-        return logits, {"index": idx + s, "dense": kv}
+        return logits, new_cache
 
     prefill = forward_cached
     decode_step = forward_cached

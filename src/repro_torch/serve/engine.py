@@ -6,7 +6,9 @@ with token 0 to its longest prompt, with no attention mask (pad tokens
 are attended to and take positions, as in the reference), prefilled into
 a fresh cache, then decoded greedily: the argmax runs over the padded
 vocab, as the reference's does. A request stops at ``eos_id`` or after
-``max_new_tokens``. The model runs on the device its parameters are on.
+``max_new_tokens``. ``extra_inputs`` (InternVL2's ``patches``,
+Whisper's ``frames``) go to every batch's prefill, as in the reference.
+The model runs on the device its parameters are on.
 """
 from __future__ import annotations
 

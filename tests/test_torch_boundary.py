@@ -31,6 +31,8 @@ import repro_torch.interop, repro_torch.fabric, repro_torch.core.pnr
 import repro_torch.kernels.ops, repro_torch.configs.cgra_amber
 import repro_torch.models, repro_torch.serve.engine, repro_torch.launch.serve
 import repro_torch.configs.tinyllama_1_1b, repro_torch.configs.mamba2_1_3b
+from repro_torch.configs import list_archs, get_config
+[get_config(a) for a in list_archs()]
 import repro_torch.train.step, repro_torch.optim, repro_torch.ckpt
 import repro_torch.data, repro_torch.runtime, repro_torch.launch.train
 import repro_torch.roofline, repro_torch.core.ici

@@ -554,21 +554,52 @@ def test_flash_attention_full_matches_pallas(jlm):
     np.testing.assert_allclose(got[0].numpy(), want, atol=2e-5, rtol=2e-5)
 
 
-def tensor_core_model(q, k, v, causal, keys=128, split=True):
+@pytest.mark.parametrize("d", [96, 112])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_new_head_dims_match_pallas(jlm, d, dtype):
+    """Head dims 96 (Phi-3) and 112 (Kimi K2) on the plain path against
+    the Pallas kernel in interpret mode (which takes any head dim) and
+    the float64 oracle, GQA and a ragged length, at the reference test's
+    tolerances."""
+    import jax.numpy as jnp
+    q, k, v = attention_case(200, 200, 4, 2, d=d, seed=d)
+    jdt = getattr(jnp, dtype)
+    want = np.asarray(jlm.flash_attention(
+        jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+        causal=True).astype(jnp.float32))
+    qt, kt, vt = (torch.as_tensor(a).to(getattr(torch, dtype))
+                  for a in (q, k, v))
+    got = flash_attention.flash_attention_gqa(qt, kt, vt, causal=True)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol,
+                               rtol=tol)
+    oracle = ref.attention_ref(
+        qt.double().reshape(-1, 200, d),
+        kt.double().repeat_interleave(2, 1).reshape(-1, 200, d),
+        vt.double().repeat_interleave(2, 1).reshape(-1, 200, d))
+    np.testing.assert_allclose(got.float().numpy(),
+                               oracle.reshape(got.shape).numpy(), atol=tol,
+                               rtol=tol)
+
+
+def tensor_core_model(q, k, v, causal, keys=128, split=True,
+                      scale_d=None):
     """The bf16 tensor-core kernel's rounding, in float32 torch: per tile
     of ``keys`` keys, S = Q K^T of the bf16 values with float32 sums, then
     scaled; the online softmax in float32; P carried as two bf16 terms
     hi = bf16(p), lo = bf16(p - hi) (only hi with ``split=False``), each
     multiplied by V with float32 sums; the output divided by
-    max(l, 1e-30) and rounded to bf16."""
+    max(l, 1e-30) and rounded to bf16. ``scale_d``: the head dim of the
+    scale, where the inputs are padded past it."""
     b, hq, sq, d = q.shape
     rep = hq // k.shape[1]
     k, v = (t.repeat_interleave(rep, 1).float() for t in (k, v))
     skv = k.shape[2]
+    d = scale_d or d
     q = q.float()
     m = torch.full((b, hq, sq, 1), flash_attention.NEG_INF)
     den = torch.zeros((b, hq, sq, 1))
-    acc = torch.zeros((b, hq, sq, d))
+    acc = torch.zeros((b, hq, sq, q.shape[-1]))
     qi = torch.arange(sq)[:, None]
     for k0 in range(0, skv, keys):
         kt, vt = k[:, :, k0:k0 + keys], v[:, :, k0:k0 + keys]
@@ -585,6 +616,24 @@ def tensor_core_model(q, k, v, causal, keys=128, split=True):
         acc = acc * alpha + hi @ vt + lo @ vt
         m = m_new
     return (acc / den.clamp_min(1e-30)).bfloat16()
+
+
+@pytest.mark.parametrize("d", [96, 112])
+def test_flash_attention_padded_tile_keeps_the_tolerance(d):
+    """The tensor-core kernel's route for D 96 and 112, without the card:
+    q, k and v padded with zero columns to the tile width of 128 (TMA's
+    out-of-bounds fill), 64-key tiles, the scale of the true D, the
+    first D output columns kept. The zero columns add nothing to Q K^T
+    or P V, so the result stays within the card tests' bf16 tolerance of
+    the plain version at D, and the padded columns come out zero."""
+    q, k, v = (torch.as_tensor(a).bfloat16()
+               for a in attention_case(300, 300, 4, 2, d=d, b=1, seed=d))
+    pad = [torch.nn.functional.pad(t, (0, 128 - d)) for t in (q, k, v)]
+    got = tensor_core_model(*pad, causal=True, keys=64, scale_d=d)
+    assert not got[..., d:].any()
+    want = flash_attention.flash_attention_gqa_plain(q, k, v, causal=True)
+    torch.testing.assert_close(got[..., :d].float(), want.float(),
+                               atol=1e-4, rtol=2.0 ** -7)
 
 
 def test_flash_attention_hi_lo_probabilities_keep_the_tolerance():
@@ -719,11 +768,15 @@ def test_lm_oracles_match_reference(jlm):
 
 def test_lm_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     """The launch paths check before they build or launch anything: the
-    flash kernel takes head dim 64 or 128 in f32/bf16, the SSD kernel
-    (chunk, P, N) in its instantiated set."""
+    flash kernel takes head dim 64, 96, 112 or 128 in f32/bf16, the SSD
+    kernel (chunk, P, N) in its instantiated set."""
     q = torch.zeros((1, 2, 4, 32))
     with pytest.raises(ValueError, match="head dim"):
         flash_attention._launch(q, q, q, True)
+    for d in (48, 80, 100, 120, 256):
+        qd = torch.zeros((1, 2, 4, d))
+        with pytest.raises(ValueError, match="head dim"):
+            flash_attention._launch(qd, qd, qd, True)
     with pytest.raises(TypeError):
         flash_attention._launch(q.half(), q.half(), q.half(), True)
     x, dt, a, b, c = map(torch.as_tensor, ssd_case(2, 16, 8, 4, seed=1))
@@ -1064,6 +1117,16 @@ class TestCudaKernels:
         (1, 16, 2, 190, 190, 128, "bfloat16", True),
         (1, 2, 1, 1, 1, 64, "bfloat16", True),
         (1, 2, 2, 1, 1, 128, "bfloat16", True),
+        # head dims 96 (Phi-3) and 112 (Kimi K2): the tile width of 128
+        # with the columns past D read as zeros, on both kernels
+        (1, 4, 2, 130, 130, 96, "bfloat16", True),
+        (2, 4, 4, 200, 333, 96, "bfloat16", False),
+        (1, 8, 1, 300, 300, 112, "bfloat16", True),
+        (1, 3, 3, 70, 150, 112, "bfloat16", False),
+        (1, 2, 1, 1, 1, 112, "bfloat16", True),
+        (2, 2, 2, 130, 384, 96, "float32", True),
+        (1, 4, 2, 190, 190, 112, "float32", True),
+        (1, 3, 3, 70, 150, 112, "float32", False),
     ])
     def test_flash_attention(self, cuda, b, hq, hkv, sq, skv, d, dtype,
                              causal):

@@ -31,6 +31,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.models import build_model
 from repro_torch.models import layers as L
+from repro_torch.models.config import MoEConfig, VLMConfig
 from repro_torch.serve import ServeEngine
 
 ARCHS = ("tinyllama_1_1b", "mamba2_1_3b")
@@ -291,15 +292,34 @@ def _stop():
 
 
 #: narrow, two-layer cuts of the FULL configs with the kernels' shapes
-#: (head dim 64; P 64, N 128, chunk 128)
+#: (head dim 64, 96 (Phi-3), 112 (Kimi K2's ``head_dim``) or 128; P 64,
+#: N 128, chunk 128); the MoE and VLM cuts keep their family's parts
 KERNEL_SHAPED = {
     "tinyllama_1_1b": dict(num_layers=2, d_model=256, num_heads=4,
                            kv_heads=2, d_ff=256, vocab_size=256),
     "mamba2_1_3b": dict(num_layers=2, d_model=128, vocab_size=256),
+    "phi3_mini_3_8b": dict(num_layers=2, d_model=384, num_heads=4,
+                           kv_heads=4, d_ff=256, vocab_size=256),
+    "qwen3_14b": dict(num_layers=2, d_model=256, num_heads=4, kv_heads=2,
+                      d_ff=256, vocab_size=256),
+    "deepseek_coder_33b": dict(num_layers=2, d_model=512, num_heads=4,
+                               kv_heads=2, d_ff=256, vocab_size=256),
+    "kimi_k2_1t_a32b": dict(
+        num_layers=2, d_model=128, num_heads=4, kv_heads=2, d_ff=256,
+        vocab_size=256, moe=MoEConfig(num_experts=8, top_k=2,
+                                      d_ff_expert=64, first_k_dense=1,
+                                      d_ff_shared=64)),
+    "granite_moe_3b_a800m": dict(
+        num_layers=2, d_model=256, num_heads=4, kv_heads=2, d_ff=64,
+        vocab_size=256, moe=MoEConfig(num_experts=4, top_k=2,
+                                      d_ff_expert=64)),
+    "internvl2_2b": dict(num_layers=2, d_model=256, num_heads=2,
+                         kv_heads=1, d_ff=256, vocab_size=256,
+                         vlm=VLMConfig(num_patches=8, d_patch=32)),
 }
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", list(KERNEL_SHAPED))
 def test_kernel_branch_passes_the_launch_checks(arch, monkeypatch):
     """On the card the kernel branch must hand each kernel what its launch
     takes (contiguous, dtype, shape). Here every launch check runs on the
@@ -327,11 +347,17 @@ def test_kernel_branch_passes_the_launch_checks(arch, monkeypatch):
                                    **KERNEL_SHAPED[arch])
     model = build_model(cfg, "cpu").init_params(
         torch.Generator().manual_seed(0))
+    batch = {"tokens": torch.as_tensor(tokens(2, 130)).long()}
+    if cfg.vlm is not None:
+        batch["patches"] = torch.randn((2, cfg.vlm.num_patches,
+                                        cfg.vlm.d_patch),
+                                       generator=torch.Generator()
+                                       .manual_seed(1))
     with torch.inference_mode():
-        out = model.logits({"tokens": torch.as_tensor(tokens(2, 130))
-                            .long()})
+        out = model.logits(batch)
     assert torch.isfinite(out).all()
-    kernel = "flash_attention" if cfg.family == "dense" else "ssd_scan"
+    assert out.shape == (2, 130, cfg.padded_vocab)
+    kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
     assert seen == [kernel] * cfg.num_layers
 
 
@@ -449,7 +475,7 @@ def test_init_params_is_seeded():
 
 
 # ----------------------------------------------------------------- configs
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", list_archs())
 @pytest.mark.parametrize("which", ["full", "smoke"])
 def test_configs_match_reference(arch, which):
     """Field by field, the reference's ``attn_impl`` name mapped."""
@@ -473,24 +499,6 @@ def test_full_config_sizes():
     model = build_model(tl, "meta")
     n = sum(p.numel() for p in model.state_dict().values())
     assert 1.09e9 < n < 1.11e9
-
-
-@pytest.mark.parametrize("arch", [a for a in list_archs()
-                                  if a not in ARCHS])
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config(arch)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_smoke(arch)
-
-
-@pytest.mark.parametrize("family", ["moe", "vlm", "hybrid", "audio"])
-def test_unported_families_raise(family):
-    cfg = get_smoke("tinyllama-1.1b").replace(family=family)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model(cfg, "cpu")
-    with pytest.raises(ValueError, match="unknown model family"):
-        build_model(cfg.replace(family="nope"), "cpu")
 
 
 def test_params_from_numpy_rejects_missing_and_extra_keys():
