@@ -93,6 +93,14 @@ after; each must have launched the kernels it exists to drive.
              kernel-free models are held instead to the port's CPU path
              on the same weights, at full width and a cut depth, in
              float32 (``CPU_CHECK``).
+   lm_smoke_kernels — every smoke config whose family reaches a kernel
+             (TinyLlama, Mamba2, Phi-3, Qwen3, DeepSeek-Coder, Kimi K2,
+             Granite, InternVL2: head dims 8 and 16, Mamba2's chunk 32,
+             P 16, N 16), ``logits`` with ``attn_impl="kernel"`` at B 2 x
+             S 96, each its own phase ``lm_smoke_kernels:<arch>``: one
+             launch of its family's kernel a layer, exactly, and within
+             the ``LM_*`` gate of the plain path (no witness or control:
+             the smoke shapes only have to reach the kernels).
 10. lm_serve — ``ServeEngine`` on each model: 8 requests (prompts of
              3-11 tokens, batch 4, 16 new tokens, ``max_seq`` 128, 512
              for InternVL2's patches; patches and frames as
@@ -113,9 +121,14 @@ after; each must have launched the kernels it exists to drive.
              ``scaled_dot_product_attention`` on the same inputs
              (``library_ms``, a yardstick the port never calls) and the
              achieved TFLOP/s by the function's 4 D FLOPs a causal pair
-             (``tflops``), at TinyLlama's shape and, under ``shapes``,
-             at Phi-3's (D 96) and Kimi K2's (D 112); ``minplus_step`` is timed at B 32 (the row)
-             and at B 8 (``by_batch``). ``ms`` and
+             (``tflops``), at TinyLlama's shape and, under ``shapes``, at
+             Phi-3's (D 96), Kimi K2's (D 112) and Qwen3's (D 128), in
+             float16 at TinyLlama's, and at D 16 and RecurrentGemma's D
+             256 (``FLASH_SHAPES``), each with its plan (kernel, tile
+             width, padded row); ``ssd_scan`` also at the smoke
+             configs' (chunk 32, P 16, N 16; ``SSD_SHAPES``);
+             ``minplus_step`` is timed at B 32 (the row) and at B 8
+             (``by_batch``). ``ms`` and
              ``plain_ms`` are device time: back-to-back calls captured in
              one CUDA graph and timed over a replay (``timing: graph``;
              the fused kernels' plain versions, thousands of small
@@ -144,14 +157,21 @@ after; each must have launched the kernels it exists to drive.
              has freed its models. Throughput: TinyLlama-1.1B at FULL (22
              layers, remat ``dots``), global batch 8 x S 2,048 in 4
              microbatches, AdamW, 6 steps; Mamba2-1.3B at FULL (48 layers),
-             batch 4 x S 2,048, 4 steps; random weights from a seed, no
-             checkpoint writes. Every loss and gradient norm must be finite,
+             batch 4 x S 2,048, 4 steps; Granite-MoE (Adafactor),
+             InternVL2-2B (AdamW, 256 stub patches), RecurrentGemma-2B
+             (Adafactor) and Whisper-medium (AdamW, 1,500 stub frames) at
+             FULL, each full depth, remat ``full``, batch 4 x S 2,048, 4
+             steps; Kimi K2 at its dense layer and one MoE layer,
+             Adafactor, batch 2, its experts cut from 384 to 40
+             (``TRAIN_RUNS``); random
+             weights from a seed, no checkpoint writes. Every loss and gradient norm must be finite,
              and the lowest loss of the last half of the steps must sit
              ``TRAIN_DROP`` of the first below it; the same run at rate 0 (the
              control) must fail that check. Per model: the median seconds a
              step without the first, tokens/s, the peak of
              ``torch.cuda.max_memory_allocated`` and ``mfu`` (6 N D over the
-             step time and the card's dense bf16 peak). Restart: TinyLlama at
+             step time and the card's dense bf16 peak; N an MoE model's
+             active parameters). Restart: TinyLlama at
              full width and 2 layers, Adafactor, under
              ``torch.use_deterministic_algorithms``: a checkpoint every 2
              steps, a ``TrainingFailure`` injected at step 3, the supervisor
@@ -159,6 +179,9 @@ after; each must have launched the kernels it exists to drive.
              uninterrupted run's bit for bit, and a save then restore of it
              must give every tensor back bit for bit (in a temporary directory,
              removed afterwards).
+13. examples — the port's four examples (``examples/torch_*.py``:
+             quickstart, the DSE example, serving, training) on the card at
+             their default sizes, each asserting its own result.
 
 Before the last line it prints each phase's seconds and launches, the
 per-app PnR seconds, the emulation times, the ``train`` and ``kernels``
@@ -223,9 +246,27 @@ CPU_CHECK = {
                                                  encoder_layers=2)),
 }
 CPU_CHECK_BATCH, CPU_CHECK_SEQ, CPU_CHECK_TOL = 1, 256, 1e-3
-#: ``flash_attention`` is also timed at the head dims of Phi-3 (96, MHA)
-#: and Kimi K2 (112, 64 q heads on 8 kv heads), B 2, S 2,048
-FLASH_SHAPES = ((32, 32, 96), (64, 8, 112))
+#: ``flash_attention`` is also timed, B 2, S 2,048, at (Hq, Hkv, D,
+#: dtype): the head dims of Phi-3 (96, MHA), Kimi K2 (112, 64 q heads on
+#: 8 kv heads) and Qwen3 (128, 40 on 8), bf16; TinyLlama's shape in
+#: float16 (the kernel instantiated for __half); D 16 (the smoke configs'
+#: head dim, the tile of 64) at 16 heads on 4; and RecurrentGemma's D 256
+#: (10 q heads on 1, the tile of 256), which no path sends to the kernel
+FLASH_SHAPES = ((32, 32, 96, "bfloat16"), (64, 8, 112, "bfloat16"),
+                (40, 8, 128, "bfloat16"), (32, 4, 64, "float16"),
+                (16, 4, 16, "bfloat16"), (10, 1, 256, "bfloat16"))
+#: ``ssd_scan`` is also timed at the smoke configs' instantiation
+#: (chunk 32, P 16, N 16), BH 128, L 2,048
+SSD_SHAPES = ((128, 2048, 16, 16, 32),)
+#: the ``lm_smoke_kernels`` step: every smoke config whose family reaches
+#: a kernel, at its smoke width and depth (head dim 8 or 16; Mamba2's
+#: chunk 32, P 16, N 16: shapes the kernels' first instantiations did not
+#: take), ``logits`` on the kernel path at B 2 x S 96 held to the plain
+#: path by the ``LM_*`` gate
+LM_SMOKE = ("tinyllama-1.1b", "mamba2-1.3b", "phi3-mini-3.8b", "qwen3-14b",
+            "deepseek-coder-33b", "kimi-k2-1t-a32b", "granite-moe-3b-a800m",
+            "internvl2-2b")
+LM_SMOKE_BATCH, LM_SMOKE_SEQ = 2, 96
 #: kernel vs plain logits at bf16, at full depth with random weights
 #: (``logit_gap``): max |difference| over the largest |logit|, the
 #: largest per-position relative error, and the share of positions whose
@@ -275,8 +316,41 @@ BOX_ROUNDS = 5
 #: microbatches of 2: with 2 of 4, ``dots`` keeps 22 f32 score matrices
 #: of 2 GiB, and the first forward ran out of the card's 80 GB (75.3 GiB
 #: allocated)
+#:
+#:
+#: The other four families train at full width and depth (InternVL2 with
+#: 256 stub patches, Whisper over 1,500 stub frames), under remat
+#: ``full`` (their ``dots`` keeps every layer's float32 attention scores:
+#: ~13 GB a sequence for Granite) and without microbatches (whose float32
+#: gradient sums cost 4 bytes a parameter). Granite-MoE (3.4 B
+#: parameters; peak 57.5 GB) and RecurrentGemma (2.3 B) take Adafactor:
+#: AdamW's two float32 moments, old and new side by side in the update,
+#: put RecurrentGemma at 74.7 GB and Granite past the card. Kimi K2 runs
+#: its dense layer and one MoE layer with Adafactor, the experts cut from
+#: 384 (19.9 G parameters, ~40 GB of bf16 weights before gradients and
+#: moments) to 40, the most of 64, 48, 40 that fit the card in
+#: ``tools/torch_train_probe.py`` (peak 73.1 GB; out of memory fails the
+#: phase). Their rates, on an
+#: H100 80GB HBM3 at 700 W: at 1e-4 the new models' losses jump (Whisper
+#: 131, 102, 149, 125: under the check) or climb (RecurrentGemma with
+#: Adafactor 232, 462, 566, 596: Adafactor's second moment has no bias
+#: correction, so its first updates are several times AdamW's at one
+#: rate); at 3e-5 (AdamW) and 1e-5 (Adafactor) each fell 15-29% in 4
+#: steps
 TRAIN_SEQ = 2048
-TRAIN_RUNS = (("tinyllama-1.1b", 8, 4, 6), ("mamba2-1.3b", 4, 0, 4))
+#: (arch, global batch, microbatches, steps, optimizer, peak rate,
+#: config overrides; ``num_experts`` cuts an MoE config's experts)
+TRAIN_RUNS = (
+    ("tinyllama-1.1b", 8, 4, 6, "adamw", 1e-4, {}),
+    ("mamba2-1.3b", 4, 0, 4, "adamw", 1e-4, {}),
+    ("granite-moe-3b-a800m", 4, 0, 4, "adafactor", 1e-5, {"remat": "full"}),
+    ("internvl2-2b", 4, 0, 4, "adamw", 3e-5, {"remat": "full"}),
+    ("recurrentgemma-2b", 4, 0, 4, "adafactor", 1e-5, {"remat": "full"}),
+    ("whisper-medium", 4, 0, 4, "adamw", 3e-5, {"remat": "full"}),
+    ("kimi-k2-1t-a32b", 2, 0, 4, "adafactor", 1e-5,
+     {"num_layers": 2, "num_experts": 40}),
+)
+#: the restart leg's rate, and the loss check
 TRAIN_LR, TRAIN_DROP = 1e-4, 0.05
 #: the restart leg: steps, batch, a checkpoint every, the failure's step
 RESTART_STEPS, RESTART_BATCH, RESTART_EVERY, RESTART_FAIL = 5, 4, 2, 3
@@ -302,6 +376,9 @@ PHASE_KERNELS = {
     "lm_serve": (),
     # training runs the plain branch: the kernels have no backward
     "train": (),
+    # the examples drive the fabric kernels on their own small fabrics;
+    # none is required of them
+    "examples": (),
 }
 KERNEL_PATH = {"fabric_sweep": "emulate", "fabric_sweep_batch": "verify",
                "hpwl": "smoke", "flash_attention": "lm_score",
@@ -1528,14 +1605,16 @@ def cpu_check(name, cfg, device):
             "dtype": "float32", "rel_err": err}
 
 
-def lm_score_phase(name, model, plain, device, batch, seq):
+def lm_score_phase(name, model, plain, device, batch, seq, controls=True):
     """``logits`` of one model on the kernel path and the plain path:
     finite, of shape (B, S, padded vocab), within the ``LM_*`` gate. Two
     more forwards of the kernel path hold the gate to account: with the
     kernel's plain version in its place (the witness) the logits must
     pass it too, and with a wrong function in its place (the control),
     fail it. A kernel-free family has no witness or control: its card
-    logits are held to the CPU instead (``cpu_check``).
+    logits are held to the CPU instead (``cpu_check``). With ``controls``
+    False (the smoke configs of ``lm_smoke_kernels``) the kernel path is
+    held to the plain path alone.
 
     An MoE model's expert choice is a top k: where two gates nearly tie,
     the last bf16 ulp of the attention picks the expert, and the chosen
@@ -1577,7 +1656,7 @@ def lm_score_phase(name, model, plain, device, batch, seq):
         gaps = {"plain": logit_gap(logits["kernel"], logits["plain"])}
         if routes is not None:
             rec["route_flips"], rec["route_tokens"] = flips
-        swaps = kernel_swaps(cfg)
+        swaps = kernel_swaps(cfg) if controls else None
         if swaps is not None:
             module, attr, fns = swaps
             for label, fn in fns.items():
@@ -1595,7 +1674,7 @@ def lm_score_phase(name, model, plain, device, batch, seq):
         if passes(gap) == (label == "control"):
             raise AssertionError(f"{name}: the gate misjudges the "
                                  f"{label} logits: {gap}")
-    if name in CPU_CHECK:
+    if controls and name in CPU_CHECK:
         rec["cpu_check"] = cpu_check(name, cfg, device)
         log(f"lm_score {name}: card against CPU {rec['cpu_check']}")
     return {**rec, "gaps": gaps, "plain_argmax_tokens": plain_top,
@@ -1659,19 +1738,45 @@ def lm_serve_phase(name, model, serve):
             "first_tokens": first[0][:8]}
 
 
-def train_run(device, arch, batch, microbatches, steps, lr):
-    """One throughput run of ``launch.train.train`` at FULL; its record
-    and whether its loss fell by ``TRAIN_DROP`` (the lowest of the last
-    half of the steps against the first)."""
+def config_overrides(arch, overrides):
+    """``overrides`` as ``ModelConfig.replace`` takes them: a
+    ``num_experts`` cut becomes the arch's MoE config with that many."""
+    from repro_torch.configs import get_config
+
+    overrides = dict(overrides)
+    if "num_experts" in overrides:
+        overrides["moe"] = dataclasses.replace(
+            get_config(arch).moe, num_experts=overrides.pop("num_experts"))
+    return overrides
+
+
+def train_config(arch, overrides):
+    from repro_torch.configs import get_config
+
+    return get_config(arch).replace(**config_overrides(arch, overrides))
+
+
+def train_run(device, arch, batch, microbatches, steps, lr,
+              optimizer="adamw", overrides=None):
+    """One throughput run of ``launch.train.train`` at FULL (its config
+    ``overrides`` applied; a VLM's stub patches and Whisper's stub frames
+    join every batch); its record and whether its loss fell by
+    ``TRAIN_DROP`` (the lowest of the last half of the steps against the
+    first). MFU counts an MoE model's active parameters, as the roofline
+    model does."""
     from repro_torch.launch.train import train
-    from repro_torch.roofline.analysis import count_params, model_flops
+    from repro_torch.roofline.analysis import (active_params, count_params,
+                                               model_flops)
     from repro_torch.roofline.hw import H100_SXM
 
+    overrides = config_overrides(arch, overrides or {})
+    extra = lm_extra(train_config(arch, overrides), batch, device)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
     out = train(arch=arch, steps=steps, seq=TRAIN_SEQ, batch=batch,
                 microbatches=microbatches, device=device, lr=lr, warmup=1,
-                ckpt_every=steps + 1)
+                ckpt_every=steps + 1, optimizer=optimizer,
+                overrides=overrides, extra_inputs=extra)
     hist = [h for h in out["history"] if h["event"] == "step"]
     losses = [h["metrics"]["loss"] for h in hist]
     norms = [h["metrics"]["grad_norm"] for h in hist]
@@ -1681,15 +1786,21 @@ def train_run(device, arch, batch, microbatches, steps, lr):
     seconds = [h["seconds"] for h in hist]
     step_s = float(np.median(seconds[1:]))
     tokens = batch * TRAIN_SEQ
+    cfg = out["config"]
     n_params = count_params(out["model"])
+    n_active = active_params(cfg, n_params)
     drop = (losses[0] - min(losses[steps // 2:])) / abs(losses[0])
     rec = {"steps": steps, "batch": batch, "seq": TRAIN_SEQ,
-           "microbatches": microbatches, "remat": out["config"].remat,
-           "lr": lr, "params": n_params, "losses": losses,
-           "grad_norms": norms, "loss_drop": drop, "step_seconds": seconds,
-           "step_s": step_s, "tokens_per_s": tokens / step_s,
+           "microbatches": microbatches, "remat": cfg.remat,
+           "optimizer": optimizer, "layers": cfg.num_layers,
+           "experts": cfg.moe.num_experts if cfg.moe else None,
+           "extra_inputs": {k: list(v.shape) for k, v in extra.items()},
+           "lr": lr, "params": n_params, "active_params": n_active,
+           "losses": losses, "grad_norms": norms, "loss_drop": drop,
+           "step_seconds": seconds, "step_s": step_s,
+           "tokens_per_s": tokens / step_s,
            "max_memory_bytes": torch.cuda.max_memory_allocated(device),
-           "mfu": model_flops(n_params, tokens, "train")
+           "mfu": model_flops(n_active, tokens, "train")
            / (step_s * H100_SXM.peak_flops_bf16)}
     del out
     torch.cuda.empty_cache()
@@ -1755,14 +1866,28 @@ def train_phase(device):
     """Phase 12: the FULL models' training steps (each with its rate-0
     control) and the restart leg."""
     runs = {}
-    for arch, batch, microbatches, steps in TRAIN_RUNS:
-        rec, falls = train_run(device, arch, batch, microbatches, steps,
-                               TRAIN_LR)
+    for arch, batch, microbatches, steps, optimizer, lr, overrides in \
+            TRAIN_RUNS:
+        full = train_config(arch, {})
+        cut = {k: [full_n, overrides[o]] for k, o, full_n in (
+            ("layers", "num_layers", full.num_layers),
+            ("experts", "num_experts", full.moe and full.moe.num_experts))
+            if o in overrides}
+        if cut:
+            log(f"train {arch}: cut (full width) "
+                + ", ".join(f"{k} from {a} to {b}"
+                            for k, (a, b) in cut.items()))
+        rec, falls = train_run(device, arch, batch, microbatches, steps, lr,
+                               optimizer, overrides)
         control, control_falls = train_run(device, arch, batch,
-                                           microbatches, steps, 0.0)
-        log(f"train {arch}: {rec['step_s']:.3f} s/step, mfu "
-            f"{rec['mfu']:.3f}, losses {rec['losses']}; control "
-            f"{control['losses']}")
+                                           microbatches, steps, 0.0,
+                                           optimizer, overrides)
+        log(f"train {arch}: batch {batch} x {TRAIN_SEQ} in "
+            f"{max(microbatches, 1)} microbatch(es), {optimizer}, remat "
+            f"{rec['remat']}; {rec['step_s']:.3f} s/step, "
+            f"{rec['tokens_per_s']:.0f} tokens/s, mfu {rec['mfu']:.3f}, "
+            f"peak {rec['max_memory_bytes'] / 1e9:.1f} GB, losses "
+            f"{rec['losses']}; control {control['losses']}")
         if not falls:
             raise AssertionError(f"train {arch}: the loss fell "
                                  f"{rec['loss_drop']:.4f} < {TRAIN_DROP}")
@@ -1771,6 +1896,8 @@ def train_phase(device):
                                  f"the rate-0 control")
         rec["control"] = {k: control[k] for k in ("losses", "loss_drop",
                                                   "step_s")}
+        if cut:
+            rec["cut"] = cut
         runs[arch] = rec
     return {"runs": runs, "restart": restart_leg(device)}
 
@@ -1788,31 +1915,36 @@ def flash_row(device, b=LM_BATCH, hq=32, hkv=4, s=LM_SEQ, d=64):
     """``flash_attention`` at TinyLlama's shape on the LM path, bf16,
     with the same measurements at ``FLASH_SHAPES`` under ``shapes``."""
     row = flash_shape(device, b, hq, hkv, s, d)
-    row["shapes"] = [flash_shape(device, b, h, kv, s, dd)
-                     for h, kv, dd in FLASH_SHAPES]
+    row["shapes"] = [flash_shape(device, b, h, kv, s, dd, dt)
+                     for h, kv, dd, dt in FLASH_SHAPES]
     return row
 
 
-def flash_shape(device, b, hq, hkv, s, d):
+#: |got - want| <= atol + rtol |want| of a 16-bit flash output: one ulp
+FLASH_TOL = {"bfloat16": dict(atol=FLASH_ATOL, rtol=FLASH_RTOL),
+             "float16": dict(atol=FLASH_ATOL, rtol=2.0 ** -10)}
+
+
+def flash_shape(device, b, hq, hkv, s, d, dtype="bfloat16"):
     """One shape of the ``flash_attention`` row: held to the plain
     version, its control rejected, timed beside the plain version and
     SDPA, with its bound."""
     from repro_torch.kernels import flash_attention as fa
 
+    tdt, tol = getattr(torch, dtype), FLASH_TOL[dtype]
     g = torch.Generator(device).manual_seed(5)
-    q = torch.randn((b, hq, s, d), generator=g, device=device).bfloat16()
-    k = torch.randn((b, hkv, s, d), generator=g, device=device).bfloat16()
-    v = torch.randn((b, hkv, s, d), generator=g, device=device).bfloat16()
+    q = torch.randn((b, hq, s, d), generator=g, device=device).to(tdt)
+    k = torch.randn((b, hkv, s, d), generator=g, device=device).to(tdt)
+    v = torch.randn((b, hkv, s, d), generator=g, device=device).to(tdt)
     got = fa.flash_attention_gqa(q, k, v, causal=True)
     want = fa.flash_attention_gqa_plain(q, k, v, causal=True)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
-    if not torch.allclose(got.float(), want.float(), atol=FLASH_ATOL,
-                          rtol=FLASH_RTOL):
-        raise AssertionError(f"flash_attention (D {d}) differs by {err}")
+    if not torch.allclose(got.float(), want.float(), **tol):
+        raise AssertionError(f"flash_attention (D {d}, {dtype}) differs "
+                             f"by {err}")
     bad = leaky_attention(q, k, v)
-    row_control(f"flash_attention (D {d})", bad, want, atol=FLASH_ATOL,
-                rtol=FLASH_RTOL)
+    row_control(f"flash_attention (D {d}, {dtype})", bad, want, **tol)
     control_err = float((bad.float() - want.float()).abs().max())
     del bad
     pairs = s * (s + 1) // 2                    # causal (q, k) pairs
@@ -1832,16 +1964,38 @@ def flash_shape(device, b, hq, hkv, s, d):
                                                 enable_gqa=True), 10),
             "tflops": flops / (times["ms"] * 1e-3) / 1e12,
             "control_err": control_err,
+            "plan": fa.plan(d, tdt)._asdict(),
             "shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d,
-                      "dtype": "bfloat16", "causal": True}}
+                      "dtype": dtype, "causal": True}}
 
 
 def ssd_row(device, earlier, bh=LM_BATCH * 64, seq=LM_SEQ, p=64, n=128,
             chunk=128):
     """``ssd_scan`` at Mamba2-1.3B's shape on the LM path, float32, with
     the reference test's input ranges, beside ``earlier`` (its kernel
-    before the redesign)."""
+    before the redesign); the same measurements at ``SSD_SHAPES`` under
+    ``shapes``."""
     from repro_torch.kernels import build
+    from repro_torch.kernels import ssd_scan as ssd
+
+    row, (x, dt, a, b, c), want = ssd_shape(device, bh, seq, p, n, chunk)
+    old = torch.empty_like(want)
+
+    def launch_earlier():
+        build.check(earlier(*(t.data_ptr() for t in (x, dt, a, b, c, old)),
+                            bh, seq, p, n, chunk, build.stream_ptr(device)),
+                    "earlier ssd_scan")
+    row["earlier_ms"] = earlier_ms("ssd_scan", launch_earlier, old, want,
+                                   reps=10, atol=SSD_TOL, rtol=SSD_TOL)
+    del x, dt, a, b, c, want, old
+    row["shapes"] = [ssd_shape(device, *shape)[0] for shape in SSD_SHAPES]
+    return row
+
+
+def ssd_shape(device, bh, seq, p, n, chunk):
+    """One shape of the ``ssd_scan`` row, held to the plain version, its
+    control rejected, timed beside it, with its bound; also its inputs
+    and the plain output."""
     from repro_torch.kernels import ssd_scan as ssd
 
     g = torch.Generator(device).manual_seed(6)
@@ -1855,8 +2009,9 @@ def ssd_row(device, earlier, bh=LM_BATCH * 64, seq=LM_SEQ, p=64, n=128,
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     if not torch.allclose(got, want, atol=SSD_TOL, rtol=SSD_TOL):
-        raise AssertionError(f"ssd_scan differs by {err}")
-    row_control("ssd_scan", carry_dropped_ssd(x, dt, a, b, c, chunk), want,
+        raise AssertionError(f"ssd_scan {(chunk, p, n)} differs by {err}")
+    row_control(f"ssd_scan {(chunk, p, n)}",
+                carry_dropped_ssd(x, dt, a, b, c, chunk), want,
                 atol=SSD_TOL, rtol=SSD_TOL)
     lens = [min(chunk, seq - s0) for s0 in range(0, seq, chunk)]
     # per bh: c.b^T and w.x over each chunk's causal (t, u) pairs; c.h0^T
@@ -1866,25 +2021,19 @@ def ssd_row(device, earlier, bh=LM_BATCH * 64, seq=LM_SEQ, p=64, n=128,
     flops = (sum(cl * (cl + 1) * (n + p) for cl in lens)
              + 2 * n * p * (sum(lens[1:]) + sum(lens[:-1])))
     b_ms, b_by = bound(nbytes(x, dt, a, b, c, got), bh * flops)
-    old = torch.empty_like(want)
-
-    def launch_earlier():
-        build.check(earlier(*(t.data_ptr() for t in (x, dt, a, b, c, old)),
-                            bh, seq, p, n, chunk, build.stream_ptr(device)),
-                    "earlier ssd_scan")
-    return {"name": "ssd_scan", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
-            "replaces": "src/repro/kernels/ssd_scan.py:96",
-            "max_abs_err": err,
-            **timings(lambda: ssd.ssd_scan(x, dt, a, b, c, chunk=chunk),
-                      lambda: ssd.ssd_scan_plain(x, dt, a, b, c,
-                                                 chunk=chunk),
-                      reps=10, plain_reps=5),
-            "earlier_ms": earlier_ms("ssd_scan", launch_earlier, old, want,
-                                     reps=10, atol=SSD_TOL, rtol=SSD_TOL),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "shape": {"BH": bh, "L": seq, "P": p, "N": n, "chunk": chunk,
-                      "dtype": "float32"}}
+    row = {"name": "ssd_scan", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+           "replaces": "src/repro/kernels/ssd_scan.py:96",
+           "max_abs_err": err,
+           **timings(lambda: ssd.ssd_scan(x, dt, a, b, c, chunk=chunk),
+                     lambda: ssd.ssd_scan_plain(x, dt, a, b, c,
+                                                chunk=chunk),
+                     reps=10, plain_reps=5),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "plan": ssd.plan(chunk, p, n)._asdict(),
+           "shape": {"BH": bh, "L": seq, "P": p, "N": n, "chunk": chunk,
+                     "dtype": "float32"}}
+    return row, (x, dt, a, b, c), want
 
 
 def lm_paths(phase, device, configs, batch=LM_BATCH, seq=LM_SEQ,
@@ -1919,6 +2068,64 @@ def lm_paths(phase, device, configs, batch=LM_BATCH, seq=LM_SEQ,
         del model, plain
         torch.cuda.empty_cache()
     return score, served
+
+
+def lm_smoke_kernels(phase, device):
+    """Each ``LM_SMOKE`` config's kernel path on the card (its own phase
+    ``lm_smoke_kernels:<arch>``): ``logits`` with ``attn_impl="kernel"``
+    at B 2 x S 96, held to the plain path by the ``LM_*`` gate, launching
+    its family's kernel exactly once a layer."""
+    from repro_torch.configs import get_smoke
+
+    out = {}
+    for name in LM_SMOKE:
+        cfg = get_smoke(name)
+        kernel = FAMILY_KERNEL[cfg.family]
+        model, plain = lm_model(cfg, device)
+        rec = phase(f"lm_smoke_kernels:{name}", lm_score_phase, name, model,
+                    plain, device, LM_SMOKE_BATCH, LM_SMOKE_SEQ, False,
+                    need=(kernel,))
+        out[name] = {**rec, "kernel": kernel, "layers": cfg.num_layers,
+                     "head_dim": (cfg.head_dim or cfg.d_model
+                                  // cfg.num_heads) if cfg.num_heads
+                     else None,
+                     "ssd": cfg.ssm and [cfg.ssm.chunk, cfg.ssm.head_dim,
+                                         cfg.ssm.state_dim]}
+        del model, plain
+    return out
+
+
+def examples_phase(device):
+    """The port's four examples (``examples/torch_*.py``) on the card at
+    their default sizes (the DSE example's store in a temporary
+    directory), each asserting its own result; their printed lines'
+    count and seconds."""
+    import importlib.util
+    import io
+    import tempfile
+
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="canal_torch_store_") as store:
+        for name, argv in (("torch_quickstart", []),
+                           ("torch_serve_lm", []),
+                           ("torch_train_tinylm", []),
+                           ("torch_cgra_dse", ["--store", store])):
+            spec = importlib.util.spec_from_file_location(
+                name, os.path.join(ROOT, "examples", f"{name}.py"))
+            module = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(module)
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                module.main(argv)
+            torch.cuda.synchronize()
+            text = buf.getvalue().splitlines()
+            if not text or text[-1] != "OK":
+                raise AssertionError(f"example {name}: {text[-5:]}")
+            runs[name] = {"seconds": time.perf_counter() - t0,
+                          "lines": len(text), "last": text[-2]}
+            log(f"example {name}: {runs[name]}")
+    return runs
 
 
 def card_line():
@@ -1962,7 +2169,7 @@ def main():
 
 
 def drive(spec, device, t_start, earlier):
-    """Phases 2-12 on ``spec`` and ``device`` (the LM phases on the FULL
+    """Phases 2-13 on ``spec`` and ``device`` (the LM phases on the FULL
     models at B 2, S 2,048), with ``earlier`` the entry points of the
     kernels before their redesign; prints their JSON lines."""
     from repro_torch.kernels import build
@@ -2025,8 +2232,16 @@ def drive(spec, device, t_start, earlier):
         if phases[f"lm_serve:{name}"]["launches"]:
             raise AssertionError(f"lm_serve {name} launched kernels: "
                                  f"{phases[f'lm_serve:{name}']['launches']}")
-    for path in ("lm_score", "lm_serve"):
-        runs = [phases[f"{path}:{name}"] for name in configs]
+    # 9b. each smoke config's kernel path: one launch a layer
+    smoke = lm_smoke_kernels(phase, device)
+    for name, rec in smoke.items():
+        got = phases[f"lm_smoke_kernels:{name}"]["launches"]
+        if got != {rec["kernel"]: rec["layers"]}:
+            raise AssertionError(f"lm_smoke_kernels {name}: launches {got} "
+                                 f"!= {rec['layers']} of {rec['kernel']}")
+    for path, names in (("lm_score", configs), ("lm_serve", configs),
+                        ("lm_smoke_kernels", smoke)):
+        runs = [phases[f"{path}:{name}"] for name in names]
         total = {}
         for run in runs:
             for k, v in run["launches"].items():
@@ -2047,6 +2262,8 @@ def drive(spec, device, t_start, earlier):
     if phases["train"]["launches"]:
         raise AssertionError(f"train launched kernels: "
                              f"{phases['train']['launches']}")
+    # 13. the port's examples on the card
+    examples = phase("examples", examples_phase, device)
     for row in rows:
         row["path"] = KERNEL_PATH.get(row["name"], "main")
         row["launches"] = phases[row["path"]]["launches"].get(row["name"],
@@ -2057,8 +2274,8 @@ def drive(spec, device, t_start, earlier):
     keys = ("name", "route", "source", "replaces", "launches", "path",
             "max_abs_err", "ms", "plain_ms", "call_ms", "timing",
             "bound_ms", "bound_by", "bound_share", "library_ms", "shape")
-    extra = ("tflops", "control_err", "shapes", "by_batch", "earlier_ms",
-             "sweep_ms", "design")
+    extra = ("tflops", "control_err", "plan", "shapes", "by_batch",
+             "earlier_ms", "sweep_ms", "design")
     rows = [{**{k: row[k] for k in keys},
              **{k: row[k] for k in extra if k in row}} for row in rows]
 
@@ -2087,7 +2304,9 @@ def drive(spec, device, t_start, earlier):
     print(json.dumps({"rv": results["rv"]}))
     print(json.dumps({"lm_score": score}))
     print(json.dumps({"lm_serve": served}))
+    print(json.dumps({"lm_smoke_kernels": smoke}))
     print(json.dumps({"train": trained}))
+    print(json.dumps({"examples": examples}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"seconds": time.perf_counter() - t_start}))
 

@@ -13,6 +13,12 @@ import torch
 DeviceLike = Optional[Union[str, torch.device]]
 
 
+def on_card(device: DeviceLike = None) -> bool:
+    """Whether ``device`` names a CUDA device (``None``, ``"cuda"``,
+    ``"cuda:1"``, ...), without asking for one."""
+    return torch.device("cuda" if device is None else device).type == "cuda"
+
+
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``None`` -> ``cuda``; a CUDA device without CUDA raises."""
     dev = torch.device("cuda" if device is None else device)

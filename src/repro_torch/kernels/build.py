@@ -58,7 +58,7 @@ _SIGNATURES = {
     "canal_minplus_step": [_P, _P, _P, _I, _I, _P],
     "canal_net_bboxes": [_P, _P, _P] + [_I] * 6 + [_P],
     "canal_hpwl": [_P, _P, _P] + [_I] * 6 + [_P],
-    "canal_flash_attention": [_P] * 4 + [_I] * 8 + [_P],
+    "canal_flash_attention": [_P] * 4 + [_I] * 9 + [_P],
     "canal_ssd_scan": [_P] * 8 + [_I] * 5 + [_P],
 }
 

@@ -12,21 +12,32 @@
 // instead. For GQA a block reads kv head h / (Hq / Hkv) in place.
 //
 // Two kernels, chosen by dtype in canal_flash_attention below; nothing
-// falls back from one to the other. Both take head dim D 64, 96, 112 or
-// 128. A D that is not a tile width runs at the next one up (DP: 128 on
-// the tensor cores, a multiple of 32 on the CUDA cores) with the columns
-// past D read as zeros, so Q K^T is unchanged; only D columns of the
-// output are stored, and the scale is 1/sqrt(D) of the true D. Phi-3's
-// D 96 and Kimi K2's 112 do 4/3 and 8/7 of the work of their own width.
+// falls back from one to the other. Both take every head dim D from 1 to
+// 256. A D that is not a tile width runs at the next one up (DP: 64, 128
+// or 256 on the tensor cores, a multiple of 32 on the CUDA cores) with
+// the columns past D read as zeros, so Q K^T and P V are unchanged; only
+// D columns of the output are stored, and the scale is 1/sqrt(D) of the
+// true D. Phi-3's D 96 and Kimi K2's 112 do 4/3 and 8/7 of the work of
+// their own width, the smoke configs' D 16 four times. TMA maps a 16-bit
+// row only if it is a multiple of 16 bytes: where D is not a multiple of
+// 8, the wrapper hands the kernel copies padded with zero columns (dm,
+// the row width in memory, a multiple of 8) and keeps the first D
+// columns of the output.
 //
-// bfloat16 (the LM path: B 2, Hq 32, Hkv 4, S 2048, D 64, causal) runs
-// flash_tc_kernel on the tensor cores, with bf16 wgmma. Bound: 4 D FLOPs
+// bfloat16 and float16 (the LM path: B 2, Hq 32, Hkv 4, S 2048, D 64,
+// causal, bf16) run flash_tc_kernel on the tensor cores, instantiated
+// for either type: wgmma takes both, with the same fragments. D 129-256
+// (RecurrentGemma's D 256) take a tile of 256 columns with 64-key tiles:
+// the 64 x 256 float32 accumulator is 128 registers a consumer thread,
+// beside 32 of scores and 32 of P, inside the consumers' 232 (ptxas: no
+// spill). Bound: 4 D FLOPs
 // per (query, key) pair, 34 GFLOP at that shape against 38 MB of bytes,
 // so the bf16 tensor-core rate bounds it. Design, after FlashAttention-3:
 //  - work items are (batch*head, 128-query tile) pairs, heaviest causal
 //    tiles first; a persistent grid of one block per SM walks them in
 //    snake order, so one item's last tiles and stores overlap the next
-//    item's loads;
+//    item's loads (any batch*head count: items are numbered, not laid
+//    out on the grid);
 //  - a block is two consumer warpgroups of 64 query rows (the wgmma M)
 //    and a producer warpgroup, which gives its registers to the
 //    consumers (setmaxnreg 40 / 232: the consumers hold S, P twice and O
@@ -55,7 +66,10 @@
 //    into the same float32 accumulator: P rounded once to bf16 errs by up
 //    to 2^-8 relative, which at the LM shape breaks the kernel's
 //    tolerance against the plain version (1e-4 + 2^-7 |want|); hi + lo
-//    carries P to ~16 bits. That is 6 D tensor FLOPs a pair, not 4 D;
+//    carries P to ~16 bits. That is 6 D tensor FLOPs a pair, not 4 D.
+//    float16 carries P as two f16 terms alike (~22 bits where p is a
+//    normal f16; smaller p are absolute errors below 2^-24), within one
+//    f16 ulp (1e-4 + 2^-10 |want|);
 //  - tile t's scores are started with tile t-1's P V, so a warpgroup's
 //    softmax runs while the tensor cores work, and the two warpgroups
 //    take turns at the tensor cores (named barriers). The first and
@@ -64,11 +78,13 @@
 //
 // float32 runs flash_f32_kernel on the CUDA cores, in full float32 (q is
 // multiplied by 1/sqrt(D) before the dot, as in the reference): one block
-// per (batch*head, 64-query tile), 128 threads, tiles staged through
+// per (batch*head, 64-query tile), batch*head on grid x (up to 2^31 - 1,
+// where y stops at 65,535), 128 threads, tiles staged through
 // shared memory, each thread a 4 x 8 block of scores and a 4 x (D / 8)
 // block of the output, rows reduced over 8 threads with warp shuffles.
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -86,24 +102,20 @@ constexpr int kLd = kBQ + 4;     // padded stride of the transposed tiles
 
 static_assert(kBQ == kBK, "the transposed tiles share one stride");
 
-// the CUDA-core kernel's tile width for head dim D
-template <int D>
-__host__ __device__ constexpr int f32_width() { return (D + 31) / 32 * 32; }
-
-template <int D>
+template <int DP>
 constexpr size_t f32_smem_bytes() {
     // qt [DP][kLd], kt [DP][kLd], vs [kBK][DP], pt [kBK][kLd]
-    constexpr int DP = f32_width<D>();
     return (size_t)(2 * DP * kLd + kBK * DP + kBK * kLd) * sizeof(float);
 }
 
-template <int D>
+// DP: the tile width, a multiple of 32 from 32 to 256; the head dim D
+// (DP - 31 .. DP) is a launch argument, columns D..DP-1 read as 0.
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
-                 int hq, int hkv, int sq, int skv, int causal,
+                 int hq, int hkv, int sq, int skv, int D, int causal,
                  float scale) {
-    constexpr int DP = f32_width<D>();   // columns D..DP-1 read as 0
     constexpr int DJ = DP / 32;  // float4 column groups of the output
     extern __shared__ float4 smem4[];
     float* qt = reinterpret_cast<float*>(smem4);
@@ -114,9 +126,11 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int tid = threadIdx.x;
     const int tx = tid & 7;      // column group: lanes 0-7 of a row group
     const int ty = tid >> 3;     // row group: query rows ty*4 .. ty*4+3
+    // batch*head on grid x (up to 2^31 - 1), query tiles on y, heaviest
+    // causal tiles first
     const int n_qt = (sq + kBQ - 1) / kBQ;
-    const int q0 = (n_qt - 1 - (int)blockIdx.x) * kBQ;
-    const int bh = blockIdx.y;
+    const int q0 = (n_qt - 1 - (int)blockIdx.y) * kBQ;
+    const int bh = blockIdx.x;
     const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
     const float* qp = q + (size_t)bh * sq * D;
     const float* kp = k + (size_t)kvh * skv * D;
@@ -256,26 +270,37 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 }
 
-template <int D>
+template <int DP>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
-               int batch, int hq, int hkv, int sq, int skv, int causal,
-               cudaStream_t stream) {
-    const size_t smem = f32_smem_bytes<D>();
+               int batch, int hq, int hkv, int sq, int skv, int d,
+               int causal, cudaStream_t stream) {
+    const size_t smem = f32_smem_bytes<DP>();
     cudaError_t err = cudaFuncSetAttribute(
-        flash_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_f32_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
     // the reference's scale: 1 / sqrt(D) in double, then float32
-    const float scale = (float)(1.0 / std::sqrt((double)D));
-    const dim3 grid((sq + kBQ - 1) / kBQ, batch * hq);
-    flash_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
+    const float scale = (float)(1.0 / std::sqrt((double)d));
+    const long long bh = (long long)batch * hq;
+    const int n_qt = (sq + kBQ - 1) / kBQ;
+    if (bh > 0x7fffffffLL || n_qt > 65535) return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)bh, n_qt);
+    flash_f32_kernel<DP><<<grid, kThreads, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out), hq, hkv, sq,
-        skv, causal, scale);
+        skv, d, causal, scale);
     return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------- bfloat16, tensor cores
+// ------------------------------------ bfloat16 and float16, tensor cores
+// T is __nv_bfloat16 or __half: wgmma takes either as its 16-bit input
+// type, with the same fragment layouts; only the instruction's type names,
+// the tensor maps' element type and the conversions differ.
+template <typename T>
+constexpr bool kIsHalf = false;
+template <>
+constexpr bool kIsHalf<__half> = true;
+
 constexpr int kTcRows = 128;            // query rows per block
 constexpr int kConsumers = 256;         // two warpgroups of 64 rows
 constexpr int kTcThreads = kConsumers + 128;  // + the producer warpgroup
@@ -381,85 +406,125 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
             asm volatile("" : "+r"(r[i][j]) :: "memory");
 }
 
+// The three wgmma shapes of the kernel, each for T's type name TY
+// ("bf16" or "f16").
+#define CANAL_WGMMA_SS_N128(TY)                                              \
+    asm volatile(                                                            \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                         \
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"        \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                 \
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "       \
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "       \
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "       \
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "       \
+        "%60, %61, %62, %63"                                                 \
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                                   \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),        \
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),        \
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),   \
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),   \
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),   \
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),   \
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),   \
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),   \
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),   \
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),   \
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),   \
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),   \
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                 \
+        : "l"(da), "l"(db), "r"(accumulate))
+
+#define CANAL_WGMMA_SS_N64(TY)                                               \
+    asm volatile(                                                            \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                         \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"         \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                 \
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "       \
+        "%24, %25, %26, %27, %28, %29, %30, %31"                             \
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                   \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),        \
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),        \
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),   \
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),   \
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),   \
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),   \
+          "+f"(d[30]), "+f"(d[31])                                           \
+        : "l"(da), "l"(db), "r"(accumulate))
+
+#define CANAL_WGMMA_RS_N64_TB(TY)                                            \
+    asm volatile(                                                            \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                         \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"         \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                 \
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "       \
+        "%24, %25, %26, %27, %28, %29, %30, %31"                             \
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                     \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),        \
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),        \
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),   \
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),   \
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),   \
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),   \
+          "+f"(d[30]), "+f"(d[31])                                           \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
 // D[64 x 128] (+)= A[64 x 16] . B[16 x 128], A and B K-major in shared memory
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
                                               uint64_t db, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-        "%60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(accumulate));
+    if constexpr (kIsHalf<T>) CANAL_WGMMA_SS_N128("f16");
+    else CANAL_WGMMA_SS_N128("bf16");
 }
 
 // D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B K-major in shared memory
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                              uint64_t db, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(accumulate));
+                                             uint64_t db, int accumulate) {
+    if constexpr (kIsHalf<T>) CANAL_WGMMA_SS_N64("f16");
+    else CANAL_WGMMA_SS_N64("bf16");
 }
 
-// D[64 x 64] += A[64 x 16] . B[16 x 64], A in registers (four bf16x2 a
-// thread), B MN-major in shared memory (the transpose bit set)
+// D[64 x 64] += A[64 x 16] . B[16 x 64], A in registers (four 16-bit
+// pairs a thread), B MN-major in shared memory (the transpose bit set)
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32],
                                                 const uint32_t (&a)[4],
                                                 uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+    if constexpr (kIsHalf<T>) CANAL_WGMMA_RS_N64_TB("f16");
+    else CANAL_WGMMA_RS_N64_TB("bf16");
 }
 
-// p ~ hi + lo: hi = bf16(p), lo = bf16(p - hi), two columns at a time
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+#undef CANAL_WGMMA_SS_N128
+#undef CANAL_WGMMA_SS_N64
+#undef CANAL_WGMMA_RS_N64_TB
+
+// Two float32 values as one pair of T, and back.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+    if constexpr (kIsHalf<T>) {
+        const __half2 h = __floats2half2_rn(a, b);
+        return *reinterpret_cast<const uint32_t*>(&h);
+    } else {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+        return *reinterpret_cast<const uint32_t*>(&h);
+    }
+}
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t u) {
+    if constexpr (kIsHalf<T>)
+        return __half22float2(*reinterpret_cast<const __half2*>(&u));
+    else
+        return __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+// p ~ hi + lo: hi = T(p), lo = T(p - hi), two columns at a time
+template <typename T>
+__device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi,
                                            uint32_t& lo) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-    const float2 hf = __bfloat1622float2(h);
-    const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
-    hi = *reinterpret_cast<const uint32_t*>(&h);
-    lo = *reinterpret_cast<const uint32_t*>(&l);
+    hi = pack2<T>(a, b);
+    const float2 hf = unpack2<T>(hi);
+    lo = pack2<T>(a - hf.x, b - hf.y);
 }
 
 // Fragments (per thread of a consumer warpgroup; warp w, lane t): an
@@ -486,7 +551,7 @@ __device__ __forceinline__ void turn_pass(int g) {
 }
 
 // S = Q K^T into sc: D / 16 steps, step kk reads 32 bytes into panel kk/4
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void start_scores(float (&sc)[TcTile<D>::kKeys / 2],
                                              uint32_t q_base,
                                              uint32_t k_base) {
@@ -500,16 +565,16 @@ __device__ __forceinline__ void start_scores(float (&sc)[TcTile<D>::kKeys / 2],
         const uint64_t db = smem_desc(
             k_base + (kk / 4) * Tile::kKvPanel + off, 16, 1024);
         if constexpr (Tile::kKeys == 128)
-            wgmma_ss_n128(sc, da, db, kk > 0);
+            wgmma_ss_n128<T>(sc, da, db, kk > 0);
         else
-            wgmma_ss_n64(sc, da, db, kk > 0);
+            wgmma_ss_n64<T>(sc, da, db, kk > 0);
     }
     wgmma_commit();
 }
 
 // O += (P_hi + P_lo) V: P from registers, V MN-major, one 64-column panel
 // of O at a time
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void start_pv(
         float (&acc)[D / kPanel][32],
         const uint32_t (&p_hi)[TcTile<D>::kKeys / 16][4],
@@ -523,8 +588,8 @@ __device__ __forceinline__ void start_pv(
             const uint64_t db = smem_desc(
                 v_base + p * Tile::kKvPanel + kk * 16 * 128,
                 Tile::kKvPanel, 1024);
-            wgmma_rs_n64_tb(acc[p], p_hi[kk], db);
-            wgmma_rs_n64_tb(acc[p], p_lo[kk], db);
+            wgmma_rs_n64_tb<T>(acc[p], p_hi[kk], db);
+            wgmma_rs_n64_tb<T>(acc[p], p_lo[kk], db);
         }
     }
     wgmma_commit();
@@ -595,7 +660,7 @@ __device__ __forceinline__ void rescale(float (&acc)[D / kPanel][32],
         for (int i = 0; i < 32; ++i) acc[p][i] *= alpha[(i >> 1) & 1];
 }
 
-template <int KSTEPS>
+template <typename T, int KSTEPS>
 __device__ __forceinline__ void split_p(const float (&sc)[KSTEPS * 8],
                                         uint32_t (&p_hi)[KSTEPS][4],
                                         uint32_t (&p_lo)[KSTEPS][4]) {
@@ -603,8 +668,8 @@ __device__ __forceinline__ void split_p(const float (&sc)[KSTEPS * 8],
     for (int kk = 0; kk < KSTEPS; ++kk)
 #pragma unroll
         for (int a = 0; a < 4; ++a)
-            split_bf16(sc[8 * kk + 2 * a], sc[8 * kk + 2 * a + 1],
-                       p_hi[kk][a], p_lo[kk][a]);
+            split_pair<T>(sc[8 * kk + 2 * a], sc[8 * kk + 2 * a + 1],
+                          p_hi[kk][a], p_lo[kk][a]);
 }
 
 // The work items of the persistent grid: (batch*head, 128-query tile)
@@ -637,16 +702,21 @@ __device__ __forceinline__ Item item_of(int n, int n_qt, int bh_count,
     return w;
 }
 
-// DP: the tile width (64 or 128), D <= DP the head dim: the tensor maps
-// read columns D..DP-1 as zeros, and only D columns are stored.
-template <int DP, int D>
+// DP: the tile width (64, 128 or 256); dm <= DP the row width of q, k, v
+// and out in memory (the head dim, or the wrapper's copy padded with zero
+// columns to a multiple of 8): the tensor maps read columns dm..DP-1 as
+// zeros, and only dm columns are stored. kFull: dm == DP, known at compile
+// time, so the D 64, 128 and 256 epilogues compute no row width (a
+// runtime one measured 3% slower at D 64 on an H100).
+template <typename T, int DP, bool kFull>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
-                __nv_bfloat16* __restrict__ out, int bh_count, int hq,
-                int hkv, int sq, int skv, int causal, float scale) {
-    static_assert(D <= DP && D % 16 == 0, "head dim fits the tile");
+                T* __restrict__ out, int bh_count, int hq, int hkv, int sq,
+                int skv, int dm_arg, int causal, float scale) {
+    static_assert(DP % kPanel == 0, "whole panels");
+    const int dm = kFull ? DP : dm_arg;
     using Tile = TcTile<DP>;
     constexpr int BK = Tile::kKeys;
     constexpr int KSTEPS = BK / 16;     // 16-key steps of P V
@@ -752,7 +822,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
             mbar_wait(q_full, j & 1);
             turn_wait(g);
             mbar_wait(k_full + 8 * s, (it / kStages) & 1);
-            start_scores<DP>(sc, q_base, s_k + s * Tile::kKvBytes);
+            start_scores<T, DP>(sc, q_base, s_k + s * Tile::kKvBytes);
             turn_pass(g);
             wgmma_wait_all();
             fence_regs(sc);
@@ -760,16 +830,16 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
             softmax_tile(sc, m, l, alpha,
                          k0_masked(0, BK, skv, causal, w.q0, g), row0, col2,
                          skv, causal, c);
-            split_p<KSTEPS>(sc, p_hi, p_lo);
+            split_p<T, KSTEPS>(sc, p_hi, p_lo);
         }
         for (int t = 1; t < w.n_kt; ++t) {
             const int s = (it + t) % kStages, sp = (it + t - 1) % kStages;
             turn_wait(g);
             mbar_wait(k_full + 8 * s, ((it + t) / kStages) & 1);
-            start_scores<DP>(sc, q_base, s_k + s * Tile::kKvBytes);
+            start_scores<T, DP>(sc, q_base, s_k + s * Tile::kKvBytes);
             rescale<DP>(acc, alpha);
             mbar_wait(v_full + 8 * sp, ((it + t - 1) / kStages) & 1);
-            start_pv<DP>(acc, p_hi, p_lo, s_v + sp * Tile::kKvBytes);
+            start_pv<T, DP>(acc, p_hi, p_lo, s_v + sp * Tile::kKvBytes);
             turn_pass(g);
             asm volatile("wgmma.wait_group.sync.aligned %0;\n"
                          :: "n"(1) : "memory");      // the scores are in
@@ -784,7 +854,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
             fence_regs(p_hi);
             fence_regs(p_lo);
             mbar_arrive(v_empty + 8 * sp);
-            split_p<KSTEPS>(sc, p_hi, p_lo);
+            split_p<T, KSTEPS>(sc, p_hi, p_lo);
         }
         if (w.n_kt > 0) {
             // every score of this item is in: the next Q may load
@@ -792,7 +862,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
             mbar_arrive(q_empty);
             rescale<DP>(acc, alpha);
             mbar_wait(v_full + 8 * sp, ((it + w.n_kt - 1) / kStages) & 1);
-            start_pv<DP>(acc, p_hi, p_lo, s_v + sp * Tile::kKvBytes);
+            start_pv<T, DP>(acc, p_hi, p_lo, s_v + sp * Tile::kKvBytes);
             wgmma_wait_all();
 #pragma unroll
             for (int p = 0; p < Tile::kPanels; ++p) fence_regs(acc[p]);
@@ -810,18 +880,18 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
             const int qpos = row0 + 8 * r;
             if (qpos >= sq) continue;
             const float den = fmaxf(l[r], 1e-30f);
-            __nv_bfloat16* orow =
-                out + ((size_t)w.bh * sq + qpos) * D + col2;
+            T* orow = out + ((size_t)w.bh * sq + qpos) * dm + col2;
+            // dm is a multiple of 8 and col2 even: a pair is stored whole
+            // or not at all
 #pragma unroll
             for (int p = 0; p < Tile::kPanels; ++p)
 #pragma unroll
                 for (int jj = 0; jj < 8; ++jj)
-                    if (p * kPanel + 8 * jj < D)   // known at compile time
-                        *reinterpret_cast<__nv_bfloat162*>(
+                    if (p * kPanel + 8 * jj + col2 < dm)
+                        *reinterpret_cast<uint32_t*>(
                             orow + p * kPanel + 8 * jj) =
-                            __floats2bfloat162_rn(
-                                acc[p][4 * jj + 2 * r] / den,
-                                acc[p][4 * jj + 2 * r + 1] / den);
+                            pack2<T>(acc[p][4 * jj + 2 * r] / den,
+                                     acc[p][4 * jj + 2 * r + 1] / den);
         }
     }
     if (g == 0 && skv > 0) turn_wait(g);
@@ -852,10 +922,12 @@ EncodeTiled encode_tiled() {
     return fn;
 }
 
-// (heads, rows, D) bf16, contiguous, as a 3-D map of {64, box_rows, 1}
-// boxes in the 128-byte swizzle; rows past `rows` and columns past D read
-// as zeros. The row stride, 2 D bytes, is a multiple of 16 for every D
-// the kernel takes (128, 192, 224, 256), as TMA asks.
+// (heads, rows, d) of T, contiguous, as a 3-D map of {64, box_rows, 1}
+// boxes in the 128-byte swizzle; rows past `rows` and columns past d read
+// as zeros. TMA asks for a row stride, 2 d bytes, that is a multiple of
+// 16: d is a multiple of 8 (the wrapper pads q, k and v where the head
+// dim is not), and for a base on 16 bytes.
+template <typename T>
 bool encode(CUtensorMap* map, const void* ptr, int d, int rows, int heads,
             int box_rows) {
     const EncodeTiled fn = encode_tiled();
@@ -866,30 +938,36 @@ bool encode(CUtensorMap* map, const void* ptr, int d, int rows, int heads,
                                    (cuuint64_t)rows * d * 2};
     const cuuint32_t box[3] = {(cuuint32_t)kPanel, (cuuint32_t)box_rows, 1};
     const cuuint32_t unit[3] = {1, 1, 1};
-    return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+    return fn(map,
+              kIsHalf<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+              3,
               const_cast<void*>(ptr), dims, strides, box, unit,
               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DP, int D>
+template <typename T, int DP>
 int launch_tc(const void* q, const void* k, const void* v, void* out,
-              int batch, int hq, int hkv, int sq, int skv, int causal,
-              cudaStream_t stream) {
+              int batch, int hq, int hkv, int sq, int skv, int dm, int d,
+              int causal, cudaStream_t stream) {
     using Tile = TcTile<DP>;
+    if (dm % 8 || dm > DP || d > dm) return (int)cudaErrorInvalidValue;
     CUtensorMap tm_q, tm_k, tm_v;
     // with no keys nothing is loaded from k/v: map q in their place
     const void* kp = skv > 0 ? k : q;
     const void* vp = skv > 0 ? v : q;
     const int kv_rows = skv > 0 ? skv : sq;
     const int kv_heads = skv > 0 ? batch * hkv : batch * hq;
-    if (!encode(&tm_q, q, D, sq, batch * hq, kTcRows) ||
-        !encode(&tm_k, kp, D, kv_rows, kv_heads, Tile::kKeys) ||
-        !encode(&tm_v, vp, D, kv_rows, kv_heads, Tile::kKeys))
+    if (!encode<T>(&tm_q, q, dm, sq, batch * hq, kTcRows) ||
+        !encode<T>(&tm_k, kp, dm, kv_rows, kv_heads, Tile::kKeys) ||
+        !encode<T>(&tm_v, vp, dm, kv_rows, kv_heads, Tile::kKeys))
         return (int)cudaErrorInvalidValue;
+    const auto kernel = dm == DP ? flash_tc_kernel<T, DP, true>
+                                 : flash_tc_kernel<T, DP, false>;
     cudaError_t err = cudaFuncSetAttribute(
-        flash_tc_kernel<DP, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)Tile::kSmem);
     if (err != cudaSuccess) return (int)err;
     int dev = 0, n_sm = 0;
@@ -897,44 +975,70 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
         (err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
                                       dev)) != cudaSuccess)
         return (int)err;
-    // D 64: 2^-3 exactly; else 1 / sqrt(D) in double, then float32
-    const float scale = (float)(1.0 / std::sqrt((double)D));
+    // of the true head dim d: D 64 2^-3 exactly; else 1 / sqrt(d) in
+    // double, then float32
+    const float scale = (float)(1.0 / std::sqrt((double)d));
+    // the persistent grid numbers its items with ints
     const long long n_items =
         (long long)((sq + kTcRows - 1) / kTcRows) * batch * hq;
+    if (n_items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     const int grid = (int)(n_items < n_sm ? n_items : n_sm);
-    flash_tc_kernel<DP, D><<<grid, kTcThreads, Tile::kSmem, stream>>>(
-        tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), batch * hq, hq,
-        hkv, sq, skv, causal, scale);
+    kernel<<<grid, kTcThreads, Tile::kSmem, stream>>>(
+        tm_q, tm_k, tm_v, static_cast<T*>(out), batch * hq, hq, hkv, sq,
+        skv, dm, causal, scale);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 float32 (the CUDA-core kernel), 1 bfloat16 (the tensor-core
-// kernel); d: 64, 96, 112 or 128. Anything else is refused with
-// cudaErrorInvalidValue (the wrapper checks first), as is a bf16 tensor
-// TMA cannot map (a base not 16-byte aligned).
+// dtype: 0 float32 (the CUDA-core kernel, at the tile width DP = d
+// rounded up to 32), 1 bfloat16 or 2 float16 (the tensor-core kernel, at
+// the tile width of 64, 128 or 256 that holds dm); d: the head dim, 1 to
+// 256; dm: the row width of q, k, v and out in memory (d, or for the
+// tensor-core kernel d padded with zero columns to a multiple of 8 by the
+// wrapper). Anything else is refused with cudaErrorInvalidValue (the
+// wrapper checks first), as is a 16-bit tensor TMA cannot map (a base not
+// on 16 bytes).
 extern "C" int canal_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int batch,
-                                     int hq, int hkv, int sq, int skv, int d,
-                                     int causal, int dtype, void* stream) {
+                                     int hq, int hkv, int sq, int skv,
+                                     int dm, int d, int causal, int dtype,
+                                     void* stream) {
     const cudaStream_t st = (cudaStream_t)stream;
-    if (hkv < 1 || hq % hkv) return (int)cudaErrorInvalidValue;
-#define CANAL_FLASH_ARGS q, k, v, out, batch, hq, hkv, sq, skv, causal, st
+    if (hkv < 1 || hq % hkv || d < 1 || d > 256 || dm < d)
+        return (int)cudaErrorInvalidValue;
+#define CANAL_FLASH_ARGS q, k, v, out, batch, hq, hkv, sq, skv
     if (dtype == 0) {
-        switch (d) {
-            case 64: return launch_f32<64>(CANAL_FLASH_ARGS);
-            case 96: return launch_f32<96>(CANAL_FLASH_ARGS);
-            case 112: return launch_f32<112>(CANAL_FLASH_ARGS);
-            case 128: return launch_f32<128>(CANAL_FLASH_ARGS);
+        if (dm != d) return (int)cudaErrorInvalidValue;
+        switch ((d + 31) / 32) {
+            case 1: return launch_f32<32>(CANAL_FLASH_ARGS, d, causal, st);
+            case 2: return launch_f32<64>(CANAL_FLASH_ARGS, d, causal, st);
+            case 3: return launch_f32<96>(CANAL_FLASH_ARGS, d, causal, st);
+            case 4: return launch_f32<128>(CANAL_FLASH_ARGS, d, causal, st);
+            case 5: return launch_f32<160>(CANAL_FLASH_ARGS, d, causal, st);
+            case 6: return launch_f32<192>(CANAL_FLASH_ARGS, d, causal, st);
+            case 7: return launch_f32<224>(CANAL_FLASH_ARGS, d, causal, st);
+            case 8: return launch_f32<256>(CANAL_FLASH_ARGS, d, causal, st);
         }
-    } else if (dtype == 1) {
-        switch (d) {
-            case 64: return launch_tc<64, 64>(CANAL_FLASH_ARGS);
-            case 96: return launch_tc<128, 96>(CANAL_FLASH_ARGS);
-            case 112: return launch_tc<128, 112>(CANAL_FLASH_ARGS);
-            case 128: return launch_tc<128, 128>(CANAL_FLASH_ARGS);
+    } else if (dtype == 1 || dtype == 2) {
+        const int width = dm <= 64 ? 64 : dm <= 128 ? 128 : 256;
+#define CANAL_FLASH_TC(T)                                                    \
+        switch (width) {                                                     \
+            case 64:                                                         \
+                return launch_tc<T, 64>(CANAL_FLASH_ARGS, dm, d, causal, st);\
+            case 128:                                                        \
+                return launch_tc<T, 128>(CANAL_FLASH_ARGS, dm, d, causal,    \
+                                         st);                                \
+            default:                                                         \
+                return launch_tc<T, 256>(CANAL_FLASH_ARGS, dm, d, causal,    \
+                                         st);                                \
         }
+        if (dtype == 1) {
+            CANAL_FLASH_TC(__nv_bfloat16)
+        } else {
+            CANAL_FLASH_TC(__half)
+        }
+#undef CANAL_FLASH_TC
     }
 #undef CANAL_FLASH_ARGS
     return (int)cudaErrorInvalidValue;

@@ -27,18 +27,24 @@
 //      c b^T and c h_k^T over state tiles of kNT dims, then the weights,
 //      then y. Only the causal triangle of c b^T and of w x is computed:
 //      a thread owns rows t = ty + 16 i and columns u = tx + 16 j (i, j <
-//      8), so the blocks i < j, wholly above the diagonal, are skipped at
-//      compile time (28 of 64).
+//      C / 16), so the blocks i < j, wholly above the diagonal, are
+//      skipped at compile time (28 of 64 at C 128).
 // Passes 1 and 3 move as many bytes from device memory as their FLOPs
 // take on the CUDA cores, so each streams its operands into shared
 // memory through a cp.async ring of kStages stages (pass 1: 32 chunk
 // rows of x and b a stage; pass 3: kNT state dims of c, b and h_k a
-// stage), the next in flight while the block computes on one. Pass 3
-// takes ~105 KB of shared memory (two blocks an SM), pass 1 ~50 KB
-// (three). Threads keep 8 x 4 (pass 1: state dims x head dims) or
-// 8 x 8 + 8 x 4 (pass 3) accumulators in registers and read their
-// operands from shared memory with 8- and 16-B loads that a warp shares
-// or that fall in distinct banks.
+// stage), the next in flight while the block computes on one. At
+// Mamba2's (C, P, N) = (128, 64, 128), pass 3 takes ~105 KB of shared
+// memory (two blocks an SM), pass 1 ~50 KB (three). Threads keep 8 x 4
+// (pass 1: state dims x head dims) or 8 x 8 + 8 x 4 (pass 3)
+// accumulators in registers and read their operands from shared memory
+// with 8- and 16-B loads that a warp shares or that fall in distinct
+// banks. The templates take any C that is a multiple of 32 up to 256 and
+// P, N multiples of 16 (the per-thread counts scale with them); they are
+// instantiated for (128, 64, 128) and for the smoke configs' (32, 16,
+// 16), at which a thread holds 1 x 1 (pass 1) or 2 x 2 + 2 x 1 (pass 3)
+// values and most of the 16 x 16 map's work is idle. The wrapper pads or
+// splits every other shape onto these two.
 //
 // Bound: operations. Per (batch*head, chunk) the causal work is ~5.2
 // MFLOP in pass 3 and 2.1 MFLOP in pass 1, against ~0.2 MB of inputs: the
@@ -57,11 +63,17 @@ constexpr int kNT = 16;          // state dims of c, b, h_k per pass-3 stage
 constexpr int kCarry = 16;       // chunk states in flight a pass-2 thread
 constexpr int kStages = 2;       // ring depth of passes 1 and 3
 
+// The thread maps of an instantiation (C, P, N): 256 threads as 16 x 16,
+// a thread owning CI = C / 16 chunk rows and CI columns of the scores
+// (pass 3), NI = N / 16 state dims (pass 1) and PJ = P / 16 head dims.
+// Instantiated for (128, 64, 128), Mamba2's, and (32, 16, 16), the smoke
+// configs'; at the small one most of a thread's tile is a single value.
 template <int C, int P, int N>
 struct Shape {
-    static_assert(C == 128 && P == 64 && N == 128,
-                  "the thread maps take (chunk, P, N) = (128, 64, 128)");
     static_assert(C % kUT == 0 && N % kNT == 0, "whole stages");
+    static_assert(C <= kThreads && P % 16 == 0 && N % 16 == 0,
+                  "the 16 x 16 thread maps");
+    static constexpr int CI = C / 16, NI = N / 16, PJ = P / 16;
     static constexpr int LDN = kNT + 2;    // c, b stages [C][LDN]
     static constexpr int LDW = C + 16;     // weights [C][LDW]
     // pass 1: kStages stages of x [kUT][P] and b [kUT][N]; coef, seg,
@@ -77,6 +89,45 @@ struct Shape {
     static_assert(rows % 4 == 0 && stage % 4 == 0 && region % 4 == 0 &&
                   (C * LDN) % 4 == 0, "float4 arrays start on 16 B");
 };
+
+// W consecutive floats at p (W a multiple of 4 or of 2, or 1, and p
+// aligned to the vector), loaded as float4s, float2s or one float.
+template <int W>
+__device__ __forceinline__ void load_vec(const float* p, float (&out)[W]) {
+    if constexpr (W % 4 == 0) {
+#pragma unroll
+        for (int i = 0; i < W / 4; ++i) {
+            const float4 v = reinterpret_cast<const float4*>(p)[i];
+            out[4 * i] = v.x;
+            out[4 * i + 1] = v.y;
+            out[4 * i + 2] = v.z;
+            out[4 * i + 3] = v.w;
+        }
+    } else if constexpr (W % 2 == 0) {
+#pragma unroll
+        for (int i = 0; i < W / 2; ++i) {
+            const float2 v = reinterpret_cast<const float2*>(p)[i];
+            out[2 * i] = v.x;
+            out[2 * i + 1] = v.y;
+        }
+    } else {
+#pragma unroll
+        for (int i = 0; i < W; ++i) out[i] = p[i];
+    }
+}
+
+template <int W>
+__device__ __forceinline__ void store_vec(float* p, const float (&in)[W]) {
+    if constexpr (W % 4 == 0) {
+#pragma unroll
+        for (int i = 0; i < W / 4; ++i)
+            reinterpret_cast<float4*>(p)[i] = make_float4(
+                in[4 * i], in[4 * i + 1], in[4 * i + 2], in[4 * i + 3]);
+    } else {
+#pragma unroll
+        for (int i = 0; i < W; ++i) p[i] = in[i];
+    }
+}
 
 // kBytes (8 or 16) from device memory into shared memory without
 // registers, or zeros where !valid (src is then not read).
@@ -149,7 +200,7 @@ __device__ __forceinline__ void stage_rows(float* s, const float* g, int u0,
 
 // Pass 1, block (bh, k < K - 1): s_k[n][p] = sum_u b[u][n] x[u][p]
 // dt_u exp(seg_last - seg_u); decay[bh, k] = exp(seg_last). Thread (ty,
-// tx) owns n = 8 ty + i, p = 4 tx + jp.
+// tx) owns n = NI ty + i, p = PJ tx + jp.
 template <int C, int P, int N>
 __global__ void __launch_bounds__(kThreads, 3)
 ssd_state_kernel(const float* __restrict__ x, const float* __restrict__ dt,
@@ -157,6 +208,7 @@ ssd_state_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                  float* __restrict__ states, float* __restrict__ decay,
                  int L, int K) {
     using S = Shape<C, P, N>;
+    constexpr int NI = S::NI, PJ = S::PJ;
     extern __shared__ float4 smem4[];
     float* ring = reinterpret_cast<float*>(smem4);  // kStages x (x, b)
     float* coef = ring + kStages * S::rows;         // dt exp(seg_last - seg)
@@ -183,11 +235,11 @@ ssd_state_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     const float seg_last = seg[C - 1];
     if (tid < C) coef[tid] = dts[tid] * expf(seg_last - seg[tid]);
 
-    float acc[8][4];
+    float acc[NI][PJ];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < NI; ++i)
 #pragma unroll
-        for (int jp = 0; jp < 4; ++jp) acc[i][jp] = 0.f;
+        for (int jp = 0; jp < PJ; ++jp) acc[i][jp] = 0.f;
     for (int it = 0; it < C / kUT; ++it) {
         load_rows(it + kStages - 1);
         cp_wait<kStages - 1>();
@@ -197,28 +249,23 @@ ssd_state_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll 4
         for (int uu = 0; uu < kUT; ++uu) {
             const float cf = coef[it * kUT + uu];
-            const float* brow = bs + uu * N + 8 * ty;
-            const float4 b0 = *reinterpret_cast<const float4*>(brow);
-            const float4 b1 = *reinterpret_cast<const float4*>(brow + 4);
-            float4 xv = *reinterpret_cast<const float4*>(xs + uu * P + 4 * tx);
-            xv = make_float4(xv.x * cf, xv.y * cf, xv.z * cf, xv.w * cf);
-            const float bv[8] = {b0.x, b0.y, b0.z, b0.w,
-                                 b1.x, b1.y, b1.z, b1.w};
+            float bv[NI], xv[PJ];
+            load_vec<NI>(bs + uu * N + NI * ty, bv);
+            load_vec<PJ>(xs + uu * P + PJ * tx, xv);
 #pragma unroll
-            for (int i = 0; i < 8; ++i) {
-                acc[i][0] = fmaf(bv[i], xv.x, acc[i][0]);
-                acc[i][1] = fmaf(bv[i], xv.y, acc[i][1]);
-                acc[i][2] = fmaf(bv[i], xv.z, acc[i][2]);
-                acc[i][3] = fmaf(bv[i], xv.w, acc[i][3]);
-            }
+            for (int jp = 0; jp < PJ; ++jp) xv[jp] *= cf;
+#pragma unroll
+            for (int i = 0; i < NI; ++i)
+#pragma unroll
+                for (int jp = 0; jp < PJ; ++jp)
+                    acc[i][jp] = fmaf(bv[i], xv[jp], acc[i][jp]);
         }
         __syncthreads();     // every reader done before the stage refills
     }
     float* out = states + ((size_t)bh * K + k) * N * P;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-        *reinterpret_cast<float4*>(out + (8 * ty + i) * P + 4 * tx) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    for (int i = 0; i < NI; ++i)
+        store_vec<PJ>(out + (NI * ty + i) * P + PJ * tx, acc[i]);
     if (tid == 0) decay[(size_t)bh * K + k] = expf(seg_last);
 }
 
@@ -253,8 +300,8 @@ ssd_carry_kernel(float4* states, const float* __restrict__ decay, int K,
 }
 
 // Pass 3, block (bh, k): y for the chunk's rows. Thread (ty, tx) owns
-// rows t = ty + 16 i, score columns u = tx + 16 j and head dims
-// p = 4 tx + jp.
+// rows t = ty + 16 i, score columns u = tx + 16 j (i, j < CI) and head
+// dims p = PJ tx + jp.
 template <int C, int P, int N>
 __global__ void __launch_bounds__(kThreads, 2)
 ssd_output_kernel(const float* __restrict__ x, const float* __restrict__ dt,
@@ -263,7 +310,7 @@ ssd_output_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                   const float* __restrict__ states, float* __restrict__ y,
                   int L, int K) {
     using S = Shape<C, P, N>;
-    constexpr int LDN = S::LDN, LDW = S::LDW;
+    constexpr int LDN = S::LDN, LDW = S::LDW, CI = S::CI, PJ = S::PJ;
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);
     float* ws = smem;                 // [C][LDW] weights, over the stages
@@ -301,13 +348,13 @@ ssd_output_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     }
     chunk_seg<C>(dt + row0, len, a[bh], seg, dts, wsum);
 
-    float sacc[8][8], yacc[8][4];
+    float sacc[CI][CI], yacc[CI][PJ];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < CI; ++i) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) sacc[i][j] = 0.f;
+        for (int j = 0; j < CI; ++j) sacc[i][j] = 0.f;
 #pragma unroll
-        for (int jp = 0; jp < 4; ++jp) yacc[i][jp] = 0.f;
+        for (int jp = 0; jp < PJ; ++jp) yacc[i][jp] = 0.f;
     }
     for (int it = 0; it < N / kNT; ++it) {
         const int next = it + kStages - 1;
@@ -321,17 +368,17 @@ ssd_output_kernel(const float* __restrict__ x, const float* __restrict__ dt,
         const float* hs = bs + C * LDN;                // [kNT][P]
 #pragma unroll 2
         for (int nn = 0; nn < kNT; nn += 2) {
-            float2 cv[8];
+            float2 cv[CI];
 #pragma unroll
-            for (int i = 0; i < 8; ++i)
+            for (int i = 0; i < CI; ++i)
                 cv[i] = *reinterpret_cast<const float2*>(
                     cs + (ty + 16 * i) * LDN + nn);
 #pragma unroll
-            for (int j = 0; j < 8; ++j) {
+            for (int j = 0; j < CI; ++j) {
                 const float2 bv = *reinterpret_cast<const float2*>(
                     bs + (tx + 16 * j) * LDN + nn);
 #pragma unroll
-                for (int i = 0; i < 8; ++i)
+                for (int i = 0; i < CI; ++i)
                     if (i >= j)
                         sacc[i][j] = fmaf(cv[i].y, bv.y,
                                           fmaf(cv[i].x, bv.x, sacc[i][j]));
@@ -339,15 +386,14 @@ ssd_output_kernel(const float* __restrict__ x, const float* __restrict__ dt,
             if (carried) {
 #pragma unroll
                 for (int e = 0; e < 2; ++e) {
-                    const float4 hv = *reinterpret_cast<const float4*>(
-                        hs + (nn + e) * P + 4 * tx);
+                    float hv[PJ];
+                    load_vec<PJ>(hs + (nn + e) * P + PJ * tx, hv);
 #pragma unroll
-                    for (int i = 0; i < 8; ++i) {
+                    for (int i = 0; i < CI; ++i) {
                         const float ce = e ? cv[i].y : cv[i].x;
-                        yacc[i][0] = fmaf(ce, hv.x, yacc[i][0]);
-                        yacc[i][1] = fmaf(ce, hv.y, yacc[i][1]);
-                        yacc[i][2] = fmaf(ce, hv.z, yacc[i][2]);
-                        yacc[i][3] = fmaf(ce, hv.w, yacc[i][3]);
+#pragma unroll
+                        for (int jp = 0; jp < PJ; ++jp)
+                            yacc[i][jp] = fmaf(ce, hv[jp], yacc[i][jp]);
                     }
                 }
             }
@@ -358,11 +404,11 @@ ssd_output_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     // w[t][u] = (c b^T)[t][u] exp(seg_t - seg_u) dt_u for t >= u, else 0;
     // y_inter = (c h_k^T) exp(seg_t)
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < CI; ++i) {
         const int t = ty + 16 * i;
         const float seg_t = seg[t];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < CI; ++j) {
             if (i < j) continue;
             const int u = tx + 16 * j;
             ws[t * LDW + u] =
@@ -370,43 +416,38 @@ ssd_output_kernel(const float* __restrict__ x, const float* __restrict__ dt,
         }
         const float decay_in = expf(seg_t);
 #pragma unroll
-        for (int jp = 0; jp < 4; ++jp) yacc[i][jp] *= decay_in;
+        for (int jp = 0; jp < PJ; ++jp) yacc[i][jp] *= decay_in;
     }
     __syncthreads();
 
     // y += w x over u <= t: rows block i meets columns blocks jb <= i
 #pragma unroll
-    for (int jb = 0; jb < 8; ++jb) {
+    for (int jb = 0; jb < CI; ++jb) {
 #pragma unroll 1
         for (int uu = 0; uu < 16; uu += 4) {
             const int u = 16 * jb + uu;
-            float4 xv[4];
+            float xv[4][PJ];
 #pragma unroll
             for (int e = 0; e < 4; ++e)
-                xv[e] = *reinterpret_cast<const float4*>(
-                    xs + (u + e) * P + 4 * tx);
+                load_vec<PJ>(xs + (u + e) * P + PJ * tx, xv[e]);
 #pragma unroll
-            for (int i = 0; i < 8; ++i) {
+            for (int i = 0; i < CI; ++i) {
                 if (i < jb) continue;
                 const float4 wv = *reinterpret_cast<const float4*>(
                     ws + (ty + 16 * i) * LDW + u);
                 const float w4[4] = {wv.x, wv.y, wv.z, wv.w};
 #pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    yacc[i][0] = fmaf(w4[e], xv[e].x, yacc[i][0]);
-                    yacc[i][1] = fmaf(w4[e], xv[e].y, yacc[i][1]);
-                    yacc[i][2] = fmaf(w4[e], xv[e].z, yacc[i][2]);
-                    yacc[i][3] = fmaf(w4[e], xv[e].w, yacc[i][3]);
-                }
+                for (int e = 0; e < 4; ++e)
+#pragma unroll
+                    for (int jp = 0; jp < PJ; ++jp)
+                        yacc[i][jp] = fmaf(w4[e], xv[e][jp], yacc[i][jp]);
             }
         }
     }
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < CI; ++i) {
         const int t = ty + 16 * i;
-        if (t < len)
-            *reinterpret_cast<float4*>(y + (row0 + t) * P + 4 * tx) =
-                make_float4(yacc[i][0], yacc[i][1], yacc[i][2], yacc[i][3]);
+        if (t < len) store_vec<PJ>(y + (row0 + t) * P + PJ * tx, yacc[i]);
     }
 }
 
@@ -443,8 +484,9 @@ int launch(const float* x, const float* dt, const float* a, const float* b,
 
 }  // namespace
 
-// (chunk, P, N) = (128, 64, 128), Mamba2's; anything else is refused
-// with cudaErrorInvalidValue (the wrapper checks first). states: float32
+// (chunk, P, N) = (128, 64, 128), Mamba2's, or (32, 16, 16), the smoke
+// configs'; anything else is refused with cudaErrorInvalidValue (the
+// wrapper pads or splits every shape onto these first). states: float32
 // scratch of BH x K x N x P, decay: BH x K (K = ceil(L / chunk)), both
 // allocated by the wrapper; x, b and c start on 16 B.
 extern "C" int canal_ssd_scan(const float* x, const float* dt, const float* a,
@@ -455,5 +497,8 @@ extern "C" int canal_ssd_scan(const float* x, const float* dt, const float* a,
     if (P == 64 && N == 128 && chunk == 128)
         return launch<128, 64, 128>(x, dt, a, b, c, y, states, decay, bh, L,
                                     st);
+    if (P == 16 && N == 16 && chunk == 32)
+        return launch<32, 16, 16>(x, dt, a, b, c, y, states, decay, bh, L,
+                                  st);
     return (int)cudaErrorInvalidValue;
 }

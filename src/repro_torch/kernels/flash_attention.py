@@ -9,25 +9,72 @@ are ``NEG_INF = -1e30`` (keys past the query position when causal, with
 ``max(l, 1e-30)`` and is cast back to q's dtype.
 
 CUDA tensors run a hand-written kernel in ``csrc/flash_attention.cu``,
-chosen by dtype: bfloat16 the tensor-core kernel (bf16 ``wgmma``, K/V
-tiles through a TMA ring, P carried as two bf16 terms so the output stays
-within one bf16 ulp of the plain version), float32 the CUDA-core kernel
-(full float32). Both run the online softmax, skip causal tiles above the
-diagonal and index the GQA kv head ``h // rep`` instead of repeating it.
-CPU tensors run the plain PyTorch version beside it. The kernels take
-head dim 64, 96, 112 or 128 (96 and 112, Phi-3's and Kimi K2's, at the
-tile width of 128 with the columns past D read as zeros) and raise on
-anything else before any launch; nothing falls back.
+chosen by dtype: bfloat16 and float16 the tensor-core kernel (16-bit
+``wgmma``, K/V tiles through a TMA ring, P carried as two terms of the
+input type so the output stays within one ulp of the plain version),
+float32 the CUDA-core kernel (full float32). Both run the online
+softmax, skip causal tiles above the diagonal and index the GQA kv head
+``h // rep`` instead of repeating it. CPU tensors run the plain PyTorch
+version beside it.
+
+Every head dim from 1 to 256 runs (:func:`plan`): at a tile width that
+holds it (64, 128 or 256 on the tensor cores, a multiple of 32 on the
+CUDA cores), the columns past D read as zeros, which change neither
+``Q K^T`` nor ``P V``, and the scale of the true D. Where a 16-bit row
+of D elements is not a multiple of 16 bytes (D not a multiple of 8), or
+a tensor does not start on 16 bytes, TMA cannot map it: the wrapper
+copies q, k and v into buffers padded with zero columns to the next
+multiple of 8, and returns the first D columns of the output. A head
+dim past 256 raises before any launch; nothing falls back.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from . import build
 
 NEG_INF = -1.0e30
-HEAD_DIMS = (64, 96, 112, 128)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: the largest head dim the kernels take
+MAX_HEAD_DIM = 256
+#: the tensor-core kernel's tile widths (its instantiations)
+TC_WIDTHS = (64, 128, 256)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+class FlashPlan(NamedTuple):
+    """How the kernel runs head dim ``d``: ``kernel`` "tensor_core" or
+    "cuda_core", its tile ``width`` (columns past ``d`` read as zeros),
+    and ``mem_dim``, the row width of the tensors it is handed (``d``, or
+    ``d`` padded with zero columns to a multiple of 8)."""
+    kernel: str
+    width: int
+    mem_dim: int
+
+
+def plan(d: int, dtype: torch.dtype) -> FlashPlan:
+    """The kernel, tile width and padding for head dim ``d`` in
+    ``dtype``; raises on what no kernel takes."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash_attention: {dtype}, expected float32, "
+                        f"bfloat16 or float16")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {d} not in 1.."
+                         f"{MAX_HEAD_DIM}")
+    if dtype == torch.float32:
+        return FlashPlan("cuda_core", -(-d // 32) * 32, d)
+    mem = -(-d // 8) * 8
+    return FlashPlan("tensor_core", next(w for w in TC_WIDTHS if mem <= w),
+                     mem)
+
+
+def _padded(t: torch.Tensor, mem: int) -> torch.Tensor:
+    """``t`` in a fresh buffer (aligned by the allocator), its last dim
+    padded with zeros to ``mem``."""
+    out = t.new_zeros(t.shape[:-1] + (mem,))
+    out[..., :t.shape[-1]] = t
+    return out
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -73,31 +120,29 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool) -> torch.Tensor:
     """The CUDA kernel on (B, Hq, Sq, D) q and (B, Hkv, Skv, D) k/v."""
     name = "flash_attention"
-    if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"{name}: q is {q.dtype}, expected float32 or "
-                        f"bfloat16")
-    build.require(name, q.device, q.dtype, q=q, k=k, v=v)
     b, hq, sq, d = q.shape
+    how = plan(d, q.dtype)
+    build.require(name, q.device, q.dtype, q=q, k=k, v=v)
     hkv, skv = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
     if hkv < 1 or hq % hkv:
         raise ValueError(f"{name}: {hq} q heads not a multiple of {hkv} "
                          f"kv heads")
     build.require_shape(name, "k", k, (b, hkv, skv, d))
     build.require_shape(name, "v", v, (b, hkv, skv, d))
-    if b * hq > 65535:
-        raise ValueError(f"{name}: batch*heads {b * hq} > 65535")
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
+    if q.numel() == 0:
+        return torch.empty_like(q)
+    mem = how.mem_dim
+    if how.kernel == "tensor_core" and (
+            mem != d or any(t.data_ptr() % 16 for t in (q, k, v))):
+        q, k, v = (_padded(t, mem) for t in (q, k, v))
+    out = q.new_empty((b, hq, sq, mem))
     err = build.library().canal_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, hq, hkv, sq, skv, d, int(causal), _DTYPE_CODE[q.dtype],
+        b, hq, hkv, sq, skv, mem, d, int(causal), _DTYPE_CODE[q.dtype],
         build.stream_ptr(q.device))
     build.check(err, name)
     build.count_launch(name)
-    return out
+    return out if mem == d else out[..., :d].contiguous()
 
 
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -13,19 +13,63 @@ carried state contributes ``(c h0^T) exp(seg)``, the chunk itself
 on to ``exp(seg_last) h0 + (x * dt exp(seg_last - seg))^T b``.
 
 CUDA tensors run the hand-written kernel in ``csrc/ssd_scan.cu``, three
-launches counted as one: every chunk's own state contribution in
+launches counted as one scan: every chunk's own state contribution in
 parallel, the carry of the state over the chunks, then every chunk's
-outputs in parallel (see the source for the shapes it takes); CPU
-tensors the plain PyTorch version beside it.
+outputs in parallel; CPU tensors the plain PyTorch version beside it.
+A shape split into blocks (below) counts one scan a block.
+
+The kernel is instantiated for a few (chunk, P, N) (``KERNEL_SHAPES``)
+and takes any shape through :func:`plan`: P and N are padded with zero
+columns up to an instantiation's (a zero column of ``x`` gives a zero
+column of ``y``; one of ``b`` or ``c`` adds nothing to ``c b^T`` or to
+``c h^T``), and past the largest one split into blocks: the P columns
+of ``y`` are independent, and every state dim n runs its own recurrence,
+so ``y`` is the sum of the blocks' scans over N. The chunk is the
+instantiation's, which changes only the float32 rounding order: the
+chunked SSD is exact algebra for any chunk (L is zero-padded to it, as
+the reference pads to its own).
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Tuple
 
 import torch
 
 from . import build
 
-#: (chunk, P, N) the CUDA kernel is instantiated for: Mamba2's
-KERNEL_SHAPES = ((128, 64, 128),)
+#: (chunk, P, N) the CUDA kernel is instantiated for, smallest first: the
+#: smoke configs' and Mamba2's
+KERNEL_SHAPES = ((32, 16, 16), (128, 64, 128))
+
+
+class SsdPlan(NamedTuple):
+    """How the kernel runs a (chunk, P, N) scan: the instantiation
+    ``shape`` (chunk, P, N) and the blocks ``p_blocks`` x ``n_blocks``
+    of it that cover P and N (the last of each zero-padded)."""
+    shape: Tuple[int, int, int]
+    p_blocks: int
+    n_blocks: int
+
+
+def plan(chunk: int, p: int, n: int) -> SsdPlan:
+    """The smallest instantiation that holds P and N, preferring one of
+    the asked chunk; past the largest, the largest in blocks."""
+    fits = [s for s in KERNEL_SHAPES if s[1] >= p and s[2] >= n]
+    shape = ([s for s in fits if s[0] == chunk] or fits
+             or [KERNEL_SHAPES[-1]])[0]
+    return SsdPlan(shape, -(-p // shape[1]), -(-n // shape[2]))
+
+
+def _cols(t: torch.Tensor, c0: int, width: int) -> torch.Tensor:
+    """Columns c0 .. c0 + width of t's last dim, zero-padded past its
+    end, contiguous and starting on 16 bytes (copied where ``t`` is not)."""
+    part = t[..., c0:c0 + width]
+    if part.shape[-1] == width:
+        part = part.contiguous()
+        return part if part.data_ptr() % 16 == 0 else part.clone()
+    out = t.new_zeros(t.shape[:-1] + (width,))
+    out[..., :part.shape[-1]] = part
+    return out
 
 
 def _pad(t: torch.Tensor, pad: int) -> torch.Tensor:
@@ -76,32 +120,38 @@ def _launch(x, dt, a, b, c, chunk: int) -> torch.Tensor:
     build.require(name, x.device, torch.float32, x=x, dt=dt, a=a, b=b, c=c)
     bh, l, p = x.shape
     n = b.shape[-1]
-    if (chunk, p, n) not in KERNEL_SHAPES:
-        raise ValueError(f"{name}: (chunk, P, N) = {(chunk, p, n)} not in "
-                         f"{KERNEL_SHAPES}")
     build.require_shape(name, "dt", dt, (bh, l))
     build.require_shape(name, "a", a, (bh,))
     build.require_shape(name, "b", b, (bh, l, n))
     build.require_shape(name, "c", c, (bh, l, n))
-    for arg, t in (("x", x), ("b", b), ("c", c)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: {arg} does not start on 16 bytes")
-    y = torch.empty_like(x)
-    if y.numel() == 0:
-        return y
-    chunks = -(-l // chunk)
+    if x.numel() == 0:
+        return torch.empty_like(x)
+    how = plan(chunk, p, n)
+    kc, kp, kn = how.shape
+    chunks = -(-l // kc)
     # pass 1 writes each chunk's own state here, pass 2 turns it into the
     # chunk's start state in place, pass 3 reads it
-    states = torch.empty((bh, chunks, n, p), dtype=torch.float32,
+    states = torch.empty((bh, chunks, kn, kp), dtype=torch.float32,
                          device=x.device)
     decay = torch.empty((bh, chunks), dtype=torch.float32, device=x.device)
-    err = build.library().canal_ssd_scan(
-        x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-        c.data_ptr(), y.data_ptr(), states.data_ptr(), decay.data_ptr(),
-        bh, l, p, n, chunk, build.stream_ptr(x.device))
-    build.check(err, name)
-    build.count_launch(name)
-    return y
+    lib = build.library()
+    ys = []
+    for i in range(how.p_blocks):
+        xi = _cols(x, i * kp, kp)
+        yi = None
+        for j in range(how.n_blocks):
+            bj, cj = _cols(b, j * kn, kn), _cols(c, j * kn, kn)
+            y = torch.empty_like(xi)
+            build.check(lib.canal_ssd_scan(
+                xi.data_ptr(), dt.data_ptr(), a.data_ptr(), bj.data_ptr(),
+                cj.data_ptr(), y.data_ptr(), states.data_ptr(),
+                decay.data_ptr(), bh, l, kp, kn, kc,
+                build.stream_ptr(x.device)), name)
+            build.count_launch(name)
+            yi = y if yi is None else yi.add_(y)
+        ys.append(yi)
+    y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=-1)
+    return y if y.shape[-1] == p else y[..., :p].contiguous()
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

@@ -27,7 +27,8 @@ def train(arch: str = "tinyllama-1.1b", steps: int = 50,
           device=None, optimizer: str = "adamw",
           lr: Optional[float] = None, warmup: int = 20,
           overrides: Optional[Dict] = None,
-          fail_at: Sequence[int] = ()) -> Dict:
+          fail_at: Sequence[int] = (),
+          extra_inputs: Optional[Dict] = None) -> Dict:
     """Train ``arch`` for ``steps`` steps under the ``Supervisor``.
 
     The configuration is the arch's (``smoke``: its reduced one) with
@@ -36,12 +37,14 @@ def train(arch: str = "tinyllama-1.1b", steps: int = 50,
     steps)``; ``lr`` defaults to the reference's (3e-3 smoke, 3e-4
     full). ``optimizer`` is ``"adamw"`` or ``"adafactor"``. A
     ``TrainingFailure`` is injected once at each step of ``fail_at``
-    (the supervisor restores the newest checkpoint). On a card each step
-    ends with a device synchronization, so the history's ``seconds``
-    are the step's. Returns ``{"history", "state", "model", "seconds",
-    "resumed_from", "config"}``. An arch of the MoE, VLM, hybrid or
-    audio family raises ``NotImplementedError``: its training comes with
-    a later slice.
+    (the supervisor restores the newest checkpoint). ``extra_inputs``
+    (name -> tensor on the device) joins every batch: a VLM's
+    ``patches``, Whisper's ``frames``, which ``SyntheticTokens`` does not
+    make (without frames Whisper raises ``KeyError``, as the reference's
+    launcher does). On a card each step ends with a device
+    synchronization, so the history's ``seconds`` are the step's.
+    Returns ``{"history", "state", "model", "seconds", "resumed_from",
+    "config"}``.
     """
     import torch
 
@@ -52,13 +55,11 @@ def train(arch: str = "tinyllama-1.1b", steps: int = 50,
     from repro_torch.models import build_model
     from repro_torch.optim import adafactor, adamw, cosine_schedule
     from repro_torch.runtime import StragglerMonitor, Supervisor
-    from repro_torch.train.step import (init_train_state, make_train_step,
-                                        require_trainable)
+    from repro_torch.train.step import init_train_state, make_train_step
 
     cfg = get_smoke(arch) if smoke else get_config(arch)
     cfg = cfg.replace(ce_seq_chunk=min(seq, 512), moe_groups=2,
                       **(overrides or {}))
-    require_trainable(cfg)
     dev = resolve_device(device)
     model = build_model(cfg, dev)
     peak = lr if lr is not None else (3e-3 if smoke else 3e-4)
@@ -92,9 +93,10 @@ def train(arch: str = "tinyllama-1.1b", steps: int = 50,
     try:
         sup = Supervisor(
             step_fn=step_fn,
-            batch_fn=lambda s: {k: torch.as_tensor(v, dtype=torch.int64,
-                                                   device=dev)
-                                for k, v in ds.batch(s).items()},
+            batch_fn=lambda s: {**{k: torch.as_tensor(v, dtype=torch.int64,
+                                                      device=dev)
+                                   for k, v in ds.batch(s).items()},
+                                **(extra_inputs or {})},
             ckpt=CheckpointManager(ckpt_dir or tmp, keep=3),
             ckpt_every=ckpt_every,
             monitor=StragglerMonitor(n_hosts=1),

@@ -38,12 +38,14 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """Grads scaled to at most ``max_norm`` (as float32, where the
-    reference's bf16 x f32 product promotes), and the norm."""
+def clip_scale(grads, max_norm: float) -> torch.Tensor:
+    """The float32 factor that scales grads to a global norm of at most
+    ``max_norm`` (the reference's ``clip_by_global_norm``). The optimizers
+    multiply each leaf by it as they update it (the product the
+    reference's bf16 x f32 promotes to), so no float32 copy of every
+    gradient is held at once."""
     norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree_map(lambda g: g.float() * scale, grads), norm
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
 
 
 def _lr_fn(lr):
@@ -70,12 +72,12 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
     def update(grads, state, params, step):
-        grads, _ = clip_by_global_norm(grads, clip_norm)
+        scale = clip_scale(grads, clip_norm)
         t = torch.as_tensor(step).to(torch.float32) + 1.0
         lr_t = lr_fn(step)
 
         def upd(g, m, v, p):
-            gf = g.float()
+            gf = g.float() * scale
             m_new = b1 * m + (1 - b1) * gf
             v_new = b2 * v + (1 - b2) * gf * gf
             m_hat = m_new / (1 - b1 ** t)
@@ -115,29 +117,35 @@ def adafactor(lr, b1: float = 0.9, decay: float = 0.99, eps: float = 1e-30,
         return tree_map(per_param, params)
 
     def update(grads, state, params, step):
-        grads, _ = clip_by_global_norm(grads, clip_norm)
+        scale = clip_scale(grads, clip_norm)
         lr_t = lr_fn(step)
 
         def upd(g, st, p):
-            gf = g.float()
-            g2 = gf * gf + eps
+            # the reference's arithmetic, op for op, with each temporary
+            # written over in place once it is not read again: a stacked
+            # leaf of 1 G elements (Kimi K2's embedding, Granite's experts)
+            # needs ~12 bytes an element of float32 scratch, not ~24
+            gf = g.to(torch.float32, copy=True).mul_(scale)
+            g2 = torch.mul(gf, gf).add_(eps)
             if p.ndim >= 2:
                 vr = decay * st["vr"] + (1 - decay) * torch.mean(g2, dim=-1)
                 vc = decay * st["vc"] + (1 - decay) * torch.mean(g2, dim=-2)
-                denom = (vr[..., None] * vc[..., None, :]
-                         / torch.clamp(
-                             torch.mean(vr, dim=-1, keepdim=True)[..., None],
-                             min=eps))
-                precond = gf * torch.rsqrt(torch.clamp(denom, min=eps))
+                del g2
+                precond = torch.mul(vr[..., None], vc[..., None, :]).div_(
+                    torch.clamp(torch.mean(vr, dim=-1, keepdim=True)[..., None],
+                                min=eps))
+                precond.clamp_(min=eps).rsqrt_().mul_(gf)
                 new_st = {"vr": vr, "vc": vc}
             else:
-                v = decay * st["v"] + (1 - decay) * g2
-                precond = gf * torch.rsqrt(torch.clamp(v, min=eps))
+                v = g2.mul_(1 - decay).add_(decay * st["v"])
+                precond = torch.clamp(v, min=eps).rsqrt_().mul_(gf)
                 new_st = {"v": v}
-            m = b1 * st["m"].float() + (1 - b1) * precond
+            del gf
+            m = st["m"].float().mul_(b1).add_(precond.mul_(1 - b1))
+            del precond
             new_st["m"] = m.to(torch.bfloat16)
-            delta = m + weight_decay * p.float()
-            return (-lr_t * delta).to(p.dtype), new_st
+            delta = m.add_(weight_decay * p.float())
+            return delta.mul_(-lr_t).to(p.dtype), new_st
 
         return _unzip(tree_map(upd, grads, state, params), 2)
 

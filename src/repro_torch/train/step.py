@@ -13,9 +13,9 @@ with autograd and returns a new state, so a restored checkpoint is just
 another state. The step trains the models' plain branch, as the
 reference does: the hand-written kernels have no backward, so a model
 with ``attn_impl="kernel"`` is refused (the reference's Pallas branch
-fails under ``jax.grad`` too). The step trains the dense and SSM
-families; the MoE, VLM, hybrid and audio families are refused
-(:func:`require_trainable`): their training comes with a later slice.
+fails under ``jax.grad`` too). Every family trains, as in the
+reference: the batch goes to ``model.hidden`` whole, so a VLM batch's
+``patches`` and a Whisper batch's ``frames`` reach the model.
 """
 from __future__ import annotations
 
@@ -30,21 +30,6 @@ from ..optim import Optimizer, global_norm
 from ..tree import tree_map
 
 
-#: the model families the training step is ported for
-TRAINED_FAMILIES = ("dense", "ssm")
-
-
-def require_trainable(cfg) -> None:
-    """Raise ``NotImplementedError`` for a family whose training is not
-    ported yet (before any weight is drawn or step taken)."""
-    if cfg.family not in TRAINED_FAMILIES:
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family ({cfg.name}) is not "
-            f"ported yet: it comes with the slice after this one, which "
-            f"ports training of the MoE, VLM, hybrid and audio models; "
-            f"scoring and serving run now")
-
-
 class TrainState(NamedTuple):
     params: Any
     opt: Any
@@ -55,7 +40,6 @@ def init_train_state(model, optimizer: Optimizer,
                      generator: torch.Generator) -> TrainState:
     """Draw the model's weights from ``generator`` and take them as the
     stacked parameter tree (the model is bound to it)."""
-    require_trainable(model.cfg)
     model.init_params(generator)
     params = stack_params(model)
     bind_params(model, params)
@@ -142,7 +126,6 @@ def make_train_step(model, optimizer: Optimizer,
     skipped, as the reference skips it without one). Turns on gradients
     for ``model``'s parameters.
     """
-    require_trainable(model.cfg)
     if model.cfg.attn_impl == "kernel":
         raise ValueError(
             "attn_impl='kernel' cannot train: the flash_attention and "

@@ -584,13 +584,15 @@ def test_flash_attention_new_head_dims_match_pallas(jlm, d, dtype):
 
 def tensor_core_model(q, k, v, causal, keys=128, split=True,
                       scale_d=None):
-    """The bf16 tensor-core kernel's rounding, in float32 torch: per tile
-    of ``keys`` keys, S = Q K^T of the bf16 values with float32 sums, then
-    scaled; the online softmax in float32; P carried as two bf16 terms
-    hi = bf16(p), lo = bf16(p - hi) (only hi with ``split=False``), each
-    multiplied by V with float32 sums; the output divided by
-    max(l, 1e-30) and rounded to bf16. ``scale_d``: the head dim of the
-    scale, where the inputs are padded past it."""
+    """The 16-bit tensor-core kernel's rounding, in float32 torch: per
+    tile of ``keys`` keys, S = Q K^T of the 16-bit values with float32
+    sums, then scaled; the online softmax in float32; P carried as two
+    terms of q's dtype (bf16 or f16) hi = T(p), lo = T(p - hi) (only hi
+    with ``split=False``), each multiplied by V with float32 sums; the
+    output divided by max(l, 1e-30) and rounded to q's dtype.
+    ``scale_d``: the head dim of the scale, where the inputs are padded
+    past it."""
+    tdt = q.dtype
     b, hq, sq, d = q.shape
     rep = hq // k.shape[1]
     k, v = (t.repeat_interleave(rep, 1).float() for t in (k, v))
@@ -611,11 +613,11 @@ def tensor_core_model(q, k, v, causal, keys=128, split=True,
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
         den = den * alpha + p.sum(-1, keepdim=True)
-        hi = p.bfloat16().float()
-        lo = (p - hi).bfloat16().float() if split else torch.zeros_like(p)
+        hi = p.to(tdt).float()
+        lo = (p - hi).to(tdt).float() if split else torch.zeros_like(p)
         acc = acc * alpha + hi @ vt + lo @ vt
         m = m_new
-    return (acc / den.clamp_min(1e-30)).bfloat16()
+    return (acc / den.clamp_min(1e-30)).to(tdt)
 
 
 @pytest.mark.parametrize("d", [96, 112])
@@ -634,6 +636,40 @@ def test_flash_attention_padded_tile_keeps_the_tolerance(d):
     want = flash_attention.flash_attention_gqa_plain(q, k, v, causal=True)
     torch.testing.assert_close(got[..., :d].float(), want.float(),
                                atol=1e-4, rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("d,width,keys", [(16, 64, 128), (20, 64, 128),
+                                          (256, 256, 64), (200, 256, 64)])
+def test_flash_attention_new_tiles_keep_the_tolerance(d, width, keys):
+    """The tensor-core routes of the other head dims, without the card:
+    D 16 and 20 at the tile width of 64 (128-key tiles; 20 copied to a
+    row of 24 first), D 200 and 256 at the width of 256 (64-key tiles),
+    the columns past D zero, the scale of the true D: within the card
+    tests' bf16 tolerance of the plain version, the padded columns zero."""
+    q, k, v = (torch.as_tensor(a).bfloat16()
+               for a in attention_case(150, 150, 4, 2, d=d, b=1, seed=d))
+    pad = [torch.nn.functional.pad(t, (0, width - d)) for t in (q, k, v)]
+    got = tensor_core_model(*pad, causal=True, keys=keys, scale_d=d)
+    assert not got[..., d:].any()
+    want = flash_attention.flash_attention_gqa_plain(q, k, v, causal=True)
+    torch.testing.assert_close(got[..., :d].float(), want.float(),
+                               atol=1e-4, rtol=2.0 ** -7)
+
+
+def test_flash_attention_f16_hi_lo_keeps_one_f16_ulp():
+    """The float16 instantiation's precision argument, without the card:
+    P as two f16 terms keeps the output within one f16 ulp of the plain
+    version (1e-4 + 2^-10 |want|), at the LM path's tile and a mid shape
+    with GQA; P rounded once to f16 does not."""
+    q, k, v = (torch.as_tensor(a).half()
+               for a in attention_case(512, 512, 4, 2, b=1, seed=15))
+    want = flash_attention.flash_attention_gqa_plain(q, k, v, causal=True)
+    got = tensor_core_model(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-4,
+                               rtol=2.0 ** -10)
+    one_term = tensor_core_model(q, k, v, causal=True, split=False)
+    assert not torch.allclose(one_term.float(), want.float(), atol=1e-4,
+                              rtol=2.0 ** -10)
 
 
 def test_flash_attention_hi_lo_probabilities_keep_the_tolerance():
@@ -766,22 +802,65 @@ def test_lm_oracles_match_reference(jlm):
         rtol=1e-5)
 
 
-def test_lm_kernel_wrappers_refuse_what_the_kernels_do_not_take():
-    """The launch paths check before they build or launch anything: the
-    flash kernel takes head dim 64, 96, 112 or 128 in f32/bf16, the SSD
-    kernel (chunk, P, N) in its instantiated set."""
-    q = torch.zeros((1, 2, 4, 32))
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention._launch(q, q, q, True)
-    for d in (48, 80, 100, 120, 256):
-        qd = torch.zeros((1, 2, 4, d))
+@pytest.mark.parametrize("d,dtype,want", [
+    (64, torch.bfloat16, ("tensor_core", 64, 64)),
+    (16, torch.bfloat16, ("tensor_core", 64, 16)),
+    (8, torch.float16, ("tensor_core", 64, 8)),
+    (1, torch.bfloat16, ("tensor_core", 64, 8)),
+    (20, torch.float16, ("tensor_core", 64, 24)),
+    (96, torch.bfloat16, ("tensor_core", 128, 96)),
+    (100, torch.bfloat16, ("tensor_core", 128, 104)),
+    (112, torch.float16, ("tensor_core", 128, 112)),
+    (128, torch.bfloat16, ("tensor_core", 128, 128)),
+    (129, torch.bfloat16, ("tensor_core", 256, 136)),
+    (256, torch.float16, ("tensor_core", 256, 256)),
+    (1, torch.float32, ("cuda_core", 32, 1)),
+    (96, torch.float32, ("cuda_core", 96, 96)),
+    (100, torch.float32, ("cuda_core", 128, 100)),
+    (256, torch.float32, ("cuda_core", 256, 256)),
+])
+def test_flash_attention_plans_every_head_dim(d, dtype, want):
+    """What the flash wrapper plans for a head dim: the kernel, its tile
+    width (columns past D read as zeros) and the row width it hands the
+    kernel (a 16-bit row padded with zero columns to a multiple of 8,
+    16 bytes, where TMA needs it)."""
+    assert tuple(flash_attention.plan(d, dtype)) == want
+
+
+@pytest.mark.parametrize("chunk,p,n,want", [
+    (128, 64, 128, ((128, 64, 128), 1, 1)),    # Mamba2
+    (32, 16, 16, ((32, 16, 16), 1, 1)),        # the smoke configs
+    (64, 16, 16, ((32, 16, 16), 1, 1)),        # another chunk
+    (32, 8, 4, ((32, 16, 16), 1, 1)),          # P and N zero-padded
+    (32, 17, 16, ((128, 64, 128), 1, 1)),
+    (128, 32, 100, ((128, 64, 128), 1, 1)),
+    (128, 64, 256, ((128, 64, 128), 1, 2)),    # N in blocks, summed
+    (32, 130, 16, ((128, 64, 128), 3, 1)),     # P in blocks
+])
+def test_ssd_scan_plans_every_shape(chunk, p, n, want):
+    """What the SSD wrapper plans for a (chunk, P, N): the instantiation
+    (the asked chunk where one holds P and N, else the smallest that
+    does) and the blocks of P and N it runs."""
+    assert tuple(ssd_scan.plan(chunk, p, n)) == want
+
+
+def test_lm_kernel_wrappers_refuse_only_what_no_kernel_takes():
+    """The launch paths check before they build or launch anything: a head
+    dim past 256 or under 1, a dtype no kernel takes, GQA heads that do
+    not divide; zero-size inputs launch nothing."""
+    for d in (257, 300):
+        qd = torch.zeros((1, 2, 4, d), dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="head dim"):
             flash_attention._launch(qd, qd, qd, True)
+    q = torch.zeros((1, 2, 4, 32))
     with pytest.raises(TypeError):
-        flash_attention._launch(q.half(), q.half(), q.half(), True)
+        flash_attention._launch(q.double(), q.double(), q.double(), True)
+    with pytest.raises(ValueError, match="is on meta"):
+        flash_attention._launch(q, q.to("meta"), q, True)
+    q3, k2 = torch.zeros((1, 3, 4, 32)), torch.zeros((1, 2, 4, 32))
+    with pytest.raises(ValueError, match="not a multiple"):
+        flash_attention._launch(q3, k2, k2, True)
     x, dt, a, b, c = map(torch.as_tensor, ssd_case(2, 16, 8, 4, seed=1))
-    with pytest.raises(ValueError, match="not in"):
-        ssd_scan._launch(x, dt, a, b, c, 32)
     build.reset_launch_counts()
     flash_attention.flash_attention_gqa(q[:, :, :0], q[:, :, :0], q[:, :, :0])
     ssd_scan.ssd_scan(x, dt, a, b, c, chunk=8)
@@ -1127,12 +1206,42 @@ class TestCudaKernels:
         (2, 2, 2, 130, 384, 96, "float32", True),
         (1, 4, 2, 190, 190, 112, "float32", True),
         (1, 3, 3, 70, 150, 112, "float32", False),
+        # every other head dim (``flash_attention.plan``): the tile of 64
+        # (D 16, the smoke configs'; D 8, DeepSeek-Coder's smoke; D 1 and
+        # 20, copied to a padded width of 8 and 24), of 128 (D 100, padded
+        # to 104) and of 256 (D 256, RecurrentGemma's; D 129 and 200)
+        (2, 4, 2, 40, 40, 16, "bfloat16", True),
+        (1, 4, 4, 200, 333, 16, "bfloat16", False),
+        (2, 8, 2, 130, 130, 8, "bfloat16", True),
+        (1, 2, 1, 70, 70, 1, "bfloat16", True),
+        (1, 4, 2, 150, 150, 20, "bfloat16", True),
+        (1, 4, 2, 150, 150, 100, "bfloat16", True),
+        (1, 4, 2, 190, 190, 256, "bfloat16", True),
+        (1, 2, 2, 130, 300, 256, "bfloat16", False),
+        (1, 2, 1, 1, 1, 256, "bfloat16", True),
+        (1, 2, 1, 140, 140, 129, "bfloat16", True),
+        (1, 2, 2, 100, 100, 200, "bfloat16", True),
+        (2, 4, 2, 40, 40, 16, "float32", True),
+        (1, 3, 1, 70, 150, 1, "float32", False),
+        (1, 2, 2, 130, 130, 256, "float32", True),
+        (1, 2, 1, 100, 100, 200, "float32", True),
+        # float16 on the tensor-core kernel instantiated for __half
+        (2, 32, 4, 2048, 2048, 64, "float16", True),
+        (1, 4, 2, 130, 130, 128, "float16", True),
+        (1, 3, 3, 70, 150, 96, "float16", False),
+        (2, 4, 2, 40, 40, 16, "float16", True),
+        (1, 4, 2, 190, 190, 256, "float16", True),
+        (1, 2, 1, 70, 70, 20, "float16", True),
+        # batch x heads past 65,535 (the old grid's y limit)
+        (1100, 64, 8, 3, 3, 16, "bfloat16", True),
+        (1100, 64, 8, 3, 3, 16, "float32", True),
+        (1100, 64, 8, 3, 3, 16, "float16", False),
     ])
     def test_flash_attention(self, cuda, b, hq, hkv, sq, skv, d, dtype,
                              causal):
         """Within 2e-5 of the plain version in f32 (summation order) and,
-        in bf16, within one bf16 ulp of each output (rtol 2**-7) plus 1e-4:
-        both round an f32 result to bf16 once."""
+        in bf16 and f16, within one ulp of each output (rtol 2**-7 and
+        2**-10) plus 1e-4: both round an f32 result to 16 bits once."""
         tdt = getattr(torch, dtype)
         q, k, v = (torch.as_tensor(a, device=cuda).to(tdt)
                    for a in attention_case(sq, skv, hq, hkv, d=d, b=b))
@@ -1141,10 +1250,28 @@ class TestCudaKernels:
         torch.cuda.synchronize()
         assert build.LAUNCHES["flash_attention"] == before + 1
         want = flash_attention.flash_attention_gqa_plain(q, k, v, causal)
-        atol, rtol = (1e-4, 2.0 ** -7) if dtype == "bfloat16" else (2e-5,
-                                                                    2e-5)
+        atol, rtol = {"bfloat16": (1e-4, 2.0 ** -7),
+                      "float16": (1e-4, 2.0 ** -10),
+                      "float32": (2e-5, 2e-5)}[dtype]
+        assert got.shape == want.shape and got.is_contiguous()
         torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                    rtol=rtol)
+
+    @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+    def test_flash_attention_unaligned_views(self, cuda, dtype):
+        """q, k and v that start off 16 bytes (views one element in) are
+        copied to aligned buffers, not refused."""
+        tdt = getattr(torch, dtype)
+        q, k, v = (torch.as_tensor(a, device=cuda).to(tdt).reshape(-1)
+                   for a in attention_case(70, 70, 4, 2, d=64, b=1))
+        q, k, v = ((torch.cat([t[:1], t])[1:]).view(1, -1, 70, 64)
+                   for t in (q, k, v))
+        assert q.data_ptr() % 16
+        got = flash_attention.flash_attention_gqa(q, k, v, True)
+        want = flash_attention.flash_attention_gqa_plain(q, k, v, True)
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-4,
+                                   rtol=2.0 ** -7 if dtype == "bfloat16"
+                                   else 2.0 ** -10)
 
     @pytest.mark.parametrize("bh,l,chunk", [(128, 2048, 128), (3, 300, 128),
                                             (5, 100, 128), (2, 1, 128),
@@ -1160,5 +1287,35 @@ class TestCudaKernels:
         got = ssd_scan.ssd_scan(*args, chunk=chunk)
         torch.cuda.synchronize()
         assert build.LAUNCHES["ssd_scan"] == before + 1
+        want = ssd_scan.ssd_scan_plain(*args, chunk=chunk)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+    @pytest.mark.parametrize("bh,l,chunk,p,n", [
+        (8, 64, 32, 16, 16),      # the Mamba2 smoke config's shape
+        (8, 1, 32, 16, 16),
+        (3, 100, 32, 16, 16),
+        (64, 2048, 32, 16, 16),
+        (4, 200, 32, 8, 4),       # P and N padded to (16, 16)
+        (4, 200, 64, 16, 16),     # chunk 64 on the chunk-32 kernel
+        (3, 300, 128, 32, 100),   # padded to (64, 128)
+        (2, 300, 128, 17, 16),
+        (2, 300, 128, 64, 256),   # N in two blocks, summed
+        (2, 260, 128, 130, 16),   # P in three blocks
+    ])
+    def test_ssd_scan_every_shape(self, cuda, bh, l, chunk, p, n):
+        """Every (chunk, P, N) through ``ssd_scan.plan``: within 1e-4 of
+        the plain version at the asked chunk (f32 both, no TF32; another
+        chunk and summation order change only the rounding); one launch
+        counted a block of the plan."""
+        torch.backends.cuda.matmul.allow_tf32 = False
+        args = [torch.as_tensor(a, device=cuda)
+                for a in ssd_case(bh, l, p, n, seed=l + p + n)]
+        how = ssd_scan.plan(chunk, p, n)
+        before = build.LAUNCHES["ssd_scan"]
+        got = ssd_scan.ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["ssd_scan"] == (before + how.p_blocks
+                                              * how.n_blocks)
+        assert got.shape == (bh, l, p) and got.is_contiguous()
         want = ssd_scan.ssd_scan_plain(*args, chunk=chunk)
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)

@@ -325,6 +325,25 @@ def test_kernel_branch_passes_the_launch_checks(arch, monkeypatch):
     takes (contiguous, dtype, shape). Here every launch check runs on the
     CPU tensors up to the library call, which a stub stops; the plain
     version then answers. One launch per layer, as on the card."""
+    launch_checked_logits(get_config(arch).replace(
+        attn_impl="kernel", **KERNEL_SHAPED[arch]), monkeypatch)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama_1_1b", "mamba2_1_3b",
+                                  "phi3_mini_3_8b", "qwen3_14b",
+                                  "deepseek_coder_33b", "kimi_k2_1t_a32b",
+                                  "granite_moe_3b_a800m", "internvl2_2b"])
+def test_smoke_kernel_branch_passes_the_launch_checks(arch, monkeypatch):
+    """The smoke configs as they are (head dims 8 and 16, Mamba2's chunk
+    32, P 16, N 16) pass every launch check too, as ``chip_smoke.py``'s
+    ``lm_smoke_kernels`` runs them on the card."""
+    launch_checked_logits(get_smoke(arch).replace(attn_impl="kernel"),
+                          monkeypatch, seq=96)
+
+
+def launch_checked_logits(cfg, monkeypatch, seq=130):
+    """``cfg``'s kernel-branch logits with every kernel launch checked up
+    to the library call, then answered by the plain version."""
     monkeypatch.setattr(build, "library", _stop)
     seen = []
 
@@ -343,11 +362,9 @@ def test_kernel_branch_passes_the_launch_checks(arch, monkeypatch):
         lambda x, dt, a, b, c, chunk=128: ssd._launch(x, dt, a, b, c,
                                                       chunk),
         ssd.ssd_scan_plain, "ssd_scan"))
-    cfg = get_config(arch).replace(attn_impl="kernel",
-                                   **KERNEL_SHAPED[arch])
     model = build_model(cfg, "cpu").init_params(
         torch.Generator().manual_seed(0))
-    batch = {"tokens": torch.as_tensor(tokens(2, 130)).long()}
+    batch = {"tokens": torch.as_tensor(tokens(2, seq)).long()}
     if cfg.vlm is not None:
         batch["patches"] = torch.randn((2, cfg.vlm.num_patches,
                                         cfg.vlm.d_patch),
@@ -356,7 +373,7 @@ def test_kernel_branch_passes_the_launch_checks(arch, monkeypatch):
     with torch.inference_mode():
         out = model.logits(batch)
     assert torch.isfinite(out).all()
-    assert out.shape == (2, 130, cfg.padded_vocab)
+    assert out.shape == (2, seq, cfg.padded_vocab)
     kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
     assert seen == [kernel] * cfg.num_layers
 

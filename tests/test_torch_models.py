@@ -253,6 +253,24 @@ def test_linear_scan_is_the_recurrence():
                                rtol=1e-12, atol=1e-12)
 
 
+@pytest.mark.parametrize("s", [1, 37, 64])
+def test_linear_scan_backward_is_the_reverse_recurrence(s):
+    """The scan's own backward (the reverse recurrence, one more doubling
+    scan) against autograd through the sequential loop, in float64."""
+    rng = np.random.default_rng(11 + s)
+    a = torch.as_tensor(rng.uniform(0.1, 1.0, (3, s, 5))).requires_grad_()
+    b = torch.as_tensor(rng.standard_normal((3, s, 5))).requires_grad_()
+    w = torch.as_tensor(rng.standard_normal((3, s, 5)))
+    got = torch.autograd.grad((L.linear_scan(a, b) * w).sum(), (a, b))
+    h, hs = torch.zeros(3, 5, dtype=torch.float64), []
+    for t in range(s):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    want = torch.autograd.grad((torch.stack(hs, 1) * w).sum(), (a, b))
+    for g, v in zip(got, want):
+        torch.testing.assert_close(g, v, rtol=1e-12, atol=1e-12)
+
+
 def test_large_draws_take_slices_of_the_seed(monkeypatch):
     """A tensor past ``DRAW_ELEMENTS`` is drawn in leading-axis slices:
     the same values for the same seed, each slice the next draw of the
@@ -483,24 +501,6 @@ def test_unknown_family_raises():
     cfg = get_smoke("tinyllama-1.1b").replace(family="nope")
     with pytest.raises(ValueError, match="unknown model family"):
         build_model(cfg, "cpu")
-
-
-@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "internvl2-2b",
-                                  "recurrentgemma-2b", "whisper-medium"])
-def test_training_the_new_families_is_refused(arch):
-    """Training the MoE, VLM, hybrid and audio families waits for the
-    next slice: the launcher and the step refuse it up front, naming
-    that slice, before any weight is drawn."""
-    from repro_torch.launch.train import train
-    from repro_torch.optim import adamw
-    from repro_torch.train.step import init_train_state, make_train_step
-    with pytest.raises(NotImplementedError, match="slice after this one"):
-        train(arch, steps=1, smoke=True, device="cpu")
-    model = build_model(get_smoke(arch), "cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        make_train_step(model, adamw(1e-3))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        init_train_state(model, adamw(1e-3), torch.Generator())
 
 
 # ---------------------------------------------------------------- launcher

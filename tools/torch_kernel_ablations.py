@@ -101,7 +101,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
 from chip_smoke import (LM_BATCH, LM_SEQ, SSD_TOL, T,  # noqa: E402
-                        card_line, fused_workload, graph_ms, lm_models,
+                        card_line, fused_workload, graph_ms, lm_model,
                         lm_tokens, logit_gap, main_path, swapped)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import fabric_step as fs  # noqa: E402
@@ -430,7 +430,7 @@ NO_OUTPUT_PASS = sub("    ssd_output_kernel<C, P, N><<<",
 VARIANTS = {
     "flash": {
         "committed": (None, False),
-        "no_lo_product": (sub("            wgmma_rs_n64_tb(acc[p], p_lo[kk],"
+        "no_lo_product": (sub("            wgmma_rs_n64_tb<T>(acc[p], p_lo[kk],"
                               " db);\n", ""), True),
         "no_turns": (chain(
             sub('asm volatile("bar.sync %0, %1;\\n" :: "r"(1 + g), '
@@ -518,7 +518,7 @@ VARIANTS = {
                          "                for (int e = 0;",
                          "            if (false) {\n#pragma unroll\n"
                          "                for (int e = 0;"), True),
-        "no_intra": (sub("for (int jb = 0; jb < 8; ++jb) {",
+        "no_intra": (sub("for (int jb = 0; jb < CI; ++jb) {",
                          "for (int jb = 0; jb < 0; ++jb) {"), True),
         "no_stage_loads": (chain(
             sub("        for (int v = tid; v < C * kNT / 2; v += kThreads) {",
@@ -618,7 +618,7 @@ def flash_rows(fns, device):
 
             def call():
                 err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         out.data_ptr(), b, hq, hkv, s, s, d, causal, 1,
+                         out.data_ptr(), b, hq, hkv, s, s, d, d, causal, 1,
                          build.stream_ptr(device))
                 build.check(err, name)
             call()
@@ -1086,7 +1086,7 @@ def ssd_layer_rows(libs, device):
                  libs["ssd_layers", "first_kernel"], True),
              "plain": ssd.ssd_scan_plain}
     cfg = get_config("mamba2-1.3b")
-    model, plain = lm_models({"mamba2": cfg}, device)["mamba2"]
+    model, plain = lm_model(cfg, device)
     tokens = {"tokens": lm_tokens(cfg, LM_BATCH, LM_SEQ, device)}
     layers = []
 

@@ -2,14 +2,18 @@
 """Measure the port's training path on one CUDA card, beyond what
 ``chip_smoke.py``'s ``train`` phase prints.
 
-    python3 tools/torch_train_probe.py [--only memory,rates,profile,plain]
-                                       [--src DIR]
+    python3 tools/torch_train_probe.py
+        [--only memory,experts,rates,profile,plain] [--src DIR]
 
 - ``memory``: TinyLlama-1.1B's FULL throughput leg (B 8 x S 2,048, remat
   ``dots``) in 2 microbatches of 4 instead of ``chip_smoke.py``'s 4 of 2:
   the out-of-memory error it raises, or its record;
-- ``rates``: both FULL throughput legs (``chip_smoke.TRAIN_RUNS``) at
-  the rates 1e-3, 3e-4 and 1e-4: losses, gradient norms, seconds a step;
+- ``experts``: Kimi K2's leg of ``chip_smoke.TRAIN_RUNS`` (2 layers,
+  Adafactor, B 2) at 64, 48 and 40 experts, the count that leg trains
+  at: each count's out-of-memory error, or its record;
+- ``rates``: the TinyLlama and Mamba2 FULL throughput legs (the first
+  two of ``chip_smoke.TRAIN_RUNS``) at the rates 1e-3, 3e-4 and 1e-4:
+  losses, gradient norms, seconds a step;
 - ``profile``: ``torch.profiler`` over one FULL step of each model after
   two warm ones: the summed kernel time, the launches, and the kernel
   time by operator and by kernel name (the 25 largest);
@@ -33,8 +37,14 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def dense_ssm_legs(cs):
+    """(arch, batch, microbatches, steps) of TinyLlama's and Mamba2's
+    legs, the first two of ``chip_smoke.TRAIN_RUNS``."""
+    return [run[:4] for run in cs.TRAIN_RUNS[:2]]
+
+
 def memory_rows(cs, device):
-    arch, batch, _, steps = cs.TRAIN_RUNS[0]
+    arch, batch, _, steps = cs.TRAIN_RUNS[0][:4]
     try:
         rec, _ = cs.train_run(device, arch, batch, 2, steps, cs.TRAIN_LR)
     except torch.OutOfMemoryError as e:
@@ -44,9 +54,28 @@ def memory_rows(cs, device):
     return [{"probe": "memory", "arch": arch, "microbatches": 2, **rec}]
 
 
+def expert_rows(cs, device):
+    arch, batch, microbatches, steps, optimizer, lr, overrides = next(
+        run for run in cs.TRAIN_RUNS if "num_experts" in run[-1])
+    rows = []
+    for n in (64, 48, overrides["num_experts"]):
+        row = {"probe": "experts", "arch": arch, "num_experts": n}
+        try:
+            rec, falls = cs.train_run(device, arch, batch, microbatches,
+                                      steps, lr, optimizer,
+                                      {**overrides, "num_experts": n})
+            row.update(passes_check=falls, **{k: rec[k] for k in (
+                "losses", "step_s", "max_memory_bytes")})
+        except torch.OutOfMemoryError as e:
+            row["error"] = str(e)[:400]
+        torch.cuda.empty_cache()
+        rows.append(row)
+    return rows
+
+
 def rate_rows(cs, device):
     rows = []
-    for arch, batch, microbatches, steps in cs.TRAIN_RUNS:
+    for arch, batch, microbatches, steps in dense_ssm_legs(cs):
         for lr in (1e-3, 3e-4, 1e-4):
             rec, falls = cs.train_run(device, arch, batch, microbatches,
                                       steps, lr)
@@ -69,7 +98,7 @@ def profile_rows(cs, device):
     from repro_torch.train.step import init_train_state, make_train_step
 
     rows = []
-    for arch, batch, microbatches, _ in cs.TRAIN_RUNS:
+    for arch, batch, microbatches, _ in dense_ssm_legs(cs):
         cfg = get_config(arch).replace(ce_seq_chunk=512)
         model = build_model(cfg, device)
         opt = adamw(cosine_schedule(cs.TRAIN_LR, 1, 6))
@@ -135,7 +164,8 @@ def plain_rows(device):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", default="memory,rates,profile,plain")
+    parser.add_argument("--only",
+                        default="memory,experts,rates,profile,plain")
     parser.add_argument("--src", default=os.path.join(ROOT, "src"),
                         help="the package tree that 'plain' times")
     args = parser.parse_args()
@@ -158,6 +188,7 @@ def main():
     device = torch.device("cuda")
     print(cs.card_line(), flush=True)
     for name, fn in (("memory", lambda: memory_rows(cs, device)),
+                     ("experts", lambda: expert_rows(cs, device)),
                      ("rates", lambda: rate_rows(cs, device)),
                      ("profile", lambda: profile_rows(cs, device)),
                      ("plain", lambda: plain_rows(device))):
