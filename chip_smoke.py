@@ -254,7 +254,8 @@ CPU_CHECK_BATCH, CPU_CHECK_SEQ, CPU_CHECK_TOL = 1, 256, 1e-3
 #: (10 q heads on 1, the tile of 256), which no path sends to the kernel
 FLASH_SHAPES = ((32, 32, 96, "bfloat16"), (64, 8, 112, "bfloat16"),
                 (40, 8, 128, "bfloat16"), (32, 4, 64, "float16"),
-                (16, 4, 16, "bfloat16"), (10, 1, 256, "bfloat16"))
+                (16, 4, 16, "bfloat16"), (10, 1, 256, "bfloat16"),
+                (8, 2, 320, "bfloat16"), (8, 2, 512, "bfloat16"))
 #: ``ssd_scan`` is also timed at the smoke configs' instantiation
 #: (chunk 32, P 16, N 16), BH 128, L 2,048
 SSD_SHAPES = ((128, 2048, 16, 16, 32),)
@@ -359,6 +360,7 @@ RESTART_STEPS, RESTART_BATCH, RESTART_EVERY, RESTART_FAIL = 5, 4, 2, 3
 #: the kernels each path exists to launch (phase 11 reads each kernel's
 #: launches from its path)
 PHASE_KERNELS = {
+    "dryrun": ("flash_attention",),
     "main": ("fabric_fused_batch", "fabric_fused_run", "minplus_step",
              "net_bboxes"),
     "smoke": ("hpwl",),
@@ -2128,6 +2130,297 @@ def examples_phase(device):
     return runs
 
 
+#: the dry run's FULL cells on the fake production meshes: (arch, shape,
+#: mesh, attn_impl)
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", "single", None),
+                ("qwen3-14b", "prefill_32k", "single", "kernel"),
+                ("mamba2-1.3b", "long_500k", "single", None),
+                ("kimi-k2-1t-a32b", "decode_32k", "multi", None))
+#: the two programs counted on the card and in the fake at one rank:
+#: TinyLlama's step of the ``train`` phase and Qwen3's kernel-path
+#: ``lm_score`` forward, and the flash launches the latter makes
+DRYRUN_STEP = dict(arch="tinyllama-1.1b", batch=8, seq=TRAIN_SEQ,
+                   microbatches=4)
+DRYRUN_FWD = dict(arch="qwen3-14b", batch=LM_BATCH, seq=LM_SEQ, launches=40)
+#: predicted peak over ``max_memory_allocated``, and the most useful FLOPs
+#: a cell may claim over those it counts
+DRYRUN_MEM_GATE, DRYRUN_USEFUL_MAX = (0.75, 1.25), 1.05
+#: the fake traces run in child processes (their own fake process
+#: groups, away from this process's CUDA state), three side by side: two
+#: cells each, and the one-rank traces; each prints one JSON line
+DRYRUN_CHILD = """
+import json, sys, tempfile
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+cells, step, fwd = json.loads(sys.argv[1])
+out = {"cells": []}
+with tempfile.TemporaryDirectory(prefix="dryrun_torch_") as d:
+    for arch, shape, mesh, impl in cells:
+        out["cells"].append(dryrun.run_cell(arch, shape, mesh, out_dir=d,
+                                            attn_impl=impl))
+if step:
+    out["train"] = dryrun.trace_one_rank(
+        "train", get_config(step["arch"]).replace(ce_seq_chunk=512),
+        step["batch"], step["seq"], step["microbatches"])
+    out["logits"] = dryrun.trace_one_rank(
+        "logits", get_config(fwd["arch"]).replace(attn_impl="kernel"),
+        fwd["batch"], fwd["seq"])
+print(json.dumps(out))
+"""
+#: the cells of each child (the one-rank traces run in a third)
+DRYRUN_SPLIT = ((0, 2), (1, 3))
+
+
+def dryrun_cell_line(rec):
+    """One cell's figures, checked: it fails on a term of 0 or a useful
+    FLOP ratio over ``DRYRUN_USEFUL_MAX``."""
+    mem, terms = rec["memory_analysis"], rec["roofline"]
+    row = {"cell": f"{rec['arch']} x {rec['shape']} x {rec['mesh']}",
+           "ranks": rec["n_devices"],
+           "argument_gb": mem["argument_size_in_bytes"] / 1e9,
+           "temp_gb": mem["temp_size_in_bytes"] / 1e9, "fits": rec["fits"],
+           "flops": rec["per_device_flops"],
+           "hbm_bytes": rec["per_device_hbm_bytes"],
+           "link_bytes": rec["per_chip_link_bytes"],
+           "collectives": rec["collectives"]["count"],
+           "compute_s": terms["compute_s"], "memory_s": terms["memory_s"],
+           "collective_s": terms["collective_s"],
+           "dominant": terms["dominant"],
+           "useful_flops_ratio": rec["useful_flops_ratio"],
+           "trace_seconds": rec["trace_seconds"]}
+    zero = [k for k in ("flops", "hbm_bytes", "link_bytes", "compute_s",
+                        "memory_s", "collective_s") if not row[k] > 0]
+    if zero:
+        raise AssertionError(f"dryrun {row['cell']}: zero {zero}")
+    if row["useful_flops_ratio"] > DRYRUN_USEFUL_MAX:
+        raise AssertionError(f"dryrun {row['cell']}: useful FLOPs ratio "
+                             f"{row['useful_flops_ratio']:.3f} > "
+                             f"{DRYRUN_USEFUL_MAX}")
+    log(f"dryrun {row['cell']}: args {row['argument_gb']:.2f} GB, temp "
+        f"{row['temp_gb']:.2f} GB a rank (fits 80 GB: {row['fits']}), "
+        f"{row['flops']:.3e} FLOPs, {row['hbm_bytes']:.3e} HBM bytes, "
+        f"{row['link_bytes']:.3e} link bytes, {row['collectives']} "
+        f"collectives; H100 roofline compute {row['compute_s']:.4f} s, "
+        f"memory {row['memory_s']:.4f} s, collective "
+        f"{row['collective_s']:.4f} s: {row['dominant']}; useful "
+        f"{row['useful_flops_ratio']:.3f}; traced in "
+        f"{row['trace_seconds']:.1f} s")
+    return row
+
+
+def card_count(run, args, no_grad, device):
+    """``run`` counted on the card (``roofline/cost.py``) with its
+    ``max_memory_allocated``, then timed: its best of three runs,
+    synchronized."""
+    from repro_torch.launch import dryrun
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    counter, out, _, arg_bytes = dryrun.count(run, args, no_grad)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device)
+    del out
+    card = dryrun.summary(counter, 0.0, arg_bytes)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad() if no_grad else contextlib.nullcontext():
+            out = run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del out
+    return {**card, "max_memory_allocated": peak, "step_s": min(times)}
+
+
+def card_vs_fake(name, card, fake):
+    """The card's count against the fake's: FLOPs, bytes and op count
+    equal, the fake's peak within ``DRYRUN_MEM_GATE`` of
+    ``max_memory_allocated``; the time beside the H100 roofline bound."""
+    from repro_torch.roofline.analysis import roofline_terms
+    from repro_torch.roofline.hw import H100_SXM
+
+    same = {k: card[k] == fake[k] for k in ("flops", "bytes", "n_ops")}
+    if not all(same.values()):
+        diff = {op: (card["ops"].get(op, 0), fake["ops"].get(op, 0))
+                for op in set(card["ops"]) | set(fake["ops"])
+                if card["ops"].get(op, 0) != fake["ops"].get(op, 0)}
+        raise AssertionError(f"dryrun {name}: the card's count differs from "
+                             f"the fake's: {same}; card {card['flops']} "
+                             f"FLOPs {card['bytes']} bytes {card['n_ops']} "
+                             f"ops, fake {fake['flops']} {fake['bytes']} "
+                             f"{fake['n_ops']}; ops (card, fake) {diff}")
+    peak = card["max_memory_allocated"]
+    ratio = fake["peak_bytes"] / peak
+    if not DRYRUN_MEM_GATE[0] <= ratio <= DRYRUN_MEM_GATE[1]:
+        raise AssertionError(f"dryrun {name}: predicted peak "
+                             f"{fake['peak_bytes']} over the card's {peak}"
+                             f" = {ratio:.3f}, outside {DRYRUN_MEM_GATE}")
+    terms = roofline_terms(card["flops"], card["bytes"], 0.0,
+                           chip=H100_SXM)
+    step_s = card["step_s"]
+    rec = {"flops": card["flops"], "bytes": card["bytes"],
+           "n_ops": card["n_ops"], "predicted_peak_bytes":
+           fake["peak_bytes"], "max_memory_allocated": peak,
+           "peak_ratio": ratio, "card_counter_peak_bytes":
+           card["peak_bytes"], "step_s": step_s,
+           "bound_s": terms["bound_s"], "dominant": terms["dominant"],
+           "roofline_fraction": terms["bound_s"] / step_s,
+           "fake_trace_s": fake["seconds"]}
+    log(f"dryrun {name}: card = fake: {card['flops']:.4e} FLOPs, "
+        f"{card['bytes']:.4e} bytes, {card['n_ops']} ops; peak predicted "
+        f"{fake['peak_bytes'] / 1e9:.2f} GB, card "
+        f"{peak / 1e9:.2f} GB ({ratio:.3f}); {step_s:.4f} s against "
+        f"the H100 bound {terms['bound_s']:.4f} s ({terms['dominant']}): "
+        f"roofline fraction {rec['roofline_fraction']:.3f}")
+    return rec
+
+
+def sharded_step_check(device):
+    """The TinyLlama FULL step of ``DRYRUN_STEP`` over a real one-rank
+    NCCL mesh (DTensors of the reference's specs) against the unsharded
+    step: loss and three parameter leaves bit for bit."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg = get_config(DRYRUN_STEP["arch"]).replace(ce_seq_chunk=512)
+    leaves = (("embed",), ("dense_layers", "attn", "wq"), ("ln_f", "scale"))
+    args = (cfg, DRYRUN_STEP["batch"], DRYRUN_STEP["seq"],
+            DRYRUN_STEP["microbatches"], device, 0)
+
+    def outcome(run):
+        state, metrics = run()
+        got = []
+        for path in leaves:
+            t = state.params
+            for key in path:
+                t = t[key]
+            got.append((t.full_tensor() if hasattr(t, "full_tensor")
+                        else t).detach().clone())
+        loss = metrics["loss"]
+        loss = loss.full_tensor() if hasattr(loss, "full_tensor") else loss
+        return loss.detach().clone(), got
+
+    run, _ = dryrun.train_program(*args)
+    want = outcome(run)
+    del run
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, "cuda")
+        run, _ = dryrun.train_program(*args, mesh=mesh)
+        got = outcome(run)
+        del run
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    same = [torch.equal(a, b) for a, b in zip([want[0]] + want[1],
+                                              [got[0]] + got[1])]
+    if not all(same):
+        raise AssertionError(f"dryrun: the one-rank NCCL mesh's step is not "
+                             f"the unsharded step's: loss {float(want[0])} "
+                             f"vs {float(got[0])}, equal {same}")
+    log(f"dryrun: the sharded step over a one-rank NCCL mesh equals the "
+        f"unsharded step bit for bit (loss {float(want[0])}, leaves "
+        f"{['/'.join(p) for p in leaves]})")
+    return {"loss": float(want[0]), "leaves": ["/".join(p) for p in leaves],
+            "equal": True}
+
+
+def dryrun_phase(device):
+    """Phase 12b: (a) the four FULL cells on the fake production meshes
+    and (b) the fake one-rank counts, in three child processes, while on
+    the card (b) TinyLlama's step and Qwen3's kernel-path forward are
+    counted and timed and (c) the step runs over a one-rank NCCL mesh;
+    then the children's counts are held to the card's."""
+    import tempfile
+
+    from repro_torch.configs import canonical, get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t_child = time.perf_counter()
+    parts = [([DRYRUN_CELLS[i] for i in idx], None, None)
+             for idx in DRYRUN_SPLIT] + [([], DRYRUN_STEP, DRYRUN_FWD)]
+    children = []
+    for part in parts:
+        # files, not pipes: nothing reads a child while the card works
+        files = [tempfile.TemporaryFile("w+") for _ in range(2)]
+        children.append((subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_CHILD, json.dumps(part)],
+            cwd=ROOT, env=env, stdout=files[0], stderr=files[1],
+            text=True), files))
+    try:
+        # the card's work first, while the child traces
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        step_cfg = get_config(DRYRUN_STEP["arch"]).replace(ce_seq_chunk=512)
+        step = dryrun.train_program(
+            step_cfg, DRYRUN_STEP["batch"], DRYRUN_STEP["seq"],
+            DRYRUN_STEP["microbatches"], device, seed=0)
+        card_step = card_count(*step, False, device)
+        del step
+        torch.cuda.empty_cache()
+        fwd_cfg = get_config(DRYRUN_FWD["arch"]).replace(attn_impl="kernel")
+        fwd = dryrun.logits_program(fwd_cfg, DRYRUN_FWD["batch"],
+                                    DRYRUN_FWD["seq"], device, seed=0)
+        before = build.LAUNCHES["flash_attention"]
+        card_fwd = card_count(*fwd, True, device)
+        launches = build.LAUNCHES["flash_attention"] - before
+        del fwd
+        torch.cuda.empty_cache()
+        sharded = sharded_step_check(device)
+        card_s = time.perf_counter() - t0
+        for child, _ in children:
+            child.wait(timeout=600)
+    finally:
+        outs = []
+        for child, files in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+            for f in files:
+                f.seek(0)
+            outs.append((child.returncode, files[0].read(), files[1].read()))
+            for f in files:
+                f.close()
+    fake = {"cells": []}
+    for rc, out, err in outs:
+        if rc != 0:
+            raise AssertionError(f"dryrun child failed: {err[-3000:]}")
+        part = json.loads(out.strip().splitlines()[-1])
+        fake["cells"] += part.pop("cells")
+        fake.update(part)
+    order = {(canonical(a), sh, m): i for i, (a, sh, m, _) in
+             enumerate(DRYRUN_CELLS)}
+    fake["cells"].sort(key=lambda r: order[r["arch"], r["shape"],
+                                           r["mesh"]])
+    cells = [dryrun_cell_line(rec) for rec in fake["cells"]]
+    train = card_vs_fake("tinyllama step", card_step, fake["train"])
+    logits = card_vs_fake("qwen3 forward", card_fwd, fake["logits"])
+    # the counted run and the three timed runs each launch once a layer
+    calls = fake["logits"]["ops"].get("canal.flash_attention")
+    if launches != 4 * DRYRUN_FWD["launches"] or \
+            calls != DRYRUN_FWD["launches"]:
+        raise AssertionError(f"dryrun qwen3 forward: {launches} launches "
+                             f"in 4 runs, fake custom op calls {calls}, "
+                             f"want {DRYRUN_FWD['launches']} a run")
+    logits["flash_launches"] = launches // 4
+    logits["fake_flash_launches"] = 0
+    log(f"dryrun: the card's part {card_s:.1f} s, the children "
+        f"{time.perf_counter() - t_child:.1f} s")
+    return {"cells": cells, "train_step": train, "qwen3_forward": logits,
+            "sharded_step": sharded, "card_seconds": card_s}
+
+
 def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2262,6 +2555,9 @@ def drive(spec, device, t_start, earlier):
     if phases["train"]["launches"]:
         raise AssertionError(f"train launched kernels: "
                              f"{phases['train']['launches']}")
+    # 12b. the dry run: the FULL cells on the fake production meshes, and
+    # the card's own count of two programs against the fake's
+    dried = phase("dryrun", dryrun_phase, device)
     # 13. the port's examples on the card
     examples = phase("examples", examples_phase, device)
     for row in rows:
@@ -2306,6 +2602,7 @@ def drive(spec, device, t_start, earlier):
     print(json.dumps({"lm_serve": served}))
     print(json.dumps({"lm_smoke_kernels": smoke}))
     print(json.dumps({"train": trained}))
+    print(json.dumps({"dryrun": dried}))
     print(json.dumps({"examples": examples}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"seconds": time.perf_counter() - t_start}))

@@ -13,7 +13,9 @@
 //
 // Two kernels, chosen by dtype in canal_flash_attention below; nothing
 // falls back from one to the other. Both take every head dim D from 1 to
-// 256. A D that is not a tile width runs at the next one up (DP: 64, 128
+// 256; a third, flash_wide_kernel, takes every D past 256 in any of the
+// three types (below). A D that is not a tile width runs at the next
+// one up (DP: 64, 128
 // or 256 on the tensor cores, a multiple of 32 on the CUDA cores) with
 // the columns past D read as zeros, so Q K^T and P V are unchanged; only
 // D columns of the output are stored, and the scale is 1/sqrt(D) of the
@@ -289,6 +291,215 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out), hq, hkv, sq,
         skv, d, causal, scale);
+    return (int)cudaGetLastError();
+}
+
+// ------------------------------ any head dim past 256, CUDA cores
+// The head dims past the tile kernels' 256 run here, for float32,
+// bfloat16 and float16 inputs alike, in float32 (inputs converted as they
+// are staged; q multiplied by 1/sqrt(D) before the dot, as the plain
+// version does). A simple kernel: one block per (batch*head, 64-query
+// tile, 256-column panel of the output), 128 threads as in
+// flash_f32_kernel. Each key tile's scores sum over the whole D, a
+// 256-column panel of q and k at a time through shared memory; the
+// online softmax and P V then run for the block's own panel of V. Every
+// output panel recomputes the scores: D / 256 times the Q K^T work.
+template <typename T>
+__device__ __forceinline__ float wide_in(T x) { return (float)x; }
+template <>
+__device__ __forceinline__ float wide_in(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+}
+template <>
+__device__ __forceinline__ float wide_in(__half x) { return __half2float(x); }
+template <typename T>
+__device__ __forceinline__ T wide_out(float x) { return (T)x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 wide_out(float x) {
+    return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half wide_out(float x) {
+    return __float2half(x);
+}
+
+constexpr int kWidePanel = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, T* __restrict__ out, int hq,
+                  int hkv, int sq, int skv, int D, int causal, float scale) {
+    constexpr int DJ = kWidePanel / 32;
+    extern __shared__ float4 smem4[];
+    float* qt = reinterpret_cast<float*>(smem4);
+    float* kt = qt + kWidePanel * kLd;
+    float* vs = kt + kWidePanel * kLd;
+    float* pt = vs + kBK * kWidePanel;
+
+    const int tid = threadIdx.x;
+    const int tx = tid & 7;
+    const int ty = tid >> 3;
+    const int n_qt = (sq + kBQ - 1) / kBQ;
+    const int q0 = (n_qt - 1 - (int)blockIdx.y) * kBQ;
+    const int p0 = (int)blockIdx.z * kWidePanel;   // this block's columns
+    const int bh = blockIdx.x;
+    const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+    const T* qp = q + (size_t)bh * sq * D;
+    const T* kp = k + (size_t)kvh * skv * D;
+    const T* vp = v + (size_t)kvh * skv * D;
+
+    float m[4], l[4], acc[4][4 * DJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        m[i] = kNegInf;
+        l[i] = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4 * DJ; ++j) acc[i][j] = 0.f;
+    }
+
+    int n_kt = (skv + kBK - 1) / kBK;
+    if (causal) {
+        const int last_q = min(q0 + kBQ, sq) - 1;
+        n_kt = min(n_kt, last_q / kBK + 1);
+    }
+
+    for (int t = 0; t < n_kt; ++t) {
+        const int k0 = t * kBK;
+        float s[4][8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+        for (int d0 = 0; d0 < D; d0 += kWidePanel) {
+            __syncthreads();     // the last panel's readers are done
+            for (int i = tid; i < kBQ * kWidePanel; i += kThreads) {
+                const int r = i / kWidePanel, c = i % kWidePanel, d = d0 + c;
+                const int qr = q0 + r, kr = k0 + r;
+                qt[c * kLd + r] = qr < sq && d < D
+                    ? wide_in(qp[(size_t)qr * D + d]) * scale : 0.f;
+                kt[c * kLd + r] = kr < skv && d < D
+                    ? wide_in(kp[(size_t)kr * D + d]) : 0.f;
+            }
+            __syncthreads();
+#pragma unroll 8
+            for (int c = 0; c < kWidePanel; ++c) {
+                const float4 a = *reinterpret_cast<const float4*>(
+                    &qt[c * kLd + ty * 4]);
+                const float4 b0 = *reinterpret_cast<const float4*>(
+                    &kt[c * kLd + tx * 4]);
+                const float4 b1 = *reinterpret_cast<const float4*>(
+                    &kt[c * kLd + 32 + tx * 4]);
+                const float av[4] = {a.x, a.y, a.z, a.w};
+                const float bv[8] = {b0.x, b0.y, b0.z, b0.w,
+                                     b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+#pragma unroll
+                    for (int j = 0; j < 8; ++j)
+                        s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+            }
+        }
+        for (int i = tid; i < kBK * kWidePanel; i += kThreads) {
+            const int r = i / kWidePanel, c = i % kWidePanel, d = p0 + c;
+            vs[r * kWidePanel + c] = k0 + r < skv && d < D
+                ? wide_in(vp[(size_t)(k0 + r) * D + d]) : 0.f;
+        }
+
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int qpos = q0 + ty * 4 + i;
+            float mx = kNegInf;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                const int kpos = k0 + (j < 4 ? tx * 4 + j : 28 + tx * 4 + j);
+                const bool live = kpos < skv && (!causal || qpos >= kpos);
+                s[i][j] = live ? s[i][j] : kNegInf;
+                mx = fmaxf(mx, s[i][j]);
+            }
+#pragma unroll
+            for (int off = 1; off < 8; off <<= 1)
+                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+            const float m_new = fmaxf(m[i], mx);
+            float sum = 0.f;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                s[i][j] = expf(s[i][j] - m_new);
+                sum += s[i][j];
+            }
+#pragma unroll
+            for (int off = 1; off < 8; off <<= 1)
+                sum += __shfl_xor_sync(0xffffffffu, sum, off);
+            const float alpha = expf(m[i] - m_new);
+            l[i] = l[i] * alpha + sum;
+            m[i] = m_new;
+#pragma unroll
+            for (int j = 0; j < 4 * DJ; ++j) acc[i][j] *= alpha;
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            const int col = j < 4 ? tx * 4 + j : 28 + tx * 4 + j;
+            *reinterpret_cast<float4*>(&pt[col * kLd + ty * 4]) =
+                make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+        }
+        __syncthreads();
+
+#pragma unroll 4
+        for (int c = 0; c < kBK; ++c) {
+            const float4 a = *reinterpret_cast<const float4*>(
+                &pt[c * kLd + ty * 4]);
+            const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+            for (int g = 0; g < DJ; ++g) {
+                const float4 vv = *reinterpret_cast<const float4*>(
+                    &vs[c * kWidePanel + g * 32 + tx * 4]);
+                const float vv4[4] = {vv.x, vv.y, vv.z, vv.w};
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        acc[i][g * 4 + e] =
+                            fmaf(av[i], vv4[e], acc[i][g * 4 + e]);
+            }
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int qpos = q0 + ty * 4 + i;
+        if (qpos >= sq) continue;
+        const float den = fmaxf(l[i], 1e-30f);
+        T* orow = out + ((size_t)bh * sq + qpos) * D;
+#pragma unroll
+        for (int g = 0; g < DJ; ++g)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int d = p0 + g * 32 + tx * 4 + e;
+                if (d < D) orow[d] = wide_out<T>(acc[i][g * 4 + e] / den);
+            }
+    }
+}
+
+template <typename T>
+int launch_wide(const void* q, const void* k, const void* v, void* out,
+                int batch, int hq, int hkv, int sq, int skv, int d,
+                int causal, cudaStream_t stream) {
+    const size_t smem = f32_smem_bytes<kWidePanel>();
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const float scale = (float)(1.0 / std::sqrt((double)d));
+    const long long bh = (long long)batch * hq;
+    const int n_qt = (sq + kBQ - 1) / kBQ;
+    const int panels = (d + kWidePanel - 1) / kWidePanel;
+    if (bh > 0x7fffffffLL || n_qt > 65535 || panels > 65535)
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)bh, n_qt, panels);
+    flash_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out), hq, hkv, sq, skv, d,
+        causal, scale);
     return (int)cudaGetLastError();
 }
 
@@ -993,8 +1204,9 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
 
 // dtype: 0 float32 (the CUDA-core kernel, at the tile width DP = d
 // rounded up to 32), 1 bfloat16 or 2 float16 (the tensor-core kernel, at
-// the tile width of 64, 128 or 256 that holds dm); d: the head dim, 1 to
-// 256; dm: the row width of q, k, v and out in memory (d, or for the
+// the tile width of 64, 128 or 256 that holds dm); a head dim past 256
+// runs flash_wide_kernel for any of the three. d: the head dim, 1 or
+// more; dm: the row width of q, k, v and out in memory (d, or for the
 // tensor-core kernel d padded with zero columns to a multiple of 8 by the
 // wrapper). Anything else is refused with cudaErrorInvalidValue (the
 // wrapper checks first), as is a 16-bit tensor TMA cannot map (a base not
@@ -1005,9 +1217,21 @@ extern "C" int canal_flash_attention(const void* q, const void* k,
                                      int dm, int d, int causal, int dtype,
                                      void* stream) {
     const cudaStream_t st = (cudaStream_t)stream;
-    if (hkv < 1 || hq % hkv || d < 1 || d > 256 || dm < d)
+    if (hkv < 1 || hq % hkv || d < 1 || dm < d)
         return (int)cudaErrorInvalidValue;
 #define CANAL_FLASH_ARGS q, k, v, out, batch, hq, hkv, sq, skv
+    if (d > 256) {
+        if (dm != d) return (int)cudaErrorInvalidValue;
+        switch (dtype) {
+            case 0: return launch_wide<float>(CANAL_FLASH_ARGS, d, causal,
+                                              st);
+            case 1: return launch_wide<__nv_bfloat16>(CANAL_FLASH_ARGS, d,
+                                                      causal, st);
+            case 2: return launch_wide<__half>(CANAL_FLASH_ARGS, d, causal,
+                                               st);
+        }
+        return (int)cudaErrorInvalidValue;
+    }
     if (dtype == 0) {
         if (dm != d) return (int)cudaErrorInvalidValue;
         switch ((d + 31) / 32) {

@@ -17,27 +17,31 @@ softmax, skip causal tiles above the diagonal and index the GQA kv head
 ``h // rep`` instead of repeating it. CPU tensors run the plain PyTorch
 version beside it.
 
-Every head dim from 1 to 256 runs (:func:`plan`): at a tile width that
-holds it (64, 128 or 256 on the tensor cores, a multiple of 32 on the
-CUDA cores), the columns past D read as zeros, which change neither
+Every head dim from 1 runs (:func:`plan`): up to 256 at a tile width
+that holds it (64, 128 or 256 on the tensor cores, a multiple of 32 on
+the CUDA cores), the columns past D read as zeros, which change neither
 ``Q K^T`` nor ``P V``, and the scale of the true D. Where a 16-bit row
 of D elements is not a multiple of 16 bytes (D not a multiple of 8), or
 a tensor does not start on 16 bytes, TMA cannot map it: the wrapper
 copies q, k and v into buffers padded with zero columns to the next
 multiple of 8, and returns the first D columns of the output. A head
-dim past 256 raises before any launch; nothing falls back.
+dim past 256 runs, in any of the three dtypes, a CUDA-core kernel that
+accumulates the scores over the whole D in 256-column panels and writes
+one 256-column panel of the output a block (float32 throughout, P
+unrounded). Nothing falls back.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import build
 
 NEG_INF = -1.0e30
-#: the largest head dim the kernels take
-MAX_HEAD_DIM = 256
+#: the largest head dim of the tile kernels; past it the panel kernel
+MAX_TILE_DIM = 256
 #: the tensor-core kernel's tile widths (its instantiations)
 TC_WIDTHS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -45,9 +49,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 class FlashPlan(NamedTuple):
     """How the kernel runs head dim ``d``: ``kernel`` "tensor_core" or
-    "cuda_core", its tile ``width`` (columns past ``d`` read as zeros),
-    and ``mem_dim``, the row width of the tensors it is handed (``d``, or
-    ``d`` padded with zero columns to a multiple of 8)."""
+    "cuda_core", its tile ``width`` (columns past ``d`` read as zeros;
+    past 256, the width of a panel), and ``mem_dim``, the row width of
+    the tensors it is handed (``d``, or ``d`` padded with zero columns to
+    a multiple of 8)."""
     kernel: str
     width: int
     mem_dim: int
@@ -59,9 +64,10 @@ def plan(d: int, dtype: torch.dtype) -> FlashPlan:
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_attention: {dtype}, expected float32, "
                         f"bfloat16 or float16")
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {d} not in 1.."
-                         f"{MAX_HEAD_DIM}")
+    if d < 1:
+        raise ValueError(f"flash_attention: head dim {d} under 1")
+    if d > MAX_TILE_DIM:
+        return FlashPlan("cuda_core", MAX_TILE_DIM, d)
     if dtype == torch.float32:
         return FlashPlan("cuda_core", -(-d // 32) * 32, d)
     mem = -(-d // 8) * 8
@@ -145,10 +151,42 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out if mem == d else out[..., :d].contiguous()
 
 
-def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True) -> torch.Tensor:
-    """GQA attention. q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D). The
-    kernel indexes kv head ``h // rep``; the plain version repeats."""
+@torch.library.custom_op("canal::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool) -> torch.Tensor:
     if q.device.type == "cpu":
         return flash_attention_gqa_plain(q, k, v, causal)
     return _launch(q, k, v, causal)
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal):
+    return q.new_empty(q.shape)
+
+
+def causal_pairs(sq: int, skv: int, causal: bool = True) -> int:
+    """The (q, k) pairs attention computes: query i sees keys 0..i (0-based
+    positions for both, as the kernel counts them) when causal."""
+    if not causal:
+        return sq * skv
+    full = min(sq, skv)
+    return full * (full + 1) // 2 + max(sq - skv, 0) * skv
+
+
+@register_flop_formula(torch.ops.canal.flash_attention)
+def _(q_shape, k_shape, v_shape, causal, *args, **kwargs) -> int:
+    """4 D FLOPs a computed (q, k) pair: Q K^T and P V, 2 each."""
+    b, hq, sq, d = q_shape
+    return 4 * b * hq * d * causal_pairs(sq, k_shape[2], causal)
+
+
+def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """GQA attention. q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D). The
+    kernel indexes kv head ``h // rep``; the plain version repeats.
+
+    It runs as the custom op ``torch.ops.canal.flash_attention`` (the
+    kernel launches through ``data_ptr``, so a fake tensor needs the op's
+    fake, and a cost count its FLOP formula): CUDA tensors launch the
+    kernel, CPU tensors take the plain version."""
+    return torch.ops.canal.flash_attention(q, k, v, causal)

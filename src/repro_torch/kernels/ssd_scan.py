@@ -34,6 +34,7 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import build
 
@@ -154,11 +155,43 @@ def _launch(x, dt, a, b, c, chunk: int) -> torch.Tensor:
     return y if y.shape[-1] == p else y[..., :p].contiguous()
 
 
+@torch.library.custom_op("canal::ssd_scan", mutates_args=())
+def _ssd_op(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+            b: torch.Tensor, c: torch.Tensor, chunk: int) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, dt, a, b, c, chunk)
+    return _launch(x, dt, a, b, c, chunk)
+
+
+@_ssd_op.register_fake
+def _(x, dt, a, b, c, chunk):
+    return x.new_empty(x.shape)
+
+
+def scan_flops(seq: int, p: int, n: int, chunk: int) -> int:
+    """FLOPs of one head's scan: c.b^T and w.x over each chunk's causal
+    (t, u) pairs; c.h0^T for every chunk after the first (h0 = 0 before
+    it) and the state update for every chunk before the last (nothing
+    reads the final state), 2 FLOPs a multiply-add."""
+    lens = [min(chunk, seq - s0) for s0 in range(0, seq, chunk)]
+    return (sum(cl * (cl + 1) * (n + p) for cl in lens)
+            + 2 * n * p * (sum(lens[1:]) + sum(lens[:-1])))
+
+
+@register_flop_formula(torch.ops.canal.ssd_scan)
+def _(x_shape, dt_shape, a_shape, b_shape, c_shape, chunk, *args,
+      **kwargs) -> int:
+    bh, seq, p = x_shape
+    return bh * scan_flops(seq, p, b_shape[-1], chunk)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor,
              chunk: int = 128) -> torch.Tensor:
     """SSD forward. x: (BH, L, P); dt: (BH, L) > 0; a: (BH,) < 0; b, c:
-    (BH, L, N), already head-grouped. Returns y (BH, L, P)."""
-    if x.device.type == "cpu":
-        return ssd_scan_plain(x, dt, a, b, c, chunk)
-    return _launch(x, dt, a, b, c, chunk)
+    (BH, L, N), already head-grouped. Returns y (BH, L, P).
+
+    It runs as the custom op ``torch.ops.canal.ssd_scan`` (a fake tensor
+    takes its fake, a cost count its FLOP formula): CUDA tensors launch
+    the kernel, CPU tensors take the plain version."""
+    return torch.ops.canal.ssd_scan(x, dt, a, b, c, chunk)

@@ -1,3 +1,3 @@
-"""Launchers of the port (counterpart of repro/launch): ``serve`` and
-``train``. The reference's ``dryrun`` and ``mesh`` lower XLA programs on
-a forced host mesh and are not ported."""
+"""Launchers of the port (counterpart of repro/launch): ``serve``,
+``train``, the production ``mesh`` and the ``dryrun`` that traces every
+cell on it."""

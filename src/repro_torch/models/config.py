@@ -9,9 +9,10 @@ Two deliberate differences from the reference:
   :func:`repro_torch.interop.lm_config_from_fields` maps the names.
 * ``pdtype`` / ``adtype`` are torch dtypes.
 
-The fields that only shape a device mesh in the reference
-(``batch_axes``, ``kv_cache_shard``, ``moe_groups``, ``attn_head_shard``)
-are kept, inert, so that a configuration carries across unchanged.
+The fields that shape the device mesh (``batch_axes``,
+``kv_cache_shard``, ``moe_groups``, ``attn_head_shard``) act as in the
+reference when the model runs on DTensors (:mod:`repro_torch.launch.
+mesh`); off a mesh they change nothing but ``moe_groups``.
 """
 from __future__ import annotations
 
@@ -95,7 +96,7 @@ class ModelConfig:
     #: applied where autograd records (``models.stacking.remat_wrap``)
     remat: str = "none"
     attn_impl: str = "plain"        # plain | kernel
-    #: mesh axes of the batch dim in the reference (inert here)
+    #: mesh axes of the batch dim
     batch_axes: tuple = ("data",)
     #: chunk size for memory-efficient attention (0 = never chunk)
     attn_chunk: int = 2048
@@ -103,9 +104,9 @@ class ModelConfig:
     attn_scores_f32: bool = True
     #: GQA K/V expansion: "repeat" | "grouped"
     gqa_mode: str = "repeat"
-    #: head-wise re-shard before attention in the reference (inert here)
+    #: head-wise re-shard before attention (on a mesh)
     attn_head_shard: bool = False
-    #: KV-cache sharding layout in the reference (inert here)
+    #: KV-cache sharding layout ("seq": the sequence on model)
     kv_cache_shard: str = "seq"
     #: MoE dispatch groups
     moe_groups: int = 16

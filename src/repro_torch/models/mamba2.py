@@ -12,7 +12,8 @@ from torch import nn
 from ..device import DeviceLike, resolve_device
 from . import layers as L
 from .config import ModelConfig
-from .stacking import scan_layers, scan_layers_with_cache
+from ..launch.mesh import P
+from .stacking import scan_layers, scan_layers_with_cache, stacked_specs
 
 
 class Mamba2Layer(nn.Module):
@@ -51,14 +52,28 @@ class Mamba2LM(nn.Module):
             layer.init_params(generator)
         return self
 
+    def param_specs(self) -> Dict:
+        """The reference's partition specs of the stacked tree."""
+        cfg = self.cfg
+        lspec = {"ln": L.spec_rmsnorm(), "mixer": L.spec_mamba2(cfg)}
+        return {"embed": P("model", None), "ln_f": L.spec_rmsnorm(),
+                "layers": stacked_specs(lspec, cfg.num_layers)}
+
+    def cache_specs(self) -> Dict:
+        return {"index": P(),
+                "h": P(None, "data", "model", None, None),
+                "conv": P(None, "data", None, "model")}
+
     def _block(self, lp: Mamba2Layer, h, _):
+        h = L.shard_batch(h, self.cfg)
         y, _st = L.mamba2(lp.mixer, L.rms_norm(h, lp.ln, self.cfg.norm_eps),
                           self.cfg)
-        return h + y
+        return L.shard_batch(h + y, self.cfg)
 
     def hidden(self, batch: Dict) -> torch.Tensor:
         cfg = self.cfg
-        x = self.embed[batch["tokens"]].to(cfg.adtype)
+        x = L.embed(self.embed, batch["tokens"], cfg).to(cfg.adtype)
+        x = L.shard_batch(x, cfg)
         x = scan_layers(self._block, self.layers, x, remat=cfg.remat)
         return L.rms_norm(x, self.ln_f, cfg.norm_eps)
 
@@ -98,7 +113,7 @@ class Mamba2LM(nn.Module):
         returns the last position's (B, 1, padded_vocab) float32 logits
         with the cache at its new index."""
         cfg = self.cfg
-        x = self.embed[batch["tokens"]].to(cfg.adtype)
+        x = L.embed(self.embed, batch["tokens"], cfg).to(cfg.adtype)
         states = {"h": cache["h"], "conv": cache["conv"]}
         x, states = scan_layers_with_cache(self._block_cached, self.layers,
                                            x, states)

@@ -11,6 +11,7 @@ its kernel), so this model launches no kernel.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
@@ -18,9 +19,10 @@ import torch
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
+from ..launch.mesh import P
 from . import layers as L
 from .config import ModelConfig
-from .stacking import scan_layers
+from .stacking import stacked_specs, scan_layers
 
 
 class RGLRULayer(nn.Module):
@@ -92,6 +94,30 @@ class RecurrentGemmaLM(nn.Module):
         return self
 
     # ------------------------------------------------------------ blocks
+    def param_specs(self) -> Dict:
+        """The reference's partition specs of the stacked tree."""
+        cfg = self.cfg
+        r_spec = {"ln1": L.spec_rmsnorm(), "mix": L.spec_rglru(cfg),
+                  "ln2": L.spec_rmsnorm(), "mlp": L.spec_mlp(cfg)}
+        a_spec = {"ln1": L.spec_rmsnorm(), "attn": L.spec_attention(cfg),
+                  "ln2": L.spec_rmsnorm(), "mlp": L.spec_mlp(cfg)}
+        g_spec = {"r1": r_spec, "r2": r_spec, "a": a_spec}
+        sp = {"embed": P("model", None), "ln_f": L.spec_rmsnorm(),
+              "groups": stacked_specs(g_spec, len(self.groups))}
+        if len(self.tail):
+            sp["tail"] = stacked_specs(r_spec, len(self.tail))
+        return sp
+
+    def cache_specs(self) -> Dict:
+        sp = {"index": P(),
+              "groups": {"s1": P(None, "data", "model"),
+                         "s2": P(None, "data", "model"),
+                         "k": P(None, "data", None, "model", None),
+                         "v": P(None, "data", None, "model", None)}}
+        if len(self.tail):
+            sp["tail"] = P(None, "data", "model")
+        return sp
+
     def _rglru_layer(self, lp: RGLRULayer, x, state=None):
         cfg = self.cfg
         h, new_state = L.rglru(lp.mix, L.rms_norm(x, lp.ln1, cfg.norm_eps),
@@ -108,9 +134,9 @@ class RecurrentGemmaLM(nn.Module):
         """RoPE'd q (B, Hq, S, D) and k, v (B, Hkv, S, D) of ``z``."""
         cfg = self.cfg
         hq, hkv, hd = cfg.num_heads, cfg.kv_heads, cfg.hd
-        q = L._split_heads(z @ p.wq, hq, hd)
-        k = L._split_heads(z @ p.wk, hkv, hd)
-        v = L._split_heads(z @ p.wv, hkv, hd)
+        q = L._split_heads(L.col(z, p.wq, cfg), hq, hd)
+        k = L._split_heads(L.col(z, p.wk, cfg), hkv, hd)
+        v = L._split_heads(L.col(z, p.wv, cfg), hkv, hd)
         if cfg.qk_norm:
             q = L.rms_norm(q, p.q_norm, cfg.norm_eps)
             k = L.rms_norm(k, p.k_norm, cfg.norm_eps)
@@ -128,19 +154,21 @@ class RecurrentGemmaLM(nn.Module):
     def hidden(self, batch: Dict) -> torch.Tensor:
         """Final-norm hidden states (B, S, D)."""
         cfg = self.cfg
-        x = self.embed[batch["tokens"]].to(cfg.adtype)
+        x = L.embed(self.embed, batch["tokens"], cfg).to(cfg.adtype)
+        x = L.shard_batch(x, cfg)
         positions = self._positions(x)
 
         def group_fn(lp: Group, h, e):
+            h = L.shard_batch(h, cfg)
             h, _ = self._rglru_layer(lp.r1, h)
             h, _ = self._rglru_layer(lp.r2, h)
             z = L.rms_norm(h, lp.a.ln1, cfg.norm_eps)
             att, _ = L.attention(lp.a.attn, z, cfg, e,
                                  window=cfg.hybrid.window)
-            return self._mlp_tail(lp.a, h + att)
+            return L.shard_batch(self._mlp_tail(lp.a, h + att), cfg)
 
         def tail_fn(lp: RGLRULayer, h, e):
-            return self._rglru_layer(lp, h)[0]
+            return L.shard_batch(self._rglru_layer(lp, h)[0], cfg)
 
         x = scan_layers(group_fn, self.groups, x, remat=cfg.remat,
                         carry_extra=positions)
@@ -193,26 +221,12 @@ class RecurrentGemmaLM(nn.Module):
         update fits, as ``dynamic_update_slice`` clamps); each slot's key
         position is recovered from the slot and masks the wrap-around."""
         cfg = self.cfg
-        hq, hkv, hd = cfg.num_heads, cfg.kv_heads, cfg.hd
         z = L.rms_norm(h, lp.ln1, cfg.norm_eps)
         q, k, v = self._qkv(lp.attn, z, positions)
-        w, s = k_c.shape[2], q.shape[2]
-        slot = idx % w
-        start = min(slot, w - s)
-        k_c[:, :, start:start + s] = k
-        v_c[:, :, start:start + s] = v
-        slots = torch.arange(w, device=h.device)
-        key_pos = torch.where(slots <= slot, idx - slot + slots,
-                              idx - slot + slots - w)
-        rep = hq // hkv
-        scores = (q.float() @ k_c.repeat_interleave(rep, 1).float()
-                  .transpose(-1, -2)) / math.sqrt(hd)
-        valid = (key_pos[None, None, None] >= 0) & \
-            (key_pos[None, None, None] <= positions[:, None, :, None])
-        scores = torch.where(valid, scores, torch.full_like(scores, -1e30))
-        probs = torch.softmax(scores, -1).to(cfg.adtype)
-        att = probs @ v_c.repeat_interleave(rep, 1)
-        return h + L._merge_heads(att) @ lp.attn.wo
+        att = L.run_cached(functools.partial(_window_attend, cfg=cfg,
+                                             idx=idx),
+                           q, k, v, k_c, v_c, cfg)
+        return h + L.row(L._merge_heads(att), lp.attn.wo, cfg)
 
     def forward_cached(self, cache: Dict,
                        batch: Dict) -> Tuple[torch.Tensor, Dict]:
@@ -222,7 +236,7 @@ class RecurrentGemmaLM(nn.Module):
         :func:`~repro_torch.models.layers.rglru`)."""
         cfg = self.cfg
         idx = cache["index"]
-        x = self.embed[batch["tokens"]].to(cfg.adtype)
+        x = L.embed(self.embed, batch["tokens"], cfg).to(cfg.adtype)
         positions = self._positions(x, idx)
         c = cache["groups"]
         for i, lp in enumerate(self.groups):
@@ -252,7 +266,7 @@ class RecurrentGemmaLM(nn.Module):
         s = batch["tokens"].shape[1]
         if s <= 1:
             return self.forward_cached(cache, batch)
-        x = self.embed[batch["tokens"]].to(cfg.adtype)
+        x = L.embed(self.embed, batch["tokens"], cfg).to(cfg.adtype)
         positions = self._positions(x)
         c = cache["groups"]
         w = c["k"].shape[3]
@@ -261,17 +275,19 @@ class RecurrentGemmaLM(nn.Module):
             x, s2 = self._rglru_layer(lp.r2, x)
             z = L.rms_norm(x, lp.a.ln1, cfg.norm_eps)
             q, k, v = self._qkv(lp.a.attn, z, positions)
-            att = L._sdpa(q, k, v, causal=True, window=cfg.hybrid.window,
-                          q_offset=0, chunk=cfg.attn_chunk)
-            x = self._mlp_tail(lp.a, x + L._merge_heads(att) @ lp.a.attn.wo)
+            att = L.sdpa(q, k, v, cfg, causal=True, window=cfg.hybrid.window)
+            x = self._mlp_tail(lp.a, x + L.row(L._merge_heads(att),
+                                               lp.a.attn.wo, cfg))
             c["s1"][i].copy_(s1)
             c["s2"][i].copy_(s2)
             if s >= w:
                 c["k"][i].copy_(torch.roll(k[:, :, -w:], s % w, dims=2))
                 c["v"][i].copy_(torch.roll(v[:, :, -w:], s % w, dims=2))
             else:
-                c["k"][i][:, :, :s] = k
-                c["v"][i][:, :, :s] = v
+                # whole-slice copies (on a mesh the window's slots are
+                # sharded; a copy lays the new values out as the cache)
+                c["k"][i].copy_(torch.cat([k, c["k"][i][:, :, s:]], dim=2))
+                c["v"][i].copy_(torch.cat([v, c["v"][i][:, :, s:]], dim=2))
         new_cache = {"index": cache["index"] + s, "groups": c}
         if self.n_tail:
             for i, lp in enumerate(self.tail):
@@ -280,3 +296,39 @@ class RecurrentGemmaLM(nn.Module):
             new_cache["tail"] = cache["tail"]
         return self._out(x), new_cache
 
+
+def _window_attend(q, k, v, k_c, v_c, lo: int, group, *,
+                   cfg: ModelConfig, idx: int):
+    """One rank's part of the rolling-window attention: q, k, v (B, H, S,
+    D) of the new positions, its slots ``lo ..`` of the window cache
+    (written in place where the new positions land, at slot = idx %
+    window, the start clamped so the update fits, as
+    ``dynamic_update_slice`` clamps); each slot's key position is
+    recovered from the slot and masks the wrap-around; the new positions
+    are idx on. With a ``group`` the ranks' partial softmax sums are
+    merged over it."""
+    hq, hkv, hd = cfg.num_heads, cfg.kv_heads, cfg.hd
+    part, s = k_c.shape[2], q.shape[2]
+    w = part * (1 if group is None else group.size())
+    slot = idx % w
+    start = min(slot, w - s)
+    a, b = max(start, lo), min(start + s, lo + part)
+    if a < b:
+        k_c[:, :, a - lo:b - lo] = k[:, :, a - start:b - start]
+        v_c[:, :, a - lo:b - lo] = v[:, :, a - start:b - start]
+    slots = lo + torch.arange(part, device=q.device)
+    key_pos = torch.where(slots <= slot, idx - slot + slots,
+                          idx - slot + slots - w)
+    rep = hq // hkv
+    scores = (q.float() @ k_c.repeat_interleave(rep, 1).float()
+              .transpose(-1, -2)) / math.sqrt(hd)
+    qpos = idx + torch.arange(s, device=q.device)
+    valid = (key_pos[None, None, None] >= 0) & \
+        (key_pos[None, None, None] <= qpos[None, None, :, None])
+    scores = torch.where(valid, scores, torch.full_like(scores, -1e30))
+    if group is None:
+        probs = torch.softmax(scores, -1).to(cfg.adtype)
+        return probs @ v_c.repeat_interleave(rep, 1)
+    return L.merged_softmax(scores,
+                            lambda p: p @ v_c.repeat_interleave(rep, 1),
+                            group, cfg.adtype)

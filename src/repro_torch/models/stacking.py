@@ -50,6 +50,16 @@ def _keep(ops):
     return policy
 
 
+def stacked_specs(layer_spec: Dict, n_layers: int) -> Dict:
+    """Prepend an unsharded (layer) axis to every spec of the tree (its
+    keys sorted, as the reference's ``jax.tree.map`` rebuilds them)."""
+    from ..launch.mesh import P
+    if isinstance(layer_spec, P):
+        return P(None, *layer_spec)
+    return {k: stacked_specs(layer_spec[k], n_layers)
+            for k in sorted(layer_spec)}
+
+
 def remat_wrap(fn: Callable, policy: str) -> Callable:
     """``fn`` under the activation-checkpointing ``policy``."""
     if policy == "none":
@@ -154,7 +164,20 @@ def bind_params(model: torch.nn.Module, tree: Mapping) -> None:
             raise ValueError(f"{name}: {tuple(view.shape)} {view.dtype} "
                              f"{view.device} does not fit {tuple(p.shape)} "
                              f"{p.dtype} {p.device}")
-        p.data = view
+        if _is_dtensor(view) or _is_dtensor(p):
+            # a DTensor (a sharded tree) cannot be a plain parameter's
+            # data: the module takes a parameter of the view instead
+            owner, _, leaf = name.rpartition(".")
+            module = model.get_submodule(owner) if owner else model
+            module._parameters[leaf] = torch.nn.Parameter(
+                view, requires_grad=p.requires_grad)
+        else:
+            p.data = view
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
 
 
 def _put(tree: Dict, path: Tuple[str, ...], value) -> None:

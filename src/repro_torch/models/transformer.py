@@ -26,7 +26,8 @@ from torch import nn
 from ..device import DeviceLike, resolve_device
 from . import layers as L
 from .config import ModelConfig
-from .stacking import scan_layers, scan_layers_with_cache
+from ..launch.mesh import P
+from .stacking import scan_layers, scan_layers_with_cache, stacked_specs
 
 
 class DenseBlock(nn.Module):
@@ -99,6 +100,31 @@ class TransformerLM(nn.Module):
                        generator)
         return self
 
+    def param_specs(self) -> Dict:
+        """The reference's partition specs of the stacked tree."""
+        cfg = self.cfg
+        dense_spec = {
+            "ln1": L.spec_rmsnorm(), "attn": L.spec_attention(cfg),
+            "ln2": L.spec_rmsnorm(), "mlp": L.spec_mlp(cfg),
+        }
+        sp = {
+            "embed": P("model", None),
+            "ln_f": L.spec_rmsnorm(),
+        }
+        if not cfg.tie_embeddings:
+            sp["unembed"] = P(None, "model")
+        if self.n_dense:
+            sp["dense_layers"] = stacked_specs(dense_spec, self.n_dense)
+        if self.n_moe:
+            moe_spec = {
+                "ln1": L.spec_rmsnorm(), "attn": L.spec_attention(cfg),
+                "ln2": L.spec_rmsnorm(), "moe": L.spec_moe(cfg),
+            }
+            sp["moe_layers"] = stacked_specs(moe_spec, self.n_moe)
+        if cfg.vlm is not None:
+            sp["patch_proj"] = P(None, None)
+        return sp
+
     def _groups(self):
         """The layer groups in order: (cache key, layers)."""
         return [(key, layers) for key, layers in (("dense",
@@ -114,18 +140,22 @@ class TransformerLM(nn.Module):
 
     def _block(self, lp, x, positions):
         cfg = self.cfg
+        x = L.shard_batch(x, cfg)
         h, _ = L.attention(lp.attn, L.rms_norm(x, lp.ln1, cfg.norm_eps),
                            cfg, positions)
         x = x + h
-        return x + self._ffn(lp, L.rms_norm(x, lp.ln2, cfg.norm_eps))
+        x = x + self._ffn(lp, L.rms_norm(x, lp.ln2, cfg.norm_eps))
+        return L.shard_batch(x, cfg)
 
     def _inputs(self, batch) -> torch.Tensor:
         """Token embeddings, after the projected patches when the model
         has a vision prefix and the batch brings ``patches``."""
         adt = self.cfg.adtype
-        x = self.embed[batch["tokens"]].to(adt)
+        x = L.embed(self.embed, batch["tokens"], self.cfg).to(adt)
         if self.cfg.vlm is not None and "patches" in batch:
-            vis = batch["patches"].to(adt) @ self.patch_proj.to(adt)
+            vis = L.shard_batch(L.col(batch["patches"].to(adt),
+                                      self.patch_proj.to(adt), self.cfg),
+                                self.cfg)
             x = torch.cat([vis, x], dim=1)
         return x
 
@@ -140,6 +170,7 @@ class TransformerLM(nn.Module):
         dropped."""
         cfg = self.cfg
         x, positions = self._embed(batch)
+        x = L.shard_batch(x, cfg)
         for _, layers in self._groups():
             x = scan_layers(self._block, layers, x, remat=cfg.remat,
                             carry_extra=positions)
@@ -171,6 +202,22 @@ class TransformerLM(nn.Module):
             cache[key] = {"k": torch.zeros(shape, **zeros),
                           "v": torch.zeros(shape, **zeros)}
         return cache
+
+    def cache_specs(self) -> Dict:
+        """The reference's partition specs of the cache. "seq": batch on
+        data, the sequence on model (kv-head counts of 4 or 8 do not
+        divide a 16-wide model axis; the cache length does); "batch":
+        replicated over model."""
+        if self.cfg.kv_cache_shard == "seq":
+            kv = {"k": P(None, "data", None, "model", None),
+                  "v": P(None, "data", None, "model", None)}
+        else:
+            kv = {"k": P(None, "data", None, None, None),
+                  "v": P(None, "data", None, None, None)}
+        sp = {"index": P()}
+        for key, _ in self._groups():
+            sp[key] = dict(kv)
+        return sp
 
     def _block_cached(self, lp, x, layer_cache, extra):
         cfg = self.cfg

@@ -17,9 +17,10 @@ import torch
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
+from ..launch.mesh import P
 from . import layers as L
 from .config import ModelConfig
-from .stacking import scan_layers
+from .stacking import scan_layers, stacked_specs
 
 
 class EncoderLayer(nn.Module):
@@ -89,6 +90,32 @@ class WhisperEncDec(nn.Module):
         self.ln_f.init_params(generator)
         return self
 
+    def param_specs(self) -> Dict:
+        """The reference's partition specs of the stacked tree."""
+        cfg = self.cfg
+        enc_spec = {"ln1": L.spec_layernorm(),
+                    "attn": L.spec_attention(cfg),
+                    "ln2": L.spec_layernorm(), "mlp": L.spec_mlp(cfg)}
+        dec_spec = {"ln1": L.spec_layernorm(),
+                    "self_attn": L.spec_attention(cfg),
+                    "ln_x": L.spec_layernorm(),
+                    "cross_attn": L.spec_attention(cfg),
+                    "ln2": L.spec_layernorm(), "mlp": L.spec_mlp(cfg)}
+        return {
+            "frame_proj": P(None, "model"),
+            "enc_pos": P(None, None),
+            "enc_layers": stacked_specs(enc_spec, cfg.encdec.encoder_layers),
+            "ln_enc": L.spec_layernorm(),
+            "embed": P("model", None),
+            "dec_pos": P(None, None),
+            "dec_layers": stacked_specs(dec_spec, cfg.num_layers),
+            "ln_f": L.spec_layernorm(),
+        }
+
+    def cache_specs(self) -> Dict:
+        kv = P(None, "data", "model", None, None)
+        return {"index": P(), "k": kv, "v": kv, "xk": kv, "xv": kv}
+
     # ------------------------------------------------------------ encoder
     def _attend(self, p: L.Attention, x, src, causal: bool,
                 q_offset: int = 0, kv: Optional[Tuple] = None):
@@ -96,35 +123,44 @@ class WhisperEncDec(nn.Module):
         RoPE, on the plain path."""
         cfg = self.cfg
         hq, hkv, hd = cfg.num_heads, cfg.kv_heads, cfg.hd
-        q = L._split_heads(x @ p.wq, hq, hd)
+        q = L._split_heads(L.col(x, p.wq, cfg), hq, hd)
         if kv is None:
-            kv = (L._split_heads(src @ p.wk, hkv, hd),
-                  L._split_heads(src @ p.wv, hkv, hd))
-        out = L._sdpa(q, *kv, causal=causal, window=0, q_offset=q_offset)
-        return L._merge_heads(out) @ p.wo
+            kv = (L._split_heads(L.col(src, p.wk, cfg), hkv, hd),
+                  L._split_heads(L.col(src, p.wv, cfg), hkv, hd))
+        if q_offset:
+            out = L._sdpa(q, *kv, causal=causal, window=0,
+                          q_offset=q_offset)
+        else:
+            out = L.sdpa(q, *kv, cfg, causal=causal)
+        return L.row(L._merge_heads(out), p.wo, cfg)
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """Encoder states (B, frames, D) of ``frames`` (B, frames,
         d_frame): projection, learned positions, bidirectional layers."""
         cfg = self.cfg
-        x = frames.to(cfg.adtype) @ self.frame_proj
+        x = L.shard_batch(L.col(frames.to(cfg.adtype), self.frame_proj,
+                                cfg), cfg)
         x = x + self.enc_pos[None, :x.shape[1]].to(cfg.adtype)
 
         def block(lp: EncoderLayer, h, _):
+            h = L.shard_batch(h, cfg)
             z = L.layer_norm(h, lp.ln1)
             h = h + self._attend(lp.attn, z, z, causal=False)
-            return h + L.mlp(lp.mlp, L.layer_norm(h, lp.ln2), cfg)
+            return L.shard_batch(
+                h + L.mlp(lp.mlp, L.layer_norm(h, lp.ln2), cfg), cfg)
 
         x = scan_layers(block, self.enc_layers, x, remat=cfg.remat)
         return L.layer_norm(x, self.ln_enc)
 
     def _decoder_layer(self, lp: DecoderLayer, h, enc):
         cfg = self.cfg
+        h = L.shard_batch(h, cfg)
         z = L.layer_norm(h, lp.ln1)
         h = h + self._attend(lp.self_attn, z, z, causal=True)
         zx = L.layer_norm(h, lp.ln_x)
         h = h + self._attend(lp.cross_attn, zx, enc, causal=False)
-        return h + L.mlp(lp.mlp, L.layer_norm(h, lp.ln2), cfg)
+        return L.shard_batch(
+            h + L.mlp(lp.mlp, L.layer_norm(h, lp.ln2), cfg), cfg)
 
     # ------------------------------------------------------------ forward
     def hidden(self, batch: Dict) -> torch.Tensor:
@@ -132,8 +168,9 @@ class WhisperEncDec(nn.Module):
         encoded ``frames``."""
         cfg = self.cfg
         enc = self.encode(batch["frames"])
-        x = self.embed[batch["tokens"]].to(cfg.adtype)
+        x = L.embed(self.embed, batch["tokens"], cfg).to(cfg.adtype)
         x = x + self.dec_pos[None, :x.shape[1]].to(cfg.adtype)
+        x = L.shard_batch(x, cfg)
         x = scan_layers(self._decoder_layer, self.dec_layers, x,
                         remat=cfg.remat, carry_extra=enc)
         return L.layer_norm(x, self.ln_f)
@@ -187,7 +224,7 @@ class WhisperEncDec(nn.Module):
         ``dec_pos``, as the reference's ``jnp.take`` fills it."""
         cfg = self.cfg
         idx = cache["index"]
-        x = self.embed[batch["tokens"]].to(cfg.adtype)
+        x = L.embed(self.embed, batch["tokens"], cfg).to(cfg.adtype)
         s = x.shape[1]
         pos_ids = idx + torch.arange(s, device=x.device)
         n_pos = self.dec_pos.shape[0]

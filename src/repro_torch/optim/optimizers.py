@@ -12,17 +12,18 @@ of an (L, d) matrix in the reference, so it is factored there too). The
 arithmetic is the reference's, in its order and dtypes; in particular
 weight decay is added to ``delta`` and ``(-lr * delta)`` is cast to the
 parameter's dtype before it is added (``torch.optim.AdamW`` decays the
-parameter separately, which rounds otherwise in bf16). The reference's
-``state_specs`` (mesh ``PartitionSpec`` trees) are not ported: the port
-has no device mesh.
+parameter separately, which rounds otherwise in bf16). ``state_specs``
+maps the parameters' partition specs to the state's, as the
+reference's does; on a mesh the state's leaves are DTensors of them.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+from ..launch.mesh import P
 from ..tree import tree_leaves, tree_map
 
 
@@ -31,10 +32,15 @@ class Optimizer:
     init: Callable[[Any], Any]
     #: (grads, state, params, step) -> (updates, new state)
     update: Callable[[Any, Any, Any, torch.Tensor], Tuple[Any, Any]]
+    #: param spec tree -> state spec tree
+    state_specs: Optional[Callable[[Any], Any]] = None
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+    """The norm over every leaf; on a mesh each leaf's sum of squares is
+    reduced over the ranks before the leaves are added (a partial sum
+    and a replicated one do not add as DTensors)."""
+    return torch.sqrt(sum(_summed(torch.sum(torch.square(x.float())))
                           for x in tree_leaves(tree)))
 
 
@@ -52,6 +58,27 @@ def _lr_fn(lr):
     return lr if callable(lr) else (
         lambda step: torch.tensor(lr, dtype=torch.float32,
                                   device=torch.as_tensor(step).device))
+
+
+def _summed(t: torch.Tensor) -> torch.Tensor:
+    """A sum or mean over a dim sharded on a mesh is a partial one on
+    each rank: it is reduced here (what comes after needs the whole
+    value). A plain tensor as it is."""
+    from torch.distributed.tensor import Partial, Replicate
+    pls = getattr(t, "placements", None)
+    if pls is None or not any(isinstance(p, Partial) for p in pls):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate() if isinstance(
+        p, Partial) else p for p in pls])
+
+
+def _as(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` in ``like``'s placements, so that in-place arithmetic may
+    combine them on a mesh; plain tensors as they are."""
+    pls = getattr(like, "placements", None)
+    if pls is None or tuple(t.placements) == tuple(pls):
+        return t
+    return t.redistribute(like.device_mesh, pls)
 
 
 def _unzip(out, n: int):
@@ -90,7 +117,10 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                                         params), 3)
         return updates, {"m": m, "v": v}
 
-    return Optimizer(init, update)
+    def state_specs(param_specs):
+        return {"m": param_specs, "v": param_specs}
+
+    return Optimizer(init, update, state_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -128,12 +158,15 @@ def adafactor(lr, b1: float = 0.9, decay: float = 0.99, eps: float = 1e-30,
             gf = g.to(torch.float32, copy=True).mul_(scale)
             g2 = torch.mul(gf, gf).add_(eps)
             if p.ndim >= 2:
-                vr = decay * st["vr"] + (1 - decay) * torch.mean(g2, dim=-1)
-                vc = decay * st["vc"] + (1 - decay) * torch.mean(g2, dim=-2)
+                vr = _summed(decay * st["vr"]
+                             + (1 - decay) * torch.mean(g2, dim=-1))
+                vc = _summed(decay * st["vc"]
+                             + (1 - decay) * torch.mean(g2, dim=-2))
                 del g2
-                precond = torch.mul(vr[..., None], vc[..., None, :]).div_(
-                    torch.clamp(torch.mean(vr, dim=-1, keepdim=True)[..., None],
-                                min=eps))
+                precond = _as(torch.mul(vr[..., None], vc[..., None, :]),
+                              gf).div_(
+                    torch.clamp(_summed(torch.mean(vr, dim=-1, keepdim=True))
+                                [..., None], min=eps))
                 precond.clamp_(min=eps).rsqrt_().mul_(gf)
                 new_st = {"vr": vr, "vc": vc}
             else:
@@ -149,4 +182,19 @@ def adafactor(lr, b1: float = 0.9, decay: float = 0.99, eps: float = 1e-30,
 
         return _unzip(tree_map(upd, grads, state, params), 2)
 
-    return Optimizer(init, update)
+    def state_specs(param_specs):
+        def per_spec(s):
+            if len(s) >= 2:
+                return {"m": s, "vr": P(*s[:-1]),
+                        "vc": P(*(s[:-2] + (s[-1],)))}
+            return {"m": s, "v": s}
+
+        def sorted_map(tree):
+            # keys sorted, as the reference's jax.tree.map rebuilds them
+            if isinstance(tree, P):
+                return per_spec(tree)
+            return {k: sorted_map(tree[k]) for k in sorted(tree)}
+
+        return sorted_map(param_specs)
+
+    return Optimizer(init, update, state_specs)

@@ -1,8 +1,8 @@
 """Three-term roofline (counterpart of repro/roofline/analysis.py).
 
 The reference feeds it the compiled dry-run artifact (§Roofline); the
-port has no XLA program to cost, so its callers pass measured or
-counted FLOPs and bytes, and ``chip`` names the card (``H100_SXM``).
+port's dry run (:mod:`repro_torch.launch.dryrun`) feeds it the per-device
+counts of :mod:`repro_torch.roofline.cost`, with ``chip=H100_SXM``.
 
     compute term    = HLO_FLOPs / (chips x peak_FLOP/s)
     memory term     = HLO_bytes / (chips x HBM_bw)
@@ -16,7 +16,7 @@ or 6·N_active·D (MoE) measures how much of the compiled compute is
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Mapping
 
 import numpy as np
 
@@ -51,12 +51,13 @@ def roofline_terms(per_device_flops: float, per_device_hbm_bytes: float,
 
 def count_params(params) -> float:
     """Parameters of an ``nn.Module`` (its ``parameters()``, each shared
-    tensor once) or of a (nested) mapping of tensors or arrays."""
+    tensor once) or of a (nested) mapping of tensors or arrays. A DTensor
+    or a fake tensor counts its global elements."""
     if hasattr(params, "parameters"):
         return float(sum(p.numel() for p in params.parameters()))
     total = 0
     for v in params.values():
-        if hasattr(v, "values"):
+        if isinstance(v, Mapping):
             total += count_params(v)
         else:
             total += int(np.prod(v.shape))

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..launch.mesh import gather_dim, linear
 from ..models.stacking import bind_params, stack_params, stack_tree
 from ..optim import Optimizer, global_norm
 from ..tree import tree_map
@@ -48,13 +49,24 @@ def init_train_state(model, optimizer: Optimizer,
                                        device=model.device))
 
 
+def train_state_specs(model, optimizer: Optimizer) -> TrainState:
+    """The reference's partition specs of the training state."""
+    from ..launch.mesh import P
+    p_specs = model.param_specs()
+    return TrainState(params=p_specs, opt=optimizer.state_specs(p_specs),
+                      step=P())
+
+
 def _chunk_ce(h: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
-              vocab: int):
-    logits = (h @ w).float()                        # (B, chunk, Vpad)
+              vocab: int, batch_axes=("data",)):
+    logits = linear(h, w, "col", batch_axes).float()  # (B, chunk, Vpad)
     if logits.shape[-1] > vocab:                    # mask pad logits
         v_ids = torch.arange(logits.shape[-1], device=logits.device)
         logits = torch.where(v_ids[None, None] < vocab, logits,
                              torch.full_like(logits, -1e30))
+    # on a mesh the vocab is gathered here, so that the gradient comes
+    # back to the vocab-sharded product in its shards
+    logits = gather_dim(logits, -1)
     logp = F.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, y.clamp(min=0)[..., None])[..., 0]
     mask = (y >= 0).float()
@@ -81,7 +93,7 @@ def loss_fn(model, params, batch: Dict) -> Tuple[torch.Tensor, Dict]:
     nll, n, hits = zero, zero, zero
     for i in range(0, s, chunk):
         args = (hidden[:, i:i + chunk], labels[:, i:i + chunk], w,
-                cfg.vocab_size)
+                cfg.vocab_size, cfg.batch_axes)
         if torch.is_grad_enabled():
             c_nll, c_n, c_hits = checkpoint(_chunk_ce, *args,
                                             use_reentrant=False)
@@ -98,16 +110,26 @@ def value_and_grad(model, params, batch: Dict
     """(loss, metrics, grads) of :func:`loss_fn` at ``params``, the grads
     a tree like ``params`` in its dtypes (``jax.value_and_grad``'s
     counterpart). The model's parameters must require grad
-    (:func:`make_train_step` turns that on)."""
+    (:func:`make_train_step` turns that on). On a mesh each gradient is
+    laid out as its parameter: a partial sum over the batch axes is
+    reduced (scattered where the parameter is sharded)."""
     with torch.enable_grad():
         loss, metrics = loss_fn(model, params, batch)
         named = list(model.named_parameters())
         grads = torch.autograd.grad(loss, [p for _, p in named],
                                     allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else _like(g, p)
              for (_, p), g in zip(named, grads)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             stack_tree((name, g) for (name, _), g in zip(named, grads)))
+
+
+def _like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``g`` in ``p``'s placements where ``p`` is a DTensor."""
+    placements = getattr(p, "placements", None)
+    if placements is None or tuple(g.placements) == tuple(placements):
+        return g
+    return g.redistribute(p.device_mesh, placements)
 
 
 def make_train_step(model, optimizer: Optimizer,
@@ -141,8 +163,8 @@ def make_train_step(model, optimizer: Optimizer,
                 b = x.shape[0] // microbatches
                 return x[i * b:(i + 1) * b]
 
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
             zero = torch.zeros((), dtype=torch.float32,
                                device=state.step.device)
             metrics = {"loss": zero, "accuracy": zero}

@@ -818,6 +818,11 @@ def test_lm_oracles_match_reference(jlm):
     (96, torch.float32, ("cuda_core", 96, 96)),
     (100, torch.float32, ("cuda_core", 128, 100)),
     (256, torch.float32, ("cuda_core", 256, 256)),
+    (257, torch.bfloat16, ("cuda_core", 256, 257)),
+    (320, torch.float16, ("cuda_core", 256, 320)),
+    (384, torch.float32, ("cuda_core", 256, 384)),
+    (511, torch.bfloat16, ("cuda_core", 256, 511)),
+    (512, torch.float32, ("cuda_core", 256, 512)),
 ])
 def test_flash_attention_plans_every_head_dim(d, dtype, want):
     """What the flash wrapper plans for a head dim: the kernel, its tile
@@ -846,12 +851,14 @@ def test_ssd_scan_plans_every_shape(chunk, p, n, want):
 
 def test_lm_kernel_wrappers_refuse_only_what_no_kernel_takes():
     """The launch paths check before they build or launch anything: a head
-    dim past 256 or under 1, a dtype no kernel takes, GQA heads that do
-    not divide; zero-size inputs launch nothing."""
-    for d in (257, 300):
-        qd = torch.zeros((1, 2, 4, d), dtype=torch.bfloat16)
-        with pytest.raises(ValueError, match="head dim"):
-            flash_attention._launch(qd, qd, qd, True)
+    dim under 1 (every head dim from 1 runs: past 256 on the panel
+    kernel), a dtype no kernel takes, GQA heads that do not divide;
+    zero-size inputs launch nothing."""
+    for d in (257, 300, 512):
+        assert flash_attention.plan(d, torch.bfloat16).mem_dim == d
+    qd = torch.zeros((1, 2, 4, 0), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention._launch(qd, qd, qd, True)
     q = torch.zeros((1, 2, 4, 32))
     with pytest.raises(TypeError):
         flash_attention._launch(q.double(), q.double(), q.double(), True)
