@@ -49,6 +49,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.obs import Span, current, span
 
 from .area import connection_box_area, switch_box_area
 from .pnr import place_and_route
@@ -296,12 +297,13 @@ class SweepExecutor:
         executor. The batch runs on the queue's device, on the fabric of
         ``ic`` lowered there."""
         pool, dev = self._emu_queue()
+        parent = current()
 
         def work():
-            emu = self._emulate_batch(self.fabric(ic, key, dev), routed,
+            emu = self._emulate_batch(ic, key, routed, device=dev,
                                       shard=(False if dev is not None
                                              else self.shard),
-                                      io_chunk=io_chunk)
+                                      io_chunk=io_chunk, parent=parent)
             for name, info in emu.items():
                 out[name]["emulation"] = info
             if on_done is not None:
@@ -340,7 +342,10 @@ class SweepExecutor:
                         break
                     fut = source.pop()
                 try:
-                    fut.result()
+                    # the wait names the card's idle time on this thread:
+                    # the profiler does not see the emulation's thread
+                    with span("dse.join"):
+                        fut.result()
                 finally:
                     if pending is not None:
                         with self._lock:
@@ -358,49 +363,57 @@ class SweepExecutor:
                 pool.shutdown(wait=True)
 
     # ----------------------------------------------------- point execution
-    def _emulate_batch(self, fab, routed: List[Tuple[str, Any, Any]],
+    def _emulate_batch(self, ic, key: Tuple,
+                       routed: List[Tuple[str, Any, Any]],
+                       device: DeviceLike = None,
                        shard: Optional[bool] = None,
-                       io_chunk: Optional[int] = None) -> Dict[str, Dict]:
+                       io_chunk: Optional[int] = None,
+                       parent: Optional[Span] = None) -> Dict[str, Dict]:
         """Emulate all routed apps of one design point as a single batch.
 
-        ``routed``: (name, packed, PnRResult) triples on ``fab``. Drives a
+        ``routed``: (name, packed, PnRResult) triples on ``ic``. Drives a
         common counter stimulus on every app input and records the output
         checksum — the bulk validation pass of the batched DSE engine.
-        The batch runs on ``fab``'s device (the per-device emulation
-        queues of the async pipeline hand in the fabric lowered on their
-        card); ``shard`` forwards to ``run_batch``.
+        The batch runs on the fabric of ``ic`` lowered on ``device``
+        (default: this executor's; the per-device emulation queues of the
+        async pipeline name their card); ``shard`` forwards to
+        ``run_batch``. ``parent``: the design point's span, when the batch
+        runs on the emulation queue's thread.
         """
         import numpy as np
         from repro_torch.fabric import AppEmulator, run_apps_batch
 
-        if io_chunk is None:
-            io_chunk = self.io_chunk
-        emulators, inputs, names = [], [], []
-        T = self.emulate_cycles
-        for name, packed, result in routed:
-            emu = AppEmulator.from_pnr(fab, packed, result)
-            ins = {}
-            for inst_name, inst in packed.placeable.items():
-                if inst.kind == "io_in":
-                    coord = result.placement[inst_name]
-                    ins[coord] = np.arange(1, T + 1, dtype=np.int32)
-            emulators.append(emu)
-            inputs.append(ins)
-            names.append(name)
-        if fab.device.type == "cuda":
-            with torch.cuda.device(fab.device):
+        with span("dse.emulate", parent=parent, apps=len(routed),
+                  cycles=self.emulate_cycles):
+            fab = self.fabric(ic, key, device)
+            if io_chunk is None:
+                io_chunk = self.io_chunk
+            emulators, inputs, names = [], [], []
+            T = self.emulate_cycles
+            for name, packed, result in routed:
+                emu = AppEmulator.from_pnr(fab, packed, result)
+                ins = {}
+                for inst_name, inst in packed.placeable.items():
+                    if inst.kind == "io_in":
+                        coord = result.placement[inst_name]
+                        ins[coord] = np.arange(1, T + 1, dtype=np.int32)
+                emulators.append(emu)
+                inputs.append(ins)
+                names.append(name)
+            if fab.device.type == "cuda":
+                with torch.cuda.device(fab.device):
+                    outs = run_apps_batch(emulators, inputs, T, shard=shard,
+                                          io_chunk=io_chunk)
+            else:
                 outs = run_apps_batch(emulators, inputs, T, shard=shard,
                                       io_chunk=io_chunk)
-        else:
-            outs = run_apps_batch(emulators, inputs, T, shard=shard,
-                                  io_chunk=io_chunk)
-        report: Dict[str, Dict] = {}
-        for name, emu, out in zip(names, emulators, outs):
-            checksum = int(sum(int(np.asarray(v, np.int64).sum())
-                               for v in out.values()) & 0xFFFFFFFF)
-            report[name] = {"depth": emu.depth, "cycles": T,
-                            "out_checksum": checksum}
-        return report
+            report: Dict[str, Dict] = {}
+            for name, emu, out in zip(names, emulators, outs):
+                checksum = int(sum(int(np.asarray(v, np.int64).sum())
+                                   for v in out.values()) & 0xFFFFFFFF)
+                report[name] = {"depth": emu.depth, "cycles": T,
+                                "out_checksum": checksum}
+            return report
 
     # -------------------------------------------------- store-backed flow
     def resolve(self, point) -> InterconnectSpec:
@@ -569,8 +582,9 @@ class SweepExecutor:
             emu_fut = None
             rec = None if assume_cold else self._store_lookup(digest)
             if rec is None:
-                rec, emu_fut = self._compute_point(
-                    spec, digest, defer_emulation, pending)
+                with span("dse.point", trace=digest):
+                    rec, emu_fut = self._compute_point(
+                        spec, digest, defer_emulation, pending)
             fut.set_result((rec, emu_fut))
         except BaseException as e:
             fut.set_exception(e)
@@ -620,7 +634,8 @@ class SweepExecutor:
         # no PnR/emulation minutes. Free pruning for machine-generated
         # spec streams, where malformed points are routine.
         from .analysis import rule_set_version
-        report = self.analysis_report(spec, ic)
+        with span("dse.analysis"):
+            report = self.analysis_report(spec, ic)
         analysis = report.to_dict(max_diagnostics=16)
         # verdict provenance: which rule set judged this record (see
         # record_usable — a stamp mismatch makes the record unusable)
@@ -681,12 +696,13 @@ class SweepExecutor:
                 # metrics from the merged population)
                 from .analysis import analyze as run_rules
                 from .analysis import routed_static_metrics
-                routed_rep = run_rules(ic, spec=spec.hardware_spec(),
-                                       scope="routed", pnr=r)
-                out[name]["routed_analysis"] = routed_rep.to_dict(
-                    max_diagnostics=4)
-                out[name].update(routed_static_metrics(
-                    r.packed, r.routing, r.placement))
+                with span("dse.routed_analysis", app=name):
+                    routed_rep = run_rules(ic, spec=spec.hardware_spec(),
+                                           scope="routed", pnr=r)
+                    out[name]["routed_analysis"] = routed_rep.to_dict(
+                        max_diagnostics=4)
+                    out[name].update(routed_static_metrics(
+                        r.packed, r.routing, r.placement))
             if r.success and self.emulate_cycles:
                 routed.append((name, r.packed, r))
         rec: Dict = {"spec_digest": digest,
@@ -697,9 +713,8 @@ class SweepExecutor:
                      "cb_area": connection_box_area(ic),
                      "emulate_cycles": self.emulate_cycles}
         if routed and not defer_emulation:
-            fab = self.fabric(ic, key)
             emu = self._emulate_batch(
-                fab, routed, shard=self.shard,
+                ic, key, routed, shard=self.shard,
                 io_chunk=spec.emulate_io_chunk or self.io_chunk)
             for name, info in emu.items():
                 out[name]["emulation"] = info

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.obs import span
 from repro_torch.kernels.fabric_step import PE_OPS, pe_alu_candidates
 
 from .graph import Interconnect, Node, NodeKind
@@ -543,7 +544,7 @@ class FabricModule:
             first = 1 if t == 0 else 0
             for k in range(first, depth):
                 graphs[k % 2].replay()
-            build.LAUNCHES["fabric_sweep"] += depth - first
+            build.count_launch("fabric_sweep", depth - first)
             self._clock_cycle(cyc, vals[depth % 2], out[t])
 
     def step(self, state: State, ext_in, config,
@@ -1019,4 +1020,5 @@ class FabricModule:
 def compile_interconnect(ic: Interconnect, device: DeviceLike = None,
                          use_kernels: bool = False) -> FabricModule:
     """The static-backend entry point (IR → hardware, §3.3)."""
-    return FabricModule(ic, device=device, use_kernels=use_kernels)
+    with span("ir.lower"):
+        return FabricModule(ic, device=device, use_kernels=use_kernels)

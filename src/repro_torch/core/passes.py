@@ -34,6 +34,8 @@ import hashlib
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+from repro_torch.obs import span
+
 from .graph import (IO, Interconnect, InterconnectGraph, NodeKind,
                     RegisterMuxNode, RegisterNode, SBConnection, Side,
                     SwitchBox, SwitchBoxNode, Tile)
@@ -373,13 +375,14 @@ class PassManager:
         if ctx is None:
             ctx = PassContext(spec=spec, core_fn=core_fn)
         snapshots: List[Tuple[str, object]] = []
-        for p in self.passes:
-            if p.when(spec):
-                p.run(ctx)
-                if analyze_per_pass and ctx.ic is not None:
-                    from .analysis import analyze as _analyze
-                    snapshots.append(
-                        (p.name, _analyze(ctx.ic, spec=spec)))
+        with span("ir.passes"):
+            for p in self.passes:
+                if p.when(spec):
+                    p.run(ctx)
+                    if analyze_per_pass and ctx.ic is not None:
+                        from .analysis import analyze as _analyze
+                        snapshots.append(
+                            (p.name, _analyze(ctx.ic, spec=spec)))
         if analyze_per_pass:
             ctx.analysis_report = _attribute_to_passes(snapshots)
         assert ctx.ic is not None

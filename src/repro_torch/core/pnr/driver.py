@@ -4,13 +4,13 @@ anneal → route → STA → bitstream, with the paper's α sweep ("sweeping
 (Counterpart of repro/core/pnr/driver.py.)"""
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 
 from repro_torch.core.graph import Interconnect, Node
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.obs import span
 from .app import AppGraph
 from .packing import PackedGraph, pack
 from .global_place import assign_ios, global_place, legalize
@@ -79,60 +79,67 @@ def place_and_route(ic: Interconnect, app: AppGraph,
 
     The device stages (global-place CG, annealing costs, minplus fields
     of fresh ``resources``) run on ``device`` (``None``: the CUDA card)."""
-    t0 = time.perf_counter()
-    dev = resolve_device(device)
-    W = int(ic.params.get("width", ic.dims()[0]))
-    H = int(ic.params.get("height", ic.dims()[1]))
-    mem_cols = tuple(getattr(ic, "spec", None).mem_columns
-                     if getattr(ic, "spec", None) else ())
-    io_ring = bool(getattr(ic, "spec", None).io_ring
-                   if getattr(ic, "spec", None) else True)
+    with span("pnr.app") as app_span:
+        dev = resolve_device(device)
+        W = int(ic.params.get("width", ic.dims()[0]))
+        H = int(ic.params.get("height", ic.dims()[1]))
+        mem_cols = tuple(getattr(ic, "spec", None).mem_columns
+                         if getattr(ic, "spec", None) else ())
+        io_ring = bool(getattr(ic, "spec", None).io_ring
+                       if getattr(ic, "spec", None) else True)
 
-    packed = pack(app)
-    fixed = assign_ios(packed, W, H)
-    cont = global_place(packed, W, H, mem_columns=mem_cols, fixed=fixed,
-                        seed=seed, device=dev)
-    base_pl = legalize(packed, cont, W, H, mem_columns=mem_cols,
-                       io_ring=io_ring, fixed=fixed)
-    if resources is None:
-        resources = RoutingResources(ic, device=dev)
+        with span("pnr.pack"):
+            packed = pack(app)
+        with span("pnr.global_place"):
+            fixed = assign_ios(packed, W, H)
+            cont = global_place(packed, W, H, mem_columns=mem_cols,
+                                fixed=fixed, seed=seed, device=dev)
+            base_pl = legalize(packed, cont, W, H, mem_columns=mem_cols,
+                               io_ring=io_ring, fixed=fixed)
+        if resources is None:
+            resources = RoutingResources(ic, device=dev)
 
-    # resolve "auto" once per point so every alpha uses (and the result
-    # records) one engine
-    place_strat = resolve_place_strategy(W * H, place_strategy)
+        # resolve "auto" once per point so every alpha uses (and the result
+        # records) one engine
+        place_strat = resolve_place_strategy(W * H, place_strategy)
 
-    best: Optional[PnRResult] = None
-    last_err = ""
-    for alpha in alphas:
-        pl = detailed_place(packed, base_pl, W, H, mem_columns=mem_cols,
-                            io_ring=io_ring, gamma=gamma, alpha=alpha,
-                            n_steps=sa_steps, batch=sa_batch, seed=seed,
-                            strategy=place_strat, device=dev)
-        try:
-            routing = route_app(ic, packed, pl, max_iters=route_iters,
-                                res=resources, seed=seed,
-                                strategy=route_strategy,
-                                auto_min_tiles=auto_min_tiles)
-        except RoutingError as e:
-            last_err = str(e)
-            continue
-        timing = sta_critical_path(
-            packed, routing, pl,
-            split_fifo_ctrl_delay=split_fifo_ctrl_delay)
-        cand = PnRResult(
-            success=True, placement=pl, packed=packed, routing=routing,
-            timing=timing, alpha=alpha,
-            wirelength=routing.total_wirelength(),
-            route_iterations=routing.iterations,
-            route_strategy=routing.strategy,
-            place_strategy=place_strat)
-        if best is None or (cand.timing["critical_path_ns"]
-                            < best.timing["critical_path_ns"]):
-            best = cand
+        best: Optional[PnRResult] = None
+        last_err = ""
+        for alpha in alphas:
+            with span("pnr.detailed_place", alpha=alpha):
+                pl = detailed_place(packed, base_pl, W, H,
+                                    mem_columns=mem_cols, io_ring=io_ring,
+                                    gamma=gamma, alpha=alpha,
+                                    n_steps=sa_steps, batch=sa_batch,
+                                    seed=seed, strategy=place_strat,
+                                    device=dev)
+            try:
+                with span("pnr.route", alpha=alpha):
+                    routing = route_app(ic, packed, pl, max_iters=route_iters,
+                                        res=resources, seed=seed,
+                                        strategy=route_strategy,
+                                        auto_min_tiles=auto_min_tiles)
+            except RoutingError as e:
+                last_err = str(e)
+                continue
+            with span("pnr.sta", alpha=alpha):
+                timing = sta_critical_path(
+                    packed, routing, pl,
+                    split_fifo_ctrl_delay=split_fifo_ctrl_delay)
+            cand = PnRResult(
+                success=True, placement=pl, packed=packed, routing=routing,
+                timing=timing, alpha=alpha,
+                wirelength=routing.total_wirelength(),
+                route_iterations=routing.iterations,
+                route_strategy=routing.strategy,
+                place_strategy=place_strat)
+            if best is None or (cand.timing["critical_path_ns"]
+                                < best.timing["critical_path_ns"]):
+                best = cand
 
-    if best is None:
-        return PnRResult(success=False, packed=packed,
-                         error=last_err or "unroutable",
-                         seconds=time.perf_counter() - t0)
-    best.seconds = time.perf_counter() - t0
+        if best is None:
+            best = PnRResult(success=False, packed=packed,
+                             error=last_err or "unroutable")
+    # one clock: the result states its own span's duration
+    best.seconds = app_span.seconds
     return best

@@ -66,6 +66,7 @@ import torch
 
 from repro_torch.core.graph import (Interconnect, Node, NodeKind)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.obs import span
 from .packing import PackedGraph
 
 _log = logging.getLogger(__name__)
@@ -129,49 +130,50 @@ class RoutingResources:
 
     def __init__(self, ic: Interconnect, reg_penalty: float = 4.0,
                  device: DeviceLike = None):
-        self.ic = ic
-        self.reg_penalty = reg_penalty
-        self.device = device
-        self.nodes: List[Node] = list(ic.nodes())
-        self.node_id: Dict[Node, int] = {n: i for i, n in
-                                         enumerate(self.nodes)}
-        n = len(self.nodes)
-        adj: List[List[Tuple[int, float]]] = [[] for _ in range(n)]
-        # one pass builds every destination's fan-in position map, so the
-        # edge loop below is O(E) instead of the old O(E * max_fanin)
-        # (``dst.fan_in.index(node)`` per edge)
-        fanin_pos: Dict[Node, Dict[Node, int]] = {
-            node: {s: k for k, s in enumerate(node.fan_in)}
-            for node in self.nodes}
-        #: (src_id, dst_id) -> wire delay of that edge (STA / net delay)
-        self.edge_delay_map: Dict[Tuple[int, int], float] = {}
-        min_hop = np.inf
-        for i, node in enumerate(self.nodes):
-            for dst in node.fan_out:
-                j = self.node_id[dst]
-                k = fanin_pos[dst][node]
-                wire = dst.edge_delay_in[k]
-                d = wire + dst.delay
-                adj[i].append((j, d))
-                self.edge_delay_map[(i, j)] = wire
-                if d > 0:
-                    min_hop = min(min_hop, d)
-        self.adj = adj
-        self.kind = np.array([int(nd.kind) for nd in self.nodes], np.int8)
-        self.xy = np.array([(nd.x, nd.y) for nd in self.nodes], np.int32)
-        # base node cost: intrinsic delay + epsilon, registers discouraged
-        # (keeps routed paths combinational unless pipelining is requested)
-        eps = 1e-3
-        self.base = np.array([
-            nd.delay + eps + (reg_penalty
-                              if nd.kind == NodeKind.REGISTER else 0.0)
-            for nd in self.nodes], np.float64)
-        self.hop_cost = float(min_hop if np.isfinite(min_hop) else 0.1)
-        # plain-list coordinates: the minplus expander's hop bias reads
-        # them per heap push, where list indexing beats numpy scalars
-        self.x_list: List[int] = self.xy[:, 0].tolist()
-        self.y_list: List[int] = self.xy[:, 1].tolist()
-        self._coarse: Optional["CoarseGraph"] = None
+        with span("pnr.resources"):
+            self.ic = ic
+            self.reg_penalty = reg_penalty
+            self.device = device
+            self.nodes: List[Node] = list(ic.nodes())
+            self.node_id: Dict[Node, int] = {n: i for i, n in
+                                             enumerate(self.nodes)}
+            n = len(self.nodes)
+            adj: List[List[Tuple[int, float]]] = [[] for _ in range(n)]
+            # one pass builds every destination's fan-in position map, so the
+            # edge loop below is O(E) instead of the old O(E * max_fanin)
+            # (``dst.fan_in.index(node)`` per edge)
+            fanin_pos: Dict[Node, Dict[Node, int]] = {
+                node: {s: k for k, s in enumerate(node.fan_in)}
+                for node in self.nodes}
+            #: (src_id, dst_id) -> wire delay of that edge (STA / net delay)
+            self.edge_delay_map: Dict[Tuple[int, int], float] = {}
+            min_hop = np.inf
+            for i, node in enumerate(self.nodes):
+                for dst in node.fan_out:
+                    j = self.node_id[dst]
+                    k = fanin_pos[dst][node]
+                    wire = dst.edge_delay_in[k]
+                    d = wire + dst.delay
+                    adj[i].append((j, d))
+                    self.edge_delay_map[(i, j)] = wire
+                    if d > 0:
+                        min_hop = min(min_hop, d)
+            self.adj = adj
+            self.kind = np.array([int(nd.kind) for nd in self.nodes], np.int8)
+            self.xy = np.array([(nd.x, nd.y) for nd in self.nodes], np.int32)
+            # base node cost: intrinsic delay + epsilon, registers discouraged
+            # (keeps routed paths combinational unless pipelining is requested)
+            eps = 1e-3
+            self.base = np.array([
+                nd.delay + eps + (reg_penalty
+                                  if nd.kind == NodeKind.REGISTER else 0.0)
+                for nd in self.nodes], np.float64)
+            self.hop_cost = float(min_hop if np.isfinite(min_hop) else 0.1)
+            # plain-list coordinates: the minplus expander's hop bias reads
+            # them per heap push, where list indexing beats numpy scalars
+            self.x_list: List[int] = self.xy[:, 0].tolist()
+            self.y_list: List[int] = self.xy[:, 1].tolist()
+            self._coarse: Optional["CoarseGraph"] = None
 
     def coarse(self) -> "CoarseGraph":
         """The tile-coarsened view, built once and cached (per-iteration

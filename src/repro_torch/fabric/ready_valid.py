@@ -43,6 +43,7 @@ import torch
 from repro_torch.core.graph import IO, Interconnect, Node, NodeKind, Side
 from repro_torch.core.lowering import FabricModule, State
 from repro_torch.device import DeviceLike
+from repro_torch.obs import span
 
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -310,26 +311,33 @@ class RVFabric(FabricModule):
         """``cycles`` cycles from ``init_state``: ``drive(t)`` gives the
         cycle's (ext_in, ext_valid, sink_ready), ``observe(t, outs)`` takes
         its outputs. On the card with ``use_kernels`` the sweeps replay
-        from CUDA graphs captured in the first cycle."""
+        from CUDA graphs captured in the first cycle. A cycle's spans part
+        its sweeps (``rv.sweeps``: the replays' enqueue, which waits while
+        the launch queue is full) from its eager drive and FIFO update
+        (``rv.start``, ``rv.clock``)."""
         cyc = self._rv_cycle(config, pe_cfg)
         state = self.init_state()
         graphed = (self.device.type == "cuda" and self.use_kernels
                    and depth > 0 and cycles > 0)
         graphs = None
         for t in range(cycles):
-            self._rv_start(cyc, state, *drive(t))
-            if not graphed:
-                self._rv_sweeps(cyc, depth)
-            else:
-                first = 0
-                if graphs is None:
+            with span("rv.start"):
+                self._rv_start(cyc, state, *drive(t))
+            first = 0
+            if graphed and graphs is None:
+                with span("rv.capture"):
                     graphs, first = self._rv_capture(cyc), 1
-                for name in ("fwd", "bwd"):
-                    for k in range(first, depth):
-                        graphs[name][k % 2].replay()
-                self.graph_replays += 2 * (depth - first)
-            state, outs = self._rv_clock(cyc, state, depth)
-            observe(t, outs)
+            with span("rv.sweeps"):
+                if not graphed:
+                    self._rv_sweeps(cyc, depth)
+                else:
+                    for name in ("fwd", "bwd"):
+                        for k in range(first, depth):
+                            graphs[name][k % 2].replay()
+                    self.graph_replays += 2 * (depth - first)
+            with span("rv.clock"):
+                state, outs = self._rv_clock(cyc, state, depth)
+                observe(t, outs)
         self.last_state = state
 
     # -------------------------------------------------------------- the cycle

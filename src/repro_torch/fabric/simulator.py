@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.core.graph import Node
 from repro_torch.core.lowering import FabricModule, PE_OP_IDS
+from repro_torch.obs import span
 
 
 class AppEmulator:
@@ -57,17 +58,18 @@ class AppEmulator:
     def from_pnr(cls, fabric: FabricModule, packed, result,
                  depth: Optional[int] = None) -> "AppEmulator":
         """Bind a PnRResult directly (packing-aware)."""
-        pe_ops: Dict[Tuple[int, int], Tuple[str, int]] = {}
-        pe_imms: Dict[Tuple[int, int], Dict[int, int]] = {}
-        for name, inst in packed.placeable.items():
-            if inst.kind != "pe":
-                continue
-            xy = result.placement[name]
-            pe_ops[xy] = (inst.op, inst.const)
-            for port, val in packed.const_ports.get(name, {}).items():
-                pe_imms.setdefault(xy, {})[int(port[-1])] = val
-        return cls(fabric, result.route_edges(), pe_ops, pe_imms,
-                   depth=depth)
+        with span("emu.bind"):
+            pe_ops: Dict[Tuple[int, int], Tuple[str, int]] = {}
+            pe_imms: Dict[Tuple[int, int], Dict[int, int]] = {}
+            for name, inst in packed.placeable.items():
+                if inst.kind != "pe":
+                    continue
+                xy = result.placement[name]
+                pe_ops[xy] = (inst.op, inst.const)
+                for port, val in packed.const_ports.get(name, {}).items():
+                    pe_imms.setdefault(xy, {})[int(port[-1])] = val
+            return cls(fabric, result.route_edges(), pe_ops, pe_imms,
+                       depth=depth)
 
     def ext_stream(self, inputs: Dict[Tuple[int, int], np.ndarray],
                    cycles: int) -> np.ndarray:
@@ -110,13 +112,18 @@ def run_apps_batch(emulators: Sequence[AppEmulator],
     fab = emulators[0].fabric
     if any(e.fabric is not fab for e in emulators):
         raise ValueError("batched emulation requires a shared fabric")
-    ext = np.stack([e.ext_stream(i, cycles)
-                    for e, i in zip(emulators, inputs_list)])   # (B, T, io)
-    configs = torch.stack([e.config for e in emulators])
-    pe_cfgs = {k: torch.stack([e.pe_cfg[k] for e in emulators])
-               for k in emulators[0].pe_cfg}
-    depths = np.array([e.depth for e in emulators], dtype=np.int32)
-    obs = fab.run_batch(configs, ext, pe_cfgs=pe_cfgs, depth=depths,
-                        shard=shard, io_chunk=io_chunk).cpu().numpy()
-    return [{c: obs[b, :, i] for c, i in e.io_index.items()}
-            for b, e in enumerate(emulators)]
+    lanes = len(emulators)
+    with span("emu.stage", lanes=lanes, cycles=cycles):
+        ext = np.stack([e.ext_stream(i, cycles)
+                        for e, i in zip(emulators, inputs_list)])  # (B,T,io)
+        configs = torch.stack([e.config for e in emulators])
+        pe_cfgs = {k: torch.stack([e.pe_cfg[k] for e in emulators])
+                   for k in emulators[0].pe_cfg}
+        depths = np.array([e.depth for e in emulators], dtype=np.int32)
+    # the copy back waits for the card
+    with span("emu.run", lanes=lanes, cycles=cycles):
+        obs = fab.run_batch(configs, ext, pe_cfgs=pe_cfgs, depth=depths,
+                            shard=shard, io_chunk=io_chunk).cpu().numpy()
+    with span("emu.unpack", lanes=lanes):
+        return [{c: obs[b, :, i] for c, i in e.io_index.items()}
+                for b, e in enumerate(emulators)]

@@ -75,11 +75,11 @@ def reset_launch_counts() -> None:
             LAUNCHES[k] = 0
 
 
-def count_launch(kernel: str) -> None:
-    """Add one to ``kernel``'s launch count (the wrappers run on several
+def count_launch(kernel: str, n: int = 1) -> None:
+    """Add ``n`` to ``kernel``'s launch count (the wrappers run on several
     threads: the DSE queues, the ``run_batch`` split)."""
     with _count_lock:
-        LAUNCHES[kernel] += 1
+        LAUNCHES[kernel] += n
 
 
 def _sources() -> List[Path]:
