@@ -62,12 +62,15 @@ after; each must have launched the kernels it exists to drive.
              routed ``pointwise`` app (``auto``: minplus router, batched
              annealer), its bitstream, and ``run_with_sources`` with its
              PE program for 64 tokens (placed and routed once, on the
-             full-mode point). Each run's sweeps replay from CUDA graphs;
-             the first 4 cycles of each, run again on the card and on the
-             port's CPU path, must agree bit for bit, FIFO state
-             included, and the app's first 4 likewise with the card's
-             eager sweeps. In full mode ``emulate`` runs the app on the static
-             semantics, equal to ``run_apps_batch``.
+             full-mode point). Each cycle's sweeps are one ``rv_sweeps``
+             launch (launches = cycles, no graph replayed); the stream's
+             first 16 cycles run again on the graph path (the kernel's
+             size rule patched to refuse FULL; equal), as the kernel's
+             earlier time; the first 4 cycles of each, run again on the
+             card and on the port's CPU path, must agree bit for bit,
+             FIFO state included, and the app's first 4 likewise with
+             the card's eager sweeps. In full mode ``emulate`` runs the
+             app on the static semantics, equal to ``run_apps_batch``.
 9. lm_score — the LM substrate's full-sequence forward, ``logits`` of
              the ten LM configs at full width (``LM_DEPTHS``: every one
              at its full depth but Kimi K2, cut to its dense layer and
@@ -149,7 +152,12 @@ after; each must have launched the kernels it exists to drive.
              same inputs (``earlier_ms``); ``fabric_sweep`` also the
              device time of one whole sweep of ``run`` (``sweep_ms``:
              the kernel, the hold, the re-pin and the PE cores, as the
-             graph replays them).
+             graph replays them). ``rv_sweeps`` runs one FULL cycle
+             of each FIFO mode at the east stream's depth (127 split, 5
+             full; the split one is the row, both under ``shapes``),
+             from phase 8's stalled route under a random drive and sink
+             readiness: the kernel and its plain version on copies of
+             the same buffers, data, valid and ready equal in both.
 
 12. train — the training path through ``repro_torch.launch.train.train`` (the
              ``Supervisor``, ``SyntheticTokens``, the plain branch under
@@ -300,7 +308,7 @@ EARLIER = {"fabric_sweep": ("fabric_sweep_first.cu", [_P] * 4 + [_I] * 2
 #: depth takes ~0.5 s at FULL) and eagerly on the card, and the share of
 #: cycles a backpressured sink is ready
 RV_TOKENS, RV_STREAM_T, RV_APP_T, RV_FILL_T = 64, 192, 96, 96
-RV_CPU_T, RV_EAGER_T, RV_SINK_READY = 4, 4, 0.6
+RV_CPU_T, RV_EAGER_T, RV_GRAPH_T, RV_SINK_READY = 4, 4, 16, 0.6
 #: the reference docstring's batched evaluation (``kernels/hpwl.py``):
 #: 64 chains x 4 candidates x 4,096 nets at K 4; the rounds in which the
 #: box kernels and their earlier versions are timed in turns
@@ -370,7 +378,7 @@ PHASE_KERNELS = {
     "engines": ("fabric_sweep", "fabric_sweep_batch", "fabric_fused_batch"),
     "search": (),
     # PnR of the routed app; emulate on the static semantics
-    "rv": ("minplus_step", "net_bboxes", "fabric_sweep"),
+    "rv": ("minplus_step", "net_bboxes", "fabric_sweep", "rv_sweeps"),
     # each model's ``lm_score:<arch>`` phase launches its family's kernel
     # (FAMILY_KERNEL); ``lm_score`` sums them
     "lm_score": ("flash_attention", "ssd_scan"),
@@ -384,7 +392,7 @@ PHASE_KERNELS = {
 }
 KERNEL_PATH = {"fabric_sweep": "emulate", "fabric_sweep_batch": "verify",
                "hpwl": "smoke", "flash_attention": "lm_score",
-               "ssd_scan": "lm_score"}
+               "ssd_scan": "lm_score", "rv_sweeps": "rv"}
 
 
 def log(msg):
@@ -756,10 +764,19 @@ def rv_sources(fab, src, rng, cycles, ready=RV_SINK_READY, drain=0):
     return streams, lens, sink
 
 
+def rv_counts(fab):
+    from repro_torch.kernels import build
+
+    return {"rv_sweeps": build.LAUNCHES["rv_sweeps"],
+            "kernel_cycles": fab.kernel_cycles,
+            "graph_replays": fab.graph_replays}
+
+
 def rv_timed(fab, *args, **kw):
     """``run_with_sources`` on the card: its outputs on the host, ms per
-    cycle by CUDA events, and the sweeps it replayed from CUDA graphs."""
-    before = fab.graph_replays
+    cycle by CUDA events, and what it counted: ``rv_sweeps`` launches,
+    kernel cycles and sweeps replayed from CUDA graphs."""
+    before = rv_counts(fab)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -769,13 +786,95 @@ def rv_timed(fab, *args, **kw):
     torch.cuda.synchronize()
     cycles = outs[0].shape[0]
     return ([o.cpu().numpy() for o in outs], start.elapsed_time(end) / cycles,
-            fab.graph_replays - before)
+            {k: v - before[k] for k, v in rv_counts(fab).items()})
+
+
+def rv_kernel_case(fab, config, depth):
+    """One FULL cycle's inputs for the ``rv_sweeps`` row, at the
+    stream's ``depth``: the FIFO state ``fab`` last left (the stalled
+    route's full stages), a seeded random drive and sink readiness, the
+    cycle started (``_rv_start``) and the kernel's tables resolved."""
+    rng = np.random.default_rng(11)
+    n_io = fab.num_io
+    cyc = fab._rv_cycle(config, None)
+    fab._rv_start(cyc, fab.last_state,
+                  *(fab._ints(x) for x in (
+                      rng.integers(0, 1 << 16, n_io, dtype=np.int32),
+                      rng.integers(0, 2, n_io, dtype=np.int32),
+                      rng.integers(0, 2, n_io, dtype=np.int32))))
+    return {"mode": fab.fifo_mode, "depth": depth, "cyc": cyc,
+            "tables": fab._rv_tables(cyc), "pes": fab.num_pe,
+            "connections": int(fab.arrays.fanin_count.sum())}
+
+
+def rv_kernel_row(cases):
+    """``rv_sweeps`` against its plain version on one FULL cycle of each
+    FIFO mode (``rv_kernel_case``): both run once on copies of the same
+    buffers and must leave data, valid and ready equal in both buffers
+    (``max_abs_err``), then each is timed on copies of its own. The
+    row's shape is the split mode's (``amber_rv.east``'s depth), both
+    modes under ``shapes``. The bound counts 3 operations a connection a
+    sweep, as ``canalbench/roofline.py`` does; a sweep reads one
+    selected source a node, so that counts about 3x the work."""
+    from repro_torch.kernels import rv_sweep
+
+    shapes = []
+    for case in cases:
+        cyc, depth = case["cyc"], case["depth"]
+
+        def copies():
+            return [tuple(b.clone() for b in cyc[k]) for k in "dvr"]
+
+        def args(bufs):
+            return (case["tables"], *bufs, cyc["pins_d"], cyc["pins_v"],
+                    cyc["fix_mask"], cyc["fix_val"], depth)
+
+        got, want = copies(), copies()
+        rv_sweep.rv_sweeps(*args(got))
+        rv_sweep.rv_sweeps_plain(*args(want))
+        torch.cuda.synchronize()
+        err = max(int((g.long() - w.long()).abs().max())
+                  for gs, ws in zip(got, want) for g, w in zip(gs, ws))
+        if err:
+            raise AssertionError(f"rv_sweeps {case['mode']} differs from "
+                                 f"its plain version by {err}")
+        timed, plain = copies(), copies()
+        b_ms, b_by = bound(0, 3 * depth * case["connections"])
+        shapes.append({
+            "fifo": case["mode"], "depth": depth, "max_abs_err": err,
+            **timings(lambda: rv_sweep.rv_sweeps(*args(timed)),
+                      lambda: rv_sweep.rv_sweeps_plain(*args(plain)),
+                      reps=10, plain_reps=1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "cluster": case["tables"]["cluster"]})
+    row = next(x for x in shapes if x["fifo"] == "split")
+    case = cases[0]
+    return {"name": "rv_sweeps", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rv_sweeps.cu",
+            "replaces": "none: the CUDA-graph replays of "
+                        "RVFabric._forward_sweep / _backward_sweep",
+            **{k: row[k] for k in ("ms", "plain_ms", "call_ms", "timing",
+                                   "bound_ms", "bound_by")},
+            "max_abs_err": max(s["max_abs_err"] for s in shapes),
+            "library_ms": None, "shapes": shapes,
+            "shape": {"N": case["tables"]["n"], "P": case["pes"],
+                      "connections": case["connections"], "fifo": "split",
+                      "depth": row["depth"], "cluster": row["cluster"]}}
+
+
+def rv_kernel_cycles(mode, counts, cycles):
+    """At FULL every cycle's sweeps are one ``rv_sweeps`` launch and no
+    graph is replayed."""
+    want = {"rv_sweeps": cycles, "kernel_cycles": cycles, "graph_replays": 0}
+    if counts != want:
+        raise AssertionError(f"rv {mode}: counted {counts}, not {want}")
 
 
 def rv_same(name, card, other, args):
-    """The same ``run_with_sources(*args)`` on the card's graphed fabric
-    and on ``other`` (the CPU's, or the card's eager sweeps): io_data,
-    io_valid, accepted and the FIFO state after it equal bit for bit.
+    """The same ``run_with_sources(*args)`` on the card's fabric
+    (``use_kernels``) and on ``other`` (the CPU's, or the card's eager
+    sweeps): io_data, io_valid, accepted and the FIFO state after it
+    equal bit for bit.
     Returns the seconds ``other`` took."""
     runs = []
     for f in (card, other):
@@ -797,7 +896,8 @@ def rv_same(name, card, other, args):
 def rv_mode(rv, routed, rng):
     """One FIFO mode of the ready-valid phase (see the docstring): ``rv``
     compiled in that mode, ``routed`` the pointwise app's (PnR result,
-    emulator) on the full-mode point."""
+    emulator) on the full-mode point. Returns its record and the stream's
+    cycle for phase 11's ``rv_sweeps`` row (``rv_kernel_case``)."""
     from repro_torch.fabric import RVFabric, east_route, run_apps_batch
 
     fab = rv.fabric()
@@ -819,8 +919,9 @@ def rv_mode(rv, routed, rng):
     src, dst = io[(0, 1)], io[(width - 1, 1)]
     stages = sum(1 for _, d in edges if d.kind.name == "REGISTER")
     streams, lens, sink = rv_sources(fab, src, rng, RV_STREAM_T, drain=64)
-    outs, ms, replays = rv_timed(fab, config, streams, lens, sink,
-                                 depth=depth)
+    outs, ms, counts = rv_timed(fab, config, streams, lens, sink,
+                                depth=depth)
+    rv_kernel_cycles(mode, counts, RV_STREAM_T)
     od, ov, acc = outs
     got = od[:, dst][acc[:, dst] > 0]
     if not np.array_equal(got, streams[:RV_TOKENS, src]):
@@ -836,9 +937,28 @@ def rv_mode(rv, routed, rng):
     if orr[-1, src] != 0 or absorbed >= RV_FILL_T:
         raise AssertionError(f"rv {mode}: source ready never dropped under a "
                              f"stalled sink ({absorbed} absorbed)")
+    case = rv_kernel_case(fab, config, depth)
+    # the same stream on the graph path (past the kernel's size rule), as
+    # the kernel's earlier time
+    from repro_torch.fabric import ready_valid
+    rule = ready_valid.rv_cluster
+    ready_valid.rv_cluster = lambda n, p: 0
+    try:
+        graphed, graph_ms_cycle, graph_counts = rv_timed(
+            fab, config, streams[:RV_GRAPH_T], lens, sink[:RV_GRAPH_T],
+            depth=depth)
+    finally:
+        ready_valid.rv_cluster = rule
+    if graph_counts["graph_replays"] != 2 * (RV_GRAPH_T * depth - 1) or \
+            any(not np.array_equal(g, o[:RV_GRAPH_T])
+                for g, o in zip(graphed, outs)):
+        raise AssertionError(f"rv {mode}: the graph path differs: "
+                             f"{graph_counts}")
     rec["stream"] = {"cycles": RV_STREAM_T, "depth": depth,
                      "fifo_stages": stages, "ms_per_cycle": ms,
-                     "graph_replays": replays, "tokens": RV_TOKENS,
+                     "launches": counts,
+                     "graph_ms_per_cycle": graph_ms_cycle,
+                     "tokens": RV_TOKENS,
                      "delivered": int(len(got)), "absorbed_never_ready":
                      absorbed, "cpu_equal_cycles": RV_CPU_T}
 
@@ -846,8 +966,9 @@ def rv_mode(rv, routed, rng):
     r, emu = routed
     src, dst = io[r.placement["in0"]], io[r.placement["out0"]]
     streams, lens, sink = rv_sources(fab, src, rng, RV_APP_T)
-    outs, ms, replays = rv_timed(fab, emu.config, streams, lens, sink,
-                                 pe_cfg=emu.pe_cfg, depth=emu.depth)
+    outs, ms, counts = rv_timed(fab, emu.config, streams, lens, sink,
+                                pe_cfg=emu.pe_cfg, depth=emu.depth)
+    rv_kernel_cycles(mode, counts, RV_APP_T)
     cpu_s += rv_same(f"{mode} app", fab, cpu,
                      (emu.config, streams, lens, sink[:RV_CPU_T], emu.pe_cfg,
                       emu.depth))
@@ -863,7 +984,7 @@ def rv_mode(rv, routed, rng):
                 "backward": graph_ms(lambda: fab._backward_sweep(cyc, 0, 1))}
     rec["app"] = {"cycles": RV_APP_T, "depth": emu.depth,
                   "ms_per_cycle": ms, "eager_ms_per_cycle": eager_ms,
-                  "sweep_ms": sweep_ms, "graph_replays": replays,
+                  "sweep_ms": sweep_ms, "launches": counts,
                   "tokens": RV_TOKENS, "delivered": int(outs[2][:, dst].sum()),
                   "cpu_equal_cycles": RV_CPU_T}
     rec["cpu_leg_s"] = cpu_s
@@ -875,19 +996,20 @@ def rv_mode(rv, routed, rng):
             raise AssertionError("rv: emulate != run_apps_batch")
         rec["app"]["emulate_equal"] = True
     log(f"rv {mode}: stream {rec['stream']}; app {rec['app']}")
-    return rec
+    return rec, case
 
 
 def rv_phase(spec, device):
     """The ready-valid fabric at ``spec`` (FULL) in both FIFO modes; the
     pointwise app placed and routed once, on the spec's default (full)
-    point, its configuration run in both."""
+    point, its configuration run in both. Returns the record and each
+    mode's ``rv_kernel_case``."""
     import canal_torch
     from repro_torch.core.pnr.app import BENCH_APPS
     from repro_torch.fabric import AppEmulator, RVFabric
 
     rng = np.random.default_rng(7)
-    out = {}
+    out, cases = {}, []
     routed = None
     for mode, split in (("full", False), ("split", True)):
         t0 = time.perf_counter()
@@ -911,13 +1033,14 @@ def rv_phase(spec, device):
                                      f"{r.route_strategy}/{r.place_strategy}")
             routed = (r, AppEmulator.from_pnr(fab, r.packed, r))
             pnr = {"pnr_s": r.seconds, "bitstream_words": len(rv.bitstream(r))}
-        out[mode] = {"compile_s": compile_s, **pnr,
-                     **rv_mode(rv, routed, rng)}
+        rec, case = rv_mode(rv, routed, rng)
+        out[mode] = {"compile_s": compile_s, **pnr, **rec}
+        cases.append(case)
     full, split = (out[m]["stream"]["absorbed_never_ready"]
                    for m in ("full", "split"))
     if full <= split:
         raise AssertionError(f"rv: full FIFOs absorbed {full}, split {split}")
-    return out
+    return out, cases
 
 
 # ------------------------------------------------------------ kernel checks
@@ -2503,9 +2626,9 @@ def drive(spec, device, t_start, earlier):
         "serve": phase("serve", serve_phase, spec, fab.area(), device),
         "engines": phase("engines", engines_phase, device),
         "search": phase("search", search_phase, device),
-        # 8. the ready-valid fabric at FULL
-        "rv": phase("rv", rv_phase, spec, device),
     }
+    # 8. the ready-valid fabric at FULL
+    results["rv"], rv_cases = phase("rv", rv_phase, spec, device)
     for name, need in (("minplus", "minplus_step"),
                        ("batched", "net_bboxes")):
         if name in results["search"]["strategies"] and \
@@ -2550,6 +2673,8 @@ def drive(spec, device, t_start, earlier):
     rows.append(hpwl_row(routed, device, earlier))
     rows.append(flash_row(device))
     rows.append(ssd_row(device, earlier["ssd_scan"]))
+    rows.append(rv_kernel_row(rv_cases))
+    del rv_cases
     # 12. the training path (after the LM models are freed)
     trained = phase("train", train_phase, device)
     if phases["train"]["launches"]:

@@ -27,11 +27,13 @@ The configuration is fixed for a run, so each node's selected source and
 each consumer's "uses this producer" flag are computed once: a forward
 sweep is a gather from the selected sources, and a backward sweep a
 min-gather over the used consumers (an unused one reads the always-ready
-sentinel). Both sweeps work in place on preallocated buffers; on the card
-with ``use_kernels`` each is captured into a CUDA graph per direction and
-replayed ``depth`` times a cycle, while the FIFO update stays a short
-eager tail. On the CPU, and with ``use_kernels=False``, the same sweep
-functions run eagerly.
+sentinel). Both sweeps work in place on preallocated buffers. On the card
+with ``use_kernels`` a cycle's sweeps are one launch of the
+``rv_sweeps`` kernel (``kernels/rv_sweep.py``), where its size rule holds
+the fabric; a larger fabric captures each sweep into a CUDA graph per
+direction and replays it ``depth`` times a cycle. The drive and the FIFO
+update stay a short eager tail. On the CPU, and with
+``use_kernels=False``, the same sweep functions run eagerly.
 """
 from __future__ import annotations
 
@@ -42,7 +44,9 @@ import torch
 
 from repro_torch.core.graph import IO, Interconnect, Node, NodeKind, Side
 from repro_torch.core.lowering import FabricModule, State
+from repro_torch.core.tiles import WORD
 from repro_torch.device import DeviceLike
+from repro_torch.kernels.rv_sweep import rv_cluster, rv_sweeps, rv_tables
 from repro_torch.obs import span
 
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -61,6 +65,8 @@ class RVFabric(FabricModule):
         self._build_reverse_tables()
         #: sweeps replayed from CUDA graphs (forward and backward) so far
         self.graph_replays = 0
+        #: cycles whose sweeps the ``rv_sweeps`` kernel ran so far
+        self.kernel_cycles = 0
         #: the state after the last ``run_stream`` / ``run_with_sources``
         self.last_state: Optional[State] = None
 
@@ -305,36 +311,71 @@ class RVFabric(FabricModule):
                 graphs[name].append(graph)
         return graphs
 
+    def _rv_path(self, depth: int, cycles: int) -> str:
+        """How a run's sweeps go: ``"kernel"`` (one ``rv_sweeps`` launch
+        a cycle) on the card with ``use_kernels`` where the kernel's size
+        rule (``rv_cluster``, from N and P alone) holds the fabric,
+        ``"graph"`` (CUDA-graph replays) there past it, ``"eager"``
+        elsewhere and for an empty run."""
+        if not (self.device.type == "cuda" and self.use_kernels
+                and depth > 0 and cycles > 0):
+            return "eager"
+        return ("kernel" if rv_cluster(self.arrays.num_nodes, self.num_pe)
+                else "graph")
+
+    def _rv_tables(self, cyc: State) -> State:
+        """The ``rv_sweeps`` kernel's tables for the run's configuration
+        (``rv_tables``)."""
+        a, pe = self.arrays, cyc["pe"]
+        return rv_tables(
+            self._dev("src", a.src, torch.int32), cyc["picked"],
+            self._dev("keep", ~a.is_driven, torch.bool),
+            self._dev("rv_pin_ids", self.rv_pin_ids),
+            self._dev("pe_in_raw", self.pe_in), self._dev("pe_out",
+                                                          self.pe_out),
+            pe["op"][0, 0], pe["const"][0],
+            pe["imm_mask"][0] if "imm_mask" in pe else None,
+            pe["imm_val"][0] if "imm_mask" in pe else None,
+            cyc["cons_used"])
+
     def _rv_run(self, config, pe_cfg: Optional[State], depth: int,
                 cycles: int, drive: Callable[[int], Tuple[torch.Tensor, ...]],
                 observe: Callable[[int, Outputs], None]) -> None:
         """``cycles`` cycles from ``init_state``: ``drive(t)`` gives the
         cycle's (ext_in, ext_valid, sink_ready), ``observe(t, outs)`` takes
-        its outputs. On the card with ``use_kernels`` the sweeps replay
-        from CUDA graphs captured in the first cycle. A cycle's spans part
-        its sweeps (``rv.sweeps``: the replays' enqueue, which waits while
-        the launch queue is full) from its eager drive and FIFO update
-        (``rv.start``, ``rv.clock``)."""
+        its outputs. The sweeps go as ``_rv_path`` says: one kernel launch
+        a cycle from tables resolved once a run (``rv.tables``), or replays
+        from CUDA graphs captured in the first cycle, or eagerly. A
+        cycle's spans part its sweeps (``rv.sweeps``: the launch, or the
+        replays' enqueue, which waits while the launch queue is full) from
+        its eager drive and FIFO update (``rv.start``, ``rv.clock``)."""
         cyc = self._rv_cycle(config, pe_cfg)
         state = self.init_state()
-        graphed = (self.device.type == "cuda" and self.use_kernels
-                   and depth > 0 and cycles > 0)
+        path = self._rv_path(depth, cycles)
+        if path == "kernel":
+            with span("rv.tables"):
+                tables = self._rv_tables(cyc)
         graphs = None
         for t in range(cycles):
             with span("rv.start"):
                 self._rv_start(cyc, state, *drive(t))
             first = 0
-            if graphed and graphs is None:
+            if path == "graph" and graphs is None:
                 with span("rv.capture"):
                     graphs, first = self._rv_capture(cyc), 1
             with span("rv.sweeps"):
-                if not graphed:
-                    self._rv_sweeps(cyc, depth)
-                else:
+                if path == "kernel":
+                    rv_sweeps(tables, cyc["d"], cyc["v"], cyc["r"],
+                              cyc["pins_d"], cyc["pins_v"], cyc["fix_mask"],
+                              cyc["fix_val"], depth, WORD)
+                    self.kernel_cycles += 1
+                elif path == "graph":
                     for name in ("fwd", "bwd"):
                         for k in range(first, depth):
                             graphs[name][k % 2].replay()
                     self.graph_replays += 2 * (depth - first)
+                else:
+                    self._rv_sweeps(cyc, depth)
             with span("rv.clock"):
                 state, outs = self._rv_clock(cyc, state, depth)
                 observe(t, outs)

@@ -39,6 +39,7 @@ LAUNCHES: Dict[str, int] = {
     "fabric_sweep_batch": 0,
     "fabric_fused_batch": 0,
     "fabric_fused_run": 0,
+    "rv_sweeps": 0,
     "minplus_step": 0,
     "net_bboxes": 0,
     "hpwl": 0,
@@ -55,6 +56,7 @@ _SIGNATURES = {
     "canal_fabric_fused_batch": [_P] * 15 + [_P] * 3 + [_I] * 7 + [_P],
     "canal_fabric_fused_run": [_P] * 18 + [_P] * 5 + [_I] * 11 + [_P],
     "canal_fabric_fused_clusters": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)],
+    "canal_rv_sweeps": [_P] * 17 + [_I] * 5 + [_P],
     "canal_minplus_step": [_P, _P, _P, _I, _I, _P],
     "canal_net_bboxes": [_P, _P, _P] + [_I] * 6 + [_P],
     "canal_hpwl": [_P, _P, _P] + [_I] * 6 + [_P],

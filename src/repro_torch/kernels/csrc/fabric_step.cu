@@ -73,6 +73,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pe_alu.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -117,34 +119,6 @@ __device__ __forceinline__ int lane_sweeps(const Fabric& f, int b) {
     int d = f.depths[b];
     d = d < 0 ? 0 : d;
     return d < f.max_depth ? d : f.max_depth;
-}
-
-// PE ALU in PE_OPS order; any other op passes a through (res1 is op -1).
-// Wrapping ops run in uint32 (signed overflow is undefined in C++); >> is
-// arithmetic; shift amounts clip to [0, 15]. Every
-// op is computed and the result selected, with no branch: the PEs of one
-// warp run different ops, and a switch would run them one after another.
-__device__ __forceinline__ int32_t pe_alu(int op, int32_t a, int32_t b,
-                                          int32_t c, int32_t k) {
-    const uint32_t ua = (uint32_t)a, ub = (uint32_t)b;
-    const int s = b < 0 ? 0 : (b > 15 ? 15 : b);
-    const uint32_t d = ua - ub;
-    int32_t r = a;                                          // pass
-    r = op == 0 ? (int32_t)(ua + ub) : r;                   // add
-    r = op == 1 ? (int32_t)d : r;                           // sub
-    r = op == 2 ? (int32_t)(ua * ub) : r;                   // mul
-    r = op == 3 ? (a & b) : r;                              // and
-    r = op == 4 ? (a | b) : r;                              // or
-    r = op == 5 ? (a ^ b) : r;                              // xor
-    r = op == 6 ? (int32_t)(ua << s) : r;                   // shl
-    r = op == 7 ? (a >> s) : r;                             // shr
-    r = op == 8 ? (a < b ? a : b) : r;                      // min
-    r = op == 9 ? (a > b ? a : b) : r;                      // max
-    r = op == 10 ? ((int32_t)d < 0 ? (int32_t)(0u - d) : (int32_t)d)
-                 : r;                                       // abs(a - b)
-    r = op == 11 ? ((a & 1) ? b : c) : r;                   // sel
-    r = op == 12 ? k : r;                                   // const
-    return r;
 }
 
 // ------------------------------------------------------ the cluster variant

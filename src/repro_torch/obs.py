@@ -31,8 +31,12 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-#: closed spans kept; once full, each new span pushes out the oldest
-CAPACITY = 65_536
+#: closed spans kept; once full, each new span pushes out the oldest. A
+#: ready-valid cycle closes three, and ``RVFabric`` runs 1,000-1,300
+#: cycles a second at Amber FULL on an H100 (the sweeps in one kernel
+#: launch): a 45 s window of them is up to ~176,000 spans, ~50 MB at
+#: ~280 B a span
+CAPACITY = 1 << 19
 
 _buffer: "collections.deque[Span]" = collections.deque(maxlen=CAPACITY)
 _lock = threading.Lock()
