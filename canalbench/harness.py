@@ -4,9 +4,13 @@ Everything that belongs to one configuration, traffic mix or metric is
 found by name: ``BENCHMARK.json`` names the cell, its configuration file
 (``canalbench/configs/<config>.json``) and its traffic mix
 (``canalbench/traffic/<mix>.json``); the mix names its ``kind``, the
-general generator in ``canalbench/kinds/<kind>.py`` that reads it; each
-metric is a reader ``canalbench/metrics/<metric>.py`` with
-``read(run) -> float | None``.
+general generator in ``canalbench/kinds/<kind>.py`` that reads it, with
+its ``SMALL_TRAFFIC`` for the CPU tests; each metric is a reader
+``canalbench/metrics/<metric>.py`` with ``read(run) -> float | None``;
+the apps a mix names are ``canalbench/apps/<app>.json``, and a PE op
+that the reference does not hold is ``canalbench/ops/<op>.py``
+(``canalbench/reference.py``). A configuration's file may carry
+``small``, the spec its CPU tests run.
 
 A run: set-up (the kind's ``setup``: load the kernel library, compile,
 route, warm one unit of the cell's own shapes), then the window (units
@@ -28,6 +32,8 @@ from typing import Any, Dict, List, Optional
 
 HERE = Path(__file__).resolve().parent
 CHECKOUT = HERE.parent
+CONFIGS_DIR = HERE / "configs"
+TRAFFIC_DIR = HERE / "traffic"
 #: top-level modules that must never be loaded where the result is made
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro", "canal", "benchmarks",
              "chip_smoke")
@@ -79,12 +85,12 @@ def find_cell(bench: Dict, workload: str) -> Dict:
 
 
 def load_config(name: str) -> Dict:
-    with open(HERE / "configs" / f"{name}.json") as f:
+    with open(CONFIGS_DIR / f"{name}.json") as f:
         return json.load(f)
 
 
 def load_traffic(name: str) -> Dict:
-    with open(HERE / "traffic" / f"{name}.json") as f:
+    with open(TRAFFIC_DIR / f"{name}.json") as f:
         return json.load(f)
 
 

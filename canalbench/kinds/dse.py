@@ -26,6 +26,11 @@ from canalbench.kinds import (app_graph, geometry, load_apps, load_library,
                               make_spec)
 
 
+#: the mix shrunk to what the CPU tests run in a second or two
+SMALL_TRAFFIC = dict(points=[["wilton", 3], ["imran", 3]],
+                     warm_spec={"width": 6, "height": 6})
+
+
 class Generator:
     def __init__(self, run, config, traffic, seed, device="cuda",
                  use_kernels=True, control=None):

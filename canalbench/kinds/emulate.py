@@ -18,6 +18,10 @@ from canalbench.kinds import (app_graph, fabric_shape, geometry, load_apps,
                               load_library, make_spec)
 
 
+#: the mix shrunk to what the CPU tests run in a second or two
+SMALL_TRAFFIC = dict(lanes=4, cycles=16, trace_units=1)
+
+
 class Generator:
     def __init__(self, run, config, traffic, seed, device="cuda",
                  use_kernels=True, control=None):

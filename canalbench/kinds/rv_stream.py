@@ -26,6 +26,11 @@ from canalbench.kinds import (app_graph, fabric_shape, load_apps,
                               load_library, make_spec)
 
 
+#: the mix shrunk to what the CPU tests run in a second or two
+SMALL_TRAFFIC = dict(chunk_cycles=24, tokens=6, drain=12, trace_cycles=2,
+                     warm_cycles=1)
+
+
 class Generator:
     def __init__(self, run, config, traffic, seed, device="cuda",
                  use_kernels=True, control=None):
@@ -99,23 +104,25 @@ class Generator:
     def _chunk(self, kind, rng, cycles):
         route = self.routes[kind]
         tokens, streams, lens, sink = self._sources(route, rng, cycles)
-        before = self.fab.graph_replays
-        od, ov, acc = (o.cpu().numpy() for o in self.fab.run_with_sources(
+        fab = self.fab
+        before = fab.kernel_cycles, fab.graph_replays
+        od, ov, acc = (o.cpu().numpy() for o in fab.run_with_sources(
             route["config"], streams, lens, sink, pe_cfg=route["pe_cfg"],
             depth=route["depth"]))
         dst = route["dst"]
         delivered = od[:, dst][acc[:, dst] > 0]
-        return tokens, delivered, self.fab.graph_replays - before
+        return tokens, delivered, {
+            "kernel_cycles": fab.kernel_cycles - before[0],
+            "graph_replays": fab.graph_replays - before[1]}
 
     # ----------------------------------------------------------- window
     def unit(self, i):
         kind = self.kinds[i % len(self.kinds)]
         cycles = int(self.traffic["chunk_cycles"])
-        _, delivered, replays = self._chunk(
+        _, delivered, launches = self._chunk(
             kind, np.random.default_rng([self.seed, i]), cycles)
         self.chunks.append((kind, i, delivered))
-        return {"kind": "rv", "cycles": cycles, "replays": replays,
-                "route": kind}
+        return {"kind": "rv", "cycles": cycles, "route": kind, **launches}
 
     def trace_units(self):
         cycles = int(self.traffic.get("trace_cycles", 8))

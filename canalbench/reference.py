@@ -10,8 +10,15 @@ outputs are read only to be judged.
 App semantics (the dataflow graph as the netlist states it):
 
 * values are words of the track width (16 bits); every PE result wraps;
-* ``pe``: ``data0 op data1`` (``add``, ``sub``, ``mul``, ...);
+* ``pe``: an op of ``_OPS`` is ``data0 op data1`` (``add``, ``sub``,
+  ``mul``, ...); any other op is the module ``canalbench/ops/<op>.py``
+  (plain NumPy): ``WIDTH``, its result's bits, and ``apply(port)``, where
+  ``port(name)`` is the int64 stream on the PE's input port ``name``,
+  as the app's nets name it; the result wraps at ``WIDTH``;
 * ``const``: its value; ``io_in``: the stimulus; ``io_out``: its source;
+* ``widths`` (optional, in the app's file): ``{port name: bits}`` for
+  ports narrower than the word; an ``io_in``'s stimulus wraps at its
+  output port's width and an ``io_out`` at its input port's;
 * ``reg``: a pipeline register, one cycle of delay (0 before the first);
 * ``mem``: a line buffer one word long, ``rdata[t] = wdata[t - 1]`` (the
   apps leave the length open; one word is the assumed size).
@@ -23,6 +30,8 @@ constants copied from ``src/repro_torch/core/area.py``.
 """
 from __future__ import annotations
 
+import functools
+import importlib.util
 import json
 from pathlib import Path
 from typing import Dict, Iterable, List, Sequence, Tuple
@@ -30,6 +39,8 @@ from typing import Dict, Iterable, List, Sequence, Tuple
 import numpy as np
 
 APPS_DIR = Path(__file__).resolve().parent / "apps"
+#: PE ops beyond ``_OPS``, a module each (``<op>.py``)
+OPS_DIR = Path(__file__).resolve().parent / "ops"
 
 #: PE ALU ops of the apps, on int64 streams (wrapped to the word after)
 _OPS = {
@@ -63,16 +74,39 @@ def _delay(x: np.ndarray) -> np.ndarray:
     return out
 
 
+def load_op(op: str):
+    """The module of a PE op that ``_OPS`` lacks: ``OPS_DIR/<op>.py``."""
+    path = OPS_DIR / f"{op}.py"
+    if not (op.isidentifier() and path.is_file()):
+        raise ValueError(f"no semantics for PE op {op!r}: not in _OPS "
+                         f"and no {path}")
+    return _load_op_file(str(path))
+
+
+@functools.lru_cache(maxsize=None)
+def _load_op_file(path: str):
+    spec = importlib.util.spec_from_file_location(
+        "canalbench.ops." + Path(path).stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def evaluate(app: Dict, inputs: Dict[str, np.ndarray],
              word_bits: int = 16) -> Dict[str, np.ndarray]:
     """Each ``io_out``'s stream for ``inputs`` (io_in name -> (..., T)
     streams; leading axes are lanes)."""
     mask = (1 << word_bits) - 1
+    widths = app.get("widths", {})
     kinds = {n: (k, op, c) for n, k, op, c in app["instances"]}
     source: Dict[Tuple[str, str], Tuple[str, str]] = {}
+    out_port: Dict[str, str] = {}    # the port an io_in drives from
+    in_port: Dict[str, str] = {}     # the port an io_out is driven on
     for (src, sport), sinks in app["nets"]:
+        out_port[src] = sport
         for sink, port in sinks:
             source[(sink, port)] = (src, sport)
+            in_port[sink] = port
     shape = np.broadcast(*inputs.values()).shape if inputs else ()
     values: Dict[str, np.ndarray] = {}
 
@@ -85,17 +119,25 @@ def evaluate(app: Dict, inputs: Dict[str, np.ndarray],
             return value(source[(name, p)][0])
 
         if kind == "io_in":
-            v = np.asarray(inputs[name], np.int64) & mask
+            bits = widths.get(out_port.get(name), word_bits)
+            v = np.asarray(inputs[name], np.int64) & ((1 << bits) - 1)
         elif kind == "const":
             v = np.full(shape, const, np.int64)
         elif kind == "io_out":
-            v = port("io_in")
+            p = in_port[name]
+            v = port(p)
+            if p in widths:
+                v = v & ((1 << widths[p]) - 1)
         elif kind == "reg":
             v = _delay(port("in"))
         elif kind == "mem":
             v = _delay(port("wdata"))
-        elif kind == "pe":
+        elif kind == "pe" and op in _OPS:
             v = _OPS[op](port("data0"), port("data1")) & mask
+        elif kind == "pe":
+            mod = load_op(op)
+            v = np.asarray(mod.apply(port), np.int64) & (
+                (1 << mod.WIDTH) - 1)
         else:
             raise ValueError(f"{name}: no semantics for kind {kind!r}")
         values[name] = np.broadcast_to(v, shape) if v.shape != shape else v

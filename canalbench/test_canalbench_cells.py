@@ -9,6 +9,7 @@ import torch
 
 from canalbench import harness
 
+#: the CPU tests' array where a configuration's file has no ``small``:
 #: ``cgra_amber.smoke()`` with one MEM column (the stencil needs one),
 #: 8 wide (the butterfly does not fit 6x6)
 SMALL = {"width": 8, "height": 8, "track_width": 16, "num_tracks": 3,
@@ -17,12 +18,6 @@ SMALL = {"width": 8, "height": 8, "track_width": 16, "num_tracks": 3,
 #: the ready-valid cells' array: the east stream needs no app
 SMALL_RV = dict(SMALL, width=6, height=6, mem_columns=[],
                 ready_valid=True, split_fifo=True)
-#: the mixes shrunk to what the CPU runs in a second or two
-SHRINK = {"dse": dict(points=[["wilton", 3], ["imran", 3]],
-                      warm_spec={"width": 6, "height": 6}),
-          "emulate": dict(lanes=4, cycles=16, trace_units=1),
-          "rv_stream": dict(chunk_cycles=24, tokens=6, drain=12,
-                            trace_cycles=2, warm_cycles=1)}
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 
 
@@ -30,10 +25,10 @@ def small_cell(name):
     bench = harness.load_benchmark()
     cell = harness.find_cell(bench, name)
     config = harness.load_config(cell["config"])
-    config["spec"] = (SMALL_RV if config["spec"].get("ready_valid")
-                      else SMALL)
+    config["spec"] = config.get("small") or (
+        SMALL_RV if config["spec"].get("ready_valid") else SMALL)
     traffic = harness.load_traffic(cell["traffic"])
-    traffic.update(SHRINK[traffic["kind"]])
+    traffic.update(harness.load_kind(traffic["kind"]).SMALL_TRAFFIC)
     return bench, cell, config, traffic
 
 
@@ -78,8 +73,8 @@ def test_traced_cell_adds_the_breakdown(name):
     layer = {m["name"] for m in harness.cell_metrics(
         bench, harness.find_cell(bench, name), "per_layer")}
     assert set(out["metrics"]) <= layer
-    # CUDA events and graph replays exist only on the card
-    assert layer - set(out["metrics"]) <= {"rv_replays_per_cycle",
+    # CUDA events and the sweeps' launch counters move only on the card
+    assert layer - set(out["metrics"]) <= {"rv_sweep_launches_per_cycle",
                                            "emu_batch_ms"}
 
 
