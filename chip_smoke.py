@@ -71,6 +71,16 @@ after; each must have launched the kernels it exists to drive.
              FIFO state included, and the app's first 4 likewise with
              the card's eager sweeps. In full mode ``emulate`` runs the
              app on the static semantics, equal to ``run_apps_batch``.
+8b. two_layer — the benchmark's two-layer cell at its size
+             (``amber_two_layer.emulate_pred``: FULL with five 1-bit tracks
+             beside the five 16-bit ones, its PEs with the 1-bit inputs):
+             the traffic's four predicate apps placed and routed with its
+             ``pnr`` settings (each routes 1-bit nets), bitstreams, and
+             ``run_apps_batch`` of its 16 lanes for T cycles, unstreamed
+             and with ``io_chunk=8``, both equal to the scatter oracle and
+             to ``canalbench/reference.py``; each fused launch's
+             ``emu.fused`` span must name the variant the size rule gives
+             (the global-memory one at this size).
 9. lm_score — the LM substrate's full-sequence forward, ``logits`` of
              the ten LM configs at full width (``LM_DEPTHS``: every one
              at its full depth but Kimi K2, cut to its dense layer and
@@ -140,7 +150,11 @@ after; each must have launched the kernels it exists to drive.
              fused rows also give their variant (cluster size or
              ``global``), the clusters the card holds at once, the sweeps
              a launch runs, the microseconds a sweep and the share of a
-             sweep's shared-memory reads that stay in the reading block.
+             sweep's shared-memory reads that stay in the reading block;
+             they come twice, at FULL (path ``main``) and at phase 8b's
+             two-layer array with its PE layout (path ``two_layer``:
+             ``pe_inputs`` 7, the predicate ops among the random
+             programs, B 16).
              ``net_bboxes`` and ``hpwl`` are also timed at the
              reference's batched design shape (``design``: 1,048,576
              nets at K 4), each in turns with its earlier kernel, the
@@ -214,6 +228,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 T = 16                       # emulated cycles (the DSE executor's default)
 IO_CHUNK = 8
+#: the benchmark's cell on the two-layer array (phase 8b follows its
+#: configuration and traffic), and the seed of its stimulus here
+PRED_CELL = "amber_two_layer.emulate_pred"
+PRED_SEED = 29
 #: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and the
 #: CUDA-core rate (float32 outside the tensor cores), used for the
 #: integer and float compare/add work of these kernels
@@ -379,6 +397,8 @@ PHASE_KERNELS = {
     "search": (),
     # PnR of the routed app; emulate on the static semantics
     "rv": ("minplus_step", "net_bboxes", "fabric_sweep", "rv_sweeps"),
+    "two_layer": ("fabric_fused_batch", "fabric_fused_run", "minplus_step",
+                  "net_bboxes"),
     # each model's ``lm_score:<arch>`` phase launches its family's kernel
     # (FAMILY_KERNEL); ``lm_score`` sums them
     "lm_score": ("flash_attention", "ssd_scan"),
@@ -1043,6 +1063,112 @@ def rv_phase(spec, device):
     return out, cases
 
 
+# ---------------------------------------------------- the two-layer array
+def two_layer_phase(device):
+    """The benchmark's two-layer cell at its size: ``amber_two_layer``'s
+    spec (FULL with five 1-bit tracks beside the five 16-bit ones), its
+    traffic's predicate apps placed and routed with its ``pnr``
+    settings, bitstreams, and ``run_apps_batch`` of its ``lanes`` (the
+    apps in turn, seeded 16-bit stimulus) for T cycles, unstreamed
+    (``fabric_fused_batch`` a cycle) and with ``io_chunk``
+    (``fabric_fused_run``). Both equal the scatter oracle
+    (``use_kernels=False``) and ``canalbench/reference.py``; every 1-bit
+    net is routed, and each fused launch's ``emu.fused`` span names the
+    variant the size rule gives. Returns the record and the fabric (for
+    the kernel rows)."""
+    import canal_torch
+    from canalbench import harness, reference
+    from canalbench.kinds import app_graph, make_spec
+    from repro_torch import obs
+    from repro_torch.fabric import AppEmulator, run_apps_batch
+    from repro_torch.kernels import fabric_step as fs
+
+    cell = harness.find_cell(harness.load_benchmark(), PRED_CELL)
+    traffic = harness.load_traffic(cell["traffic"])
+    pnr = {k: tuple(v) if isinstance(v, list) else v
+           for k, v in traffic["pnr"].items()}
+    t0 = time.perf_counter()
+    fab = canal_torch.compile(make_spec(harness.load_config(cell["config"])),
+                              device=device, use_kernels=True)
+    fabric = fab.fabric()
+    n, p = fabric.arrays.num_nodes, fabric.fused_tables["num_pe_slots"]
+    rec = {"compile_s": time.perf_counter() - t0, "nodes": n,
+           "connections": int((fabric.arrays.src < n).sum()),
+           "pe": fabric.num_pe, "pe_inputs": int(fabric.pe_in.shape[1]),
+           "io_columns": fabric.num_io}
+    if not fabric.pred:
+        raise AssertionError("two_layer: the fabric has no 1-bit PE ports")
+    log(f"two_layer: {n} nodes, {rec['connections']} connections, "
+        f"{fabric.num_pe} PEs in {rec['compile_s']:.1f} s")
+
+    routed, rec["pnr_s"], rec["bitstream_words"], rec["nets_1b"] = \
+        {}, {}, {}, {}
+    for name in traffic["apps"]:
+        since = time.perf_counter()
+        r = fab.place_and_route(app_graph(reference.load_app(name)), **pnr)
+        if not r.success:
+            raise RuntimeError(f"two_layer {name}: PnR failed: {r.error}")
+        routed[name] = r
+        rec["pnr_s"][name] = r.seconds
+        rec["bitstream_words"][name] = len(fab.bitstream(r))
+        rec["nets_1b"][name] = [s.attrs.get("nets_1b", 0)
+                                for s in obs.spans("pnr.route", since)]
+        if not all(rec["nets_1b"][name]):
+            raise AssertionError(f"two_layer {name}: no 1-bit net routed "
+                                 f"({rec['nets_1b'][name]})")
+        log(f"two_layer {name}: {r.seconds:.2f} s, "
+            f"{rec['nets_1b'][name]} 1-bit nets")
+
+    lanes = [traffic["apps"][k % len(traffic["apps"])]
+             for k in range(traffic["lanes"])]
+    stims, ins = [], []
+    for k, name in enumerate(lanes):
+        rng = np.random.default_rng([PRED_SEED, k])
+        app = reference.load_app(name)
+        stims.append({i: rng.integers(0, 1 << 16, T, dtype=np.int64)
+                      for i in reference.app_ios(app, "io_in")})
+        ins.append({tuple(routed[name].placement[i]): v
+                    for i, v in stims[-1].items()})
+    emus = [AppEmulator.from_pnr(fabric, routed[a].packed, routed[a])
+            for a in lanes]
+    want_cluster = fs.fused_cluster(n, p, pred=True)
+    outs, rec["emulation_ms"], rec["fused_clusters"] = {}, {}, {}
+    for mode, chunk in (("unstreamed", None), ("io_chunk", IO_CHUNK)):
+        torch.cuda.synchronize()
+        since = time.perf_counter()
+        outs[mode] = run_apps_batch(emus, ins, T, io_chunk=chunk)
+        torch.cuda.synchronize()
+        rec["emulation_ms"][mode] = (time.perf_counter() - since) * 1e3
+        clusters = {s.attrs["cluster"]
+                    for s in obs.spans("emu.fused", since)}
+        rec["fused_clusters"][mode] = sorted(clusters)
+        if clusters != {want_cluster}:
+            raise AssertionError(f"two_layer {mode}: emu.fused clusters "
+                                 f"{clusters}, the size rule "
+                                 f"{want_cluster}")
+    oracle_fab = fab.fabric(use_kernels=False)
+    oracle = run_apps_batch([AppEmulator.from_pnr(oracle_fab, routed[a].packed,
+                                                  routed[a]) for a in lanes],
+                            ins, T)
+    for k, name in enumerate(lanes):
+        r = routed[name]
+        for coord in oracle[k]:
+            for mode in outs:
+                if not np.array_equal(outs[mode][k][coord],
+                                      oracle[k][coord]):
+                    raise AssertionError(f"two_layer lane {k} ({name}) "
+                                         f"{mode} != the scatter oracle")
+        app = reference.load_app(name)
+        for o, w in reference.evaluate(app, stims[k]).items():
+            got = np.asarray(outs["io_chunk"][k][tuple(r.placement[o])],
+                             np.int64)
+            if not np.array_equal(got, w):
+                raise AssertionError(f"two_layer lane {k} ({name}) {o} != "
+                                     f"the reference")
+    rec["lanes"], rec["cycles"] = len(lanes), T
+    return rec, fabric
+
+
 # ------------------------------------------------------------ kernel checks
 def random_workload(fabric, batch, seed):
     """``dse._random_fabric_workload``'s draws on the given fabric: random
@@ -1057,9 +1183,11 @@ def random_workload(fabric, batch, seed):
 
 
 def fused_workload(fabric, device, batch):
-    """The fused kernels' inputs at ``fabric``'s size: ``batch`` random
-    configurations (``random_workload``), random PE programs, cycle 0's
-    pinned values. Returns (batch_args, run_args, run_kw, depths)."""
+    """The fused kernels' inputs at ``fabric``'s size and PE layout:
+    ``batch`` random configurations (``random_workload``), random PE
+    programs (over the predicate ops too where the PEs have the 1-bit
+    inputs), cycle 0's pinned values. Returns (batch_args, run_args,
+    run_kw, depths)."""
     from repro_torch.core.lowering import WORD
     from repro_torch.kernels import fabric_step as fs
 
@@ -1068,7 +1196,8 @@ def fused_workload(fabric, device, batch):
     sel = fabric._selects(torch.as_tensor(cfgs, device=device))
     rng = np.random.default_rng(1)
     p = fabric.fused_tables["num_pe_slots"]
-    pe_cfg = {"op": rng.integers(0, len(fs.PE_OPS), (batch, p)),
+    n_ops = len(fs.PE_OPS) + (len(fs.PRED_OPS) if fabric.pred else 0)
+    pe_cfg = {"op": rng.integers(0, n_ops, (batch, p)),
               "const": rng.integers(0, 1 << 16, (batch, p)),
               "imm_mask": rng.random((batch, p, 4)) < 0.2,
               "imm_val": rng.integers(0, 1 << 16, (batch, p, 4))}
@@ -1130,23 +1259,26 @@ def local_share(batch_args, cluster, ordered=True):
     return local / total
 
 
-def fused_shape(kernel, n, p, depths, max_depth, cycles, ms):
-    """The fused rows' variant and sweep counts: ``sweeps`` is the
-    deepest lane's sweeps a launch (lanes run side by side), ``lane_sweeps``
-    their sum."""
+def fused_shape(kernel, n, p, pred, depths, max_depth, cycles, ms):
+    """The fused rows' variant (``pred``: PEs with the 1-bit inputs) and
+    sweep counts: ``sweeps`` is the deepest lane's sweeps a launch (lanes
+    run side by side), ``lane_sweeps`` their sum."""
     from repro_torch.kernels import fabric_step as fs
 
-    cluster = fs.fused_cluster(n, p)
+    cluster = fs.fused_cluster(n, p, pred)
     run = np.minimum(np.maximum(depths, 0), max_depth)
     sweeps = cycles * int(run.max())
     return {"variant": cluster or "global",
-            "active_clusters": (fs.active_clusters(kernel, n, p, cluster)
+            "active_clusters": (fs.active_clusters(kernel, n, p, cluster,
+                                                   pred)
                                 if cluster else None),
             "sweeps": sweeps, "lane_sweeps": cycles * int(run.sum()),
             "us_per_sweep": ms * 1e3 / max(sweeps, 1)}
 
 
-def fabric_kernel_rows(fabric, device, batch):
+def fabric_kernel_rows(fabric, device, batch, path="main"):
+    """The two fused rows at ``fabric``'s size and PE layout, their
+    launches read from ``path``'s phase."""
     from repro_torch.kernels import fabric_step as fs
 
     batch_args, run_args, run_kw, depths_np = fused_workload(fabric, device,
@@ -1154,10 +1286,12 @@ def fabric_kernel_rows(fabric, device, batch):
     max_depth = run_kw["max_depth"]
     n = fabric.arrays.num_nodes
     p = fabric.fused_tables["num_pe_slots"]
-    cluster = fs.fused_cluster(n, p)
+    pred = fabric.pred
+    cluster = fs.fused_cluster(n, p, pred)
+    # local_share reads the two-output record layout only
     share = ({"ordered": local_share(batch_args, cluster),
               "ir_order": local_share(batch_args, cluster, ordered=False)}
-             if cluster else None)
+             if cluster and not pred else None)
     bkw = dict(max_depth=max_depth, word=run_kw["word"])
 
     rows = []
@@ -1171,7 +1305,7 @@ def fabric_kernel_rows(fabric, device, batch):
     b_ms, b_by = bound(nbytes(*batch_args[1:]) + nbytes(got), sweeps * n)
     ms = graph_ms(lambda: fs.fabric_fused_batch(*batch_args, **bkw), 20)
     rows.append({
-        "name": "fabric_fused_batch", "route": "cuda",
+        "name": "fabric_fused_batch", "route": "cuda", "path": path,
         "source": "src/repro_torch/kernels/csrc/fabric_step.cu",
         "replaces": "src/repro/kernels/fabric_step.py:324",
         "max_abs_err": err, "ms": ms,
@@ -1182,9 +1316,10 @@ def fabric_kernel_rows(fabric, device, batch):
         "timing": "graph",
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": {"B": batch, "N": n, "F": fabric.arrays.max_fanin,
-                  "P": p, "max_depth": max_depth,
+                  "P": p, "pe_inputs": int(batch_args[11].shape[1]),
+                  "max_depth": max_depth,
                   "depths": depths_np.tolist(), "local_share": share,
-                  **fused_shape("fabric_fused_batch", n, p, depths_np,
+                  **fused_shape("fabric_fused_batch", n, p, pred, depths_np,
                                 max_depth, 1, ms)}})
 
     got = fs.fabric_fused_run(*run_args, chunk=IO_CHUNK, **run_kw)
@@ -1197,7 +1332,7 @@ def fabric_kernel_rows(fabric, device, batch):
     ms = graph_ms(lambda: fs.fabric_fused_run(*run_args, chunk=IO_CHUNK,
                                               **run_kw), 5)
     rows.append({
-        "name": "fabric_fused_run", "route": "cuda",
+        "name": "fabric_fused_run", "route": "cuda", "path": path,
         "source": "src/repro_torch/kernels/csrc/fabric_step.cu",
         "replaces": "src/repro/kernels/fabric_step.py:519",
         "max_abs_err": err, "ms": ms,
@@ -1210,7 +1345,7 @@ def fabric_kernel_rows(fabric, device, batch):
         "shape": {"B": batch, "T": T, "N": n, "n_io": fabric.num_io,
                   "R": run_kw["n_reg"], "M": fabric.num_mem,
                   "max_depth": max_depth, "local_share": share,
-                  **fused_shape("fabric_fused_run", n, p, depths_np,
+                  **fused_shape("fabric_fused_run", n, p, pred, depths_np,
                                 max_depth, T, ms)}})
     return rows
 
@@ -2629,6 +2764,9 @@ def drive(spec, device, t_start, earlier):
     }
     # 8. the ready-valid fabric at FULL
     results["rv"], rv_cases = phase("rv", rv_phase, spec, device)
+    # 8b. the two-layer array: 1-bit nets, the predicate PE layout
+    results["two_layer"], pred_fabric = phase("two_layer", two_layer_phase,
+                                              device)
     for name, need in (("minplus", "minplus_step"),
                        ("batched", "net_bboxes")):
         if name in results["search"]["strategies"] and \
@@ -2667,6 +2805,10 @@ def drive(spec, device, t_start, earlier):
 
     # 11. every kernel against its plain version at its path's shapes
     rows = fabric_kernel_rows(fab.fabric(), device, batch=len(routed))
+    rows.extend(fabric_kernel_rows(
+        pred_fabric, device, batch=results["two_layer"]["lanes"],
+        path="two_layer"))
+    del pred_fabric
     rows.append(minplus_row(fab, device))
     rows.append(bbox_row(routed, device, earlier))
     rows.extend(sweep_rows(fab, routed, device, earlier))
@@ -2686,7 +2828,7 @@ def drive(spec, device, t_start, earlier):
     # 13. the port's examples on the card
     examples = phase("examples", examples_phase, device)
     for row in rows:
-        row["path"] = KERNEL_PATH.get(row["name"], "main")
+        row.setdefault("path", KERNEL_PATH.get(row["name"], "main"))
         row["launches"] = phases[row["path"]]["launches"].get(row["name"],
                                                               0)
     for row in rows:
@@ -2723,6 +2865,7 @@ def drive(spec, device, t_start, earlier):
                                  "executor": search["stats"]["executor"]}},
                      default=str))
     print(json.dumps({"rv": results["rv"]}))
+    print(json.dumps({"two_layer": results["two_layer"]}))
     print(json.dumps({"lm_score": score}))
     print(json.dumps({"lm_serve": served}))
     print(json.dumps({"lm_smoke_kernels": smoke}))

@@ -43,14 +43,19 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.obs import span
-from repro_torch.kernels.fabric_step import PE_OPS, pe_alu_candidates
+from repro_torch.kernels.fabric_step import (PE_INPUTS, PE_OPS, PRED_OPS,
+                                             pe_results)
 
 from .graph import Interconnect, Node, NodeKind
-from .tiles import IOCore, MemCore, PECore, WORD
+from .tiles import (IO_BIT_IN, IO_BIT_OUT, PE_BIT_INPUTS, PE_BIT_OUTPUT,
+                    IOCore, MemCore, PECore, WORD)
 
-assert PECore.OPS == PE_OPS, \
-    "fabric_step.PE_OPS must mirror PECore.OPS (shared PE ALU datapath)"
+assert PECore.OPS == PE_OPS and PECore.PRED_OPS == PRED_OPS, \
+    "fabric_step's op tables must mirror PECore's (shared PE ALU datapath)"
 PE_OP_IDS = {op: i for i, op in enumerate(PECore.OPS)}
+#: the predicate PE's ops, after ``PE_OP_IDS``: only a fabric with a
+#: 1-bit layer (``FabricModule.pred``) runs them
+PRED_OP_IDS = {op: len(PE_OP_IDS) + i for i, op in enumerate(PRED_OPS)}
 
 DepthSpec = Union[int, np.ndarray, torch.Tensor]
 State = Dict[str, torch.Tensor]
@@ -163,44 +168,84 @@ class FabricModule:
             dtype=np.int32)
 
     def _build_cores(self) -> None:
-        """Vectorized core models: PEs and IOs (MEM modeled as delay reg)."""
-        pe_in: List[List[int]] = []     # (n_pe, 4) input port node ids
-        pe_out: List[List[int]] = []    # (n_pe, 2) output port node ids
+        """Vectorized core models: PEs and IOs (MEM modeled as delay reg).
+
+        Every layer materializes every core port; each port's node is the
+        one in its own width's layer. With a 1-bit layer (``pred``) a PE
+        reads data0-3 then bit0-2 (``pe_in`` (n_pe, 7)) and writes res0,
+        res1 and res_p (``pe_out`` (n_pe, 3)), and each IO tile is two
+        IO columns, its data pair first (every tile's) and its 1-bit pair
+        after (``io_ports`` names each column's drive and observed
+        ports)."""
+        pe_in: List[List[int]] = []     # (n_pe, K) input port node ids
+        pe_out: List[List[int]] = []    # (n_pe, O) output port node ids
         self.pe_coords: List[Tuple[int, int]] = []
-        io_in_nodes: List[int] = []     # io_out ports (externally driven)
-        io_out_nodes: List[int] = []    # io_in ports (externally observed)
-        self.io_coords: List[Tuple[int, int]] = []
+        io_tiles: List[Tuple[int, int, object]] = []
         mem_in: List[int] = []
         mem_out: List[int] = []
 
         sentinel = self.arrays.num_nodes
+        graphs = self.ic.graphs
+
+        def port(x: int, y: int, core, name: str) -> int:
+            width = next(p.width for p in core.ports if p.name == name)
+            return self.node_id[graphs[width].get_port(x, y, name)]
+
+        self.pred = False
         seen = set()
-        for g in self.ic.graphs.values():
+        for g in graphs.values():
             for (x, y), tile in sorted(g.tiles.items()):
                 if tile.core is None or (x, y) in seen:
                     continue
                 seen.add((x, y))
                 core = tile.core
                 if isinstance(core, PECore):
-                    ins = [self.node_id[tile.get_port(f"data{i}")]
+                    ins = [port(x, y, core, f"data{i}")
                            for i in range(core.num_inputs)]
-                    ins += [sentinel] * (4 - len(ins))
-                    outs = [self.node_id[tile.get_port(f"res{i}")]
+                    ins = (ins + [sentinel] * (PE_INPUTS - len(ins))
+                           )[:PE_INPUTS]
+                    outs = [port(x, y, core, f"res{i}")
                             for i in range(core.num_outputs)]
-                    pe_in.append(ins[:4])
+                    if core.pred:
+                        if core.num_outputs != 2:
+                            raise ValueError(
+                                "a PE with the 1-bit ports has res0 and "
+                                "res1 beside res_p: pe_outputs must be 2, "
+                                f"got {core.num_outputs}")
+                        self.pred = True
+                        ins += [port(x, y, core, p) for p in PE_BIT_INPUTS]
+                        outs.append(port(x, y, core, PE_BIT_OUTPUT))
+                    pe_in.append(ins)
                     pe_out.append(outs)
                     self.pe_coords.append((x, y))
                 elif isinstance(core, IOCore):
-                    io_in_nodes.append(self.node_id[tile.get_port("io_out")])
-                    io_out_nodes.append(self.node_id[tile.get_port("io_in")])
-                    self.io_coords.append((x, y))
+                    io_tiles.append((x, y, core))
                 elif isinstance(core, MemCore):
-                    mem_in.append(self.node_id[tile.get_port("wdata")])
-                    mem_out.append(self.node_id[tile.get_port("rdata")])
+                    mem_in.append(port(x, y, core, "wdata"))
+                    mem_out.append(port(x, y, core, "rdata"))
+        io_pairs = [("io_out", "io_in")]    # (externally driven, observed)
+        if any(p.name == IO_BIT_OUT for _, _, core in io_tiles
+               for p in core.ports):
+            io_pairs.append((IO_BIT_OUT, IO_BIT_IN))
+        self.io_coords: List[Tuple[int, int]] = []
+        #: each IO column's (externally driven, observed) port names
+        self.io_ports: List[Tuple[str, str]] = []
+        io_in_nodes: List[int] = []     # driven ports (io_out, io2f_1)
+        io_out_nodes: List[int] = []    # observed ports (io_in, f2io_1)
+        for pair in io_pairs:
+            for x, y, core in io_tiles:
+                io_in_nodes.append(port(x, y, core, pair[0]))
+                io_out_nodes.append(port(x, y, core, pair[1]))
+                self.io_coords.append((x, y))
+                self.io_ports.append(pair)
 
-        self.pe_in = np.array(pe_in, dtype=np.int32).reshape(-1, 4)
+        k_in = len(pe_in[0]) if pe_in else PE_INPUTS
+        self.pe_in = np.array(pe_in, dtype=np.int32).reshape(-1, k_in)
         self.pe_out = (np.array(pe_out, dtype=np.int32)
                        if pe_out else np.zeros((0, 2), np.int32))
+        #: each IO column's drive mask: its driven port's width
+        self.io_in_mask = np.array(
+            [self.width_mask[i] for i in io_in_nodes], np.int32)
         self.io_in_nodes = np.array(io_in_nodes, dtype=np.int32)
         self.io_out_nodes = np.array(io_out_nodes, dtype=np.int32)
         self.mem_in = np.array(mem_in, dtype=np.int32)
@@ -217,13 +262,14 @@ class FabricModule:
         a = self.arrays
         n = a.num_nodes
         p = max(self.num_pe, 1)
-        pe_in = np.full((p, 4), n, dtype=np.int32)
+        outs = 3 if self.pred else 2
+        pe_in = np.full((p, self.pe_in.shape[1]), n, dtype=np.int32)
         if self.num_pe:
             pe_in[:self.num_pe] = self.pe_in
-        pe_res_idx = np.full(n, 2 * p, dtype=np.int32)
+        pe_res_idx = np.full(n, outs * p, dtype=np.int32)
         for k in range(self.num_pe):
             for col in range(self.pe_out.shape[1]):
-                pe_res_idx[self.pe_out[k, col]] = 2 * k + col
+                pe_res_idx[self.pe_out[k, col]] = outs * k + col
         pin_mask = np.zeros(n, dtype=np.int32)
         if len(a.reg_ids):
             pin_mask[a.reg_ids] = 1
@@ -380,19 +426,16 @@ class FabricModule:
     def _eval_pes(self, vals_ext: torch.Tensor, pe: State) -> None:
         """PE cores on (B, N+1) values, in place: each PE's outputs
         written from its inputs (sentinel-padded inputs read the zero at
-        N) under a ``_pe_program``."""
+        N) under a ``_pe_program``: res0 the ALU result, res1 data0
+        passed through, res_p the result's low bit."""
         if self.num_pe == 0:
             return
-        ins = vals_ext[:, self._dev("pe_in_raw", self.pe_in)]  # (B, P, 4)
-        if "imm_mask" in pe:
-            ins = torch.where(pe["imm_mask"], pe["imm_val"], ins)
-        a, b_, c = ins[..., 0], ins[..., 1], ins[..., 2]
-        candidates = pe_alu_candidates(a, b_, c, pe["const"])  # (ops, B, P)
+        ins = vals_ext[:, self._dev("pe_in_raw", self.pe_in)]  # (B, P, K)
+        res = pe_results(ins, pe.get("imm_mask"), pe.get("imm_val"),
+                         pe["op"][0], pe["const"], WORD)
         out_ids = self._dev("pe_out", self.pe_out)
-        vals_ext[:, out_ids[:, 0]] = torch.gather(candidates, 0,
-                                                  pe["op"])[0] & WORD
-        if self.pe_out.shape[1] > 1:           # second output: pass-through
-            vals_ext[:, out_ids[:, 1]] = a & WORD
+        for col in range(min(self.pe_out.shape[1], len(res))):
+            vals_ext[:, out_ids[:, col]] = res[col]
 
     def _pin(self, v: torch.Tensor, state: State,
              ext_in: torch.Tensor) -> torch.Tensor:
@@ -674,11 +717,16 @@ class FabricModule:
                     t["pe_res_idx"], max_depth=max_depth, word=WORD)
             else:
                 from repro_torch.kernels import ref as kref
-                vals = kref.fabric_fused_batch_ref(
-                    pin_vals, sel, pin_vals, depths, op, const, imm_mask,
-                    imm_val, t["src"], t["keep"], t["pin_mask"], t["pe_in"],
-                    self._dev("pe_out", self.pe_out),
-                    max_depth=max_depth, word=WORD)
+                # no kernel, so no cluster holds a lane (as the kernel
+                # wrappers' own spans record it)
+                with span("emu.fused", cluster=0, nodes=a.num_nodes,
+                          kernel=False):
+                    vals = kref.fabric_fused_batch_ref(
+                        pin_vals, sel, pin_vals, depths, op, const,
+                        imm_mask, imm_val, t["src"], t["keep"],
+                        t["pin_mask"], t["pe_in"],
+                        self._dev("pe_out", self.pe_out),
+                        max_depth=max_depth, word=WORD)
         else:
             pe = self._pe_program(pe_cfg)
             vals = pin_vals

@@ -309,7 +309,13 @@ def _default_core_fn(spec: InterconnectSpec) -> CoreFn:
     return default_core_assigner(
         mem_columns=spec.mem_columns, io_ring=spec.io_ring,
         pe_inputs=spec.pe_inputs, pe_outputs=spec.pe_outputs,
-        width=spec.track_width)
+        width=spec.track_width, pred=has_bit_layer(spec))
+
+
+def has_bit_layer(spec: InterconnectSpec) -> bool:
+    """Whether ``spec`` routes a 1-bit layer beside its data tracks: its
+    PEs and IOs then have the 1-bit predicate ports (``core/tiles.py``)."""
+    return spec.track_width != 1 and 1 in spec.layers()
 
 
 # ---------------------------------------------------------------------------

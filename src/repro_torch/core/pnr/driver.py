@@ -114,11 +114,14 @@ def place_and_route(ic: Interconnect, app: AppGraph,
                                     seed=seed, strategy=place_strat,
                                     device=dev)
             try:
-                with span("pnr.route", alpha=alpha):
+                with span("pnr.route", alpha=alpha) as route_span:
                     routing = route_app(ic, packed, pl, max_iters=route_iters,
                                         res=resources, seed=seed,
                                         strategy=route_strategy,
                                         auto_min_tiles=auto_min_tiles)
+                    route_span.attrs["nets_1b"] = sum(
+                        resources.nodes[net.src].width == 1
+                        for net in routing.nets)
             except RoutingError as e:
                 last_err = str(e)
                 continue

@@ -13,6 +13,11 @@ from typing import Dict, List, Tuple
 from .app import AppGraph, AppInstance, Net
 
 
+#: the PE input ports with an immediate slot, and the slot of each: a
+#: constant packs into a data input only
+IMM_SLOTS = {"data0": 0, "data1": 1, "data2": 2, "data3": 3}
+
+
 @dataclass
 class PackedGraph:
     """Post-packing netlist: only placeable instances (pe/mem/io) remain;
@@ -32,11 +37,20 @@ def pack(app: AppGraph) -> PackedGraph:
     packed = PackedGraph(app=app)
     drop: Dict[str, Tuple[str, str]] = {}   # folded inst -> (host, port)
 
-    # 1. constants feeding exactly one PE input -> PE immediate
+    # 1. constants feeding exactly one PE input -> PE immediate; a PE input
+    # without an immediate slot (the 1-bit bit0-2) takes no constant
     for inst in app.instances.values():
         if inst.kind != "const":
             continue
         outs = app.fanout_of(inst.name)
+        for net in outs:
+            for sink, port in net.sinks:
+                if (app.instances[sink].kind == "pe"
+                        and port not in IMM_SLOTS):
+                    raise ValueError(
+                        f"constant {inst.name!r} feeds {sink}.{port}: PE "
+                        f"port {port!r} has no immediate slot (only "
+                        f"{', '.join(IMM_SLOTS)} do)")
         if len(outs) == 1 and len(outs[0].sinks) == 1:
             sink, port = outs[0].sinks[0]
             if app.instances[sink].kind == "pe":

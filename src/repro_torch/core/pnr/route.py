@@ -65,6 +65,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.graph import (Interconnect, Node, NodeKind)
+from repro_torch.core.tiles import IO_BIT_IN, IO_BIT_OUT
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.obs import span
 from .packing import PackedGraph
@@ -120,6 +121,30 @@ _MINPLUS_HOP_BIAS = 0.05
 # Port-name normalization for instances whose kind changed during packing
 # (unpacked registers become pass-through PEs).
 _PORT_ALIAS = {"out": "res0", "in": "data0"}
+
+
+def fabric_port(kind: str, port: str) -> str:
+    """The core port an app instance's net ``port`` lands on: an
+    ``io_in`` drives through the IO tile's ``io_out`` (or its 1-bit
+    ``io2f_1``), an ``io_out`` is driven on ``io_in`` (or ``f2io_1``);
+    other ports keep their names (``_PORT_ALIAS`` for unpacked
+    registers)."""
+    if kind == "io_in":
+        return port if port == IO_BIT_OUT else "io_out"
+    if kind == "io_out":
+        return port if port == IO_BIT_IN else "io_in"
+    return _PORT_ALIAS.get(port, port)
+
+
+def port_width(ic: Interconnect, x: int, y: int, name: str) -> int:
+    """The width of the core port ``name`` at tile (x, y): the layer its
+    net routes on."""
+    tile = ic.graph(ic.widths[-1]).get_tile(x, y)
+    core = tile.core if tile is not None else None
+    for p in (core.ports if core is not None else ()):
+        if p.name == name:
+            return p.width
+    raise RoutingError(f"no port {name} at tile ({x},{y})")
 
 
 class RoutingResources:
@@ -625,29 +650,35 @@ def route_app(ic: Interconnect, packed: PackedGraph,
               res: Optional[RoutingResources] = None,
               seed: int = 0, strategy: str = "python",
               auto_min_tiles: Optional[int] = None) -> RoutingResult:
-    """Route a packed+placed application on the interconnect."""
+    """Route a packed+placed application on the interconnect: each net on
+    the layer of its source port's width (a 1-bit net on the 1-bit
+    layer). A sink port of another width than its source's raises
+    ValueError."""
     if res is None:
         res = RoutingResources(ic)
-    track_width = ic.widths[-1]
 
-    def port_of(inst_name: str, port: str) -> int:
+    def port_of(inst_name: str, port: str) -> Tuple[int, int]:
         inst = packed.placeable[inst_name]
         x, y = placement[inst_name]
-        if inst.kind == "io_in":
-            pname = "io_out"
-        elif inst.kind == "io_out":
-            pname = "io_in"
-        else:
-            pname = _PORT_ALIAS.get(port, port)
-        return res.port(x, y, pname, track_width)
+        pname = fabric_port(inst.kind, port)
+        width = port_width(ic, x, y, pname)
+        return res.port(x, y, pname, width), width
 
     nets = []
     for net in packed.nets:
         if net.src[0] not in packed.placeable:
             continue
-        src = port_of(net.src[0], net.src[1])
-        sinks = [port_of(s, p) for s, p in net.sinks
-                 if s in packed.placeable]
+        src, width = port_of(net.src[0], net.src[1])
+        sinks = []
+        for s, p in net.sinks:
+            if s not in packed.placeable:
+                continue
+            sink, w = port_of(s, p)
+            if w != width:
+                raise ValueError(
+                    f"net {net.name}: {net.src[0]}.{net.src[1]} is "
+                    f"{width} bit(s) wide but its sink {s}.{p} is {w}")
+            sinks.append(sink)
         if not sinks:
             continue
         nets.append((net.name, src, sinks))

@@ -62,6 +62,11 @@ class RVFabric(FabricModule):
         self.fifo_mode = fifo_mode
         self.fifo_depth = 2 if fifo_mode == "full" else 1
         super().__init__(ic, device=device, use_kernels=use_kernels)
+        if self.pred:
+            raise ValueError(
+                "the ready-valid fabric models the data layer's PEs only: "
+                "an interconnect with a 1-bit layer (its PEs' bit0-2 and "
+                "res_p, its IOs' 1-bit pair) has no ready-valid lowering")
         self._build_reverse_tables()
         #: sweeps replayed from CUDA graphs (forward and backward) so far
         self.graph_replays = 0

@@ -15,19 +15,29 @@ import numpy as np
 import torch
 
 from repro_torch.core.graph import Node
-from repro_torch.core.lowering import FabricModule, PE_OP_IDS
+from repro_torch.core.lowering import FabricModule, PE_OP_IDS, PRED_OP_IDS
+from repro_torch.core.pnr.packing import IMM_SLOTS
+from repro_torch.core.pnr.route import fabric_port
 from repro_torch.obs import span
+
+Coord = Tuple[int, int]
 
 
 class AppEmulator:
-    """Binds a routed application to a fabric and runs it."""
+    """Binds a routed application to a fabric and runs it.
+
+    Inputs and outputs are keyed by IO tile. ``io_ports`` names the IO
+    ports the app uses at a tile where they are not the data pair
+    (``io_out`` driven, ``io_in`` observed), e.g. ``{(0, 3): ("io2f_1",)}``
+    for a 1-bit input: the tile's stimulus then drives that port, masked
+    to its width, and its observation reads it."""
 
     def __init__(self, fabric: FabricModule,
                  route_edges: Sequence[Tuple[Node, Node]],
-                 pe_ops: Dict[Tuple[int, int], Tuple[str, int]],
-                 pe_imms: Optional[Dict[Tuple[int, int],
-                                        Dict[int, int]]] = None,
-                 depth: Optional[int] = None):
+                 pe_ops: Dict[Coord, Tuple[str, int]],
+                 pe_imms: Optional[Dict[Coord, Dict[int, int]]] = None,
+                 depth: Optional[int] = None,
+                 io_ports: Optional[Dict[Coord, Sequence[str]]] = None):
         self.fabric = fabric
         self.config = torch.as_tensor(fabric.route_to_config(route_edges),
                                       device=fabric.device)
@@ -37,8 +47,15 @@ class AppEmulator:
         imm_mask = np.zeros((n, 4), np.int32)
         imm_val = np.zeros((n, 4), np.int32)
         coord_to_pe = {c: i for i, c in enumerate(fabric.pe_coords)}
+        op_ids = dict(PE_OP_IDS, **(PRED_OP_IDS if fabric.pred else {}))
         for coord, (op, const) in pe_ops.items():
-            ops[coord_to_pe[coord]] = PE_OP_IDS[op]
+            if op not in op_ids:
+                raise ValueError(
+                    f"PE op {op!r} at {coord}: "
+                    + ("it needs the PE's 1-bit ports, which a fabric "
+                       "without a 1-bit layer lacks" if op in PRED_OP_IDS
+                       else "not an op of the PE"))
+            ops[coord_to_pe[coord]] = op_ids[op]
             consts[coord_to_pe[coord]] = const
         for coord, ports in (pe_imms or {}).items():
             for port_idx, val in ports.items():
@@ -48,7 +65,23 @@ class AppEmulator:
                        for k, v in (("op", ops), ("const", consts),
                                     ("imm_mask", imm_mask),
                                     ("imm_val", imm_val))}
-        self.io_index = {c: i for i, c in enumerate(fabric.io_coords)}
+        #: each IO tile's drive column and observed column: its data pair's
+        #: (the first column of the tile), or those of ``io_ports``
+        self.in_index: Dict[Coord, int] = {}
+        self.io_index: Dict[Coord, int] = {}
+        column: Dict[Tuple[Coord, str], int] = {}
+        for i, (c, (drive, seen)) in enumerate(zip(fabric.io_coords,
+                                                   fabric.io_ports)):
+            self.in_index.setdefault(c, i)
+            self.io_index.setdefault(c, i)
+            column[c, drive] = column[c, seen] = i
+        drives = {d for d, _ in fabric.io_ports}
+        for c, ports in (io_ports or {}).items():
+            for p in ports:
+                if (c, p) not in column:
+                    raise ValueError(f"no IO port {p!r} at {c}")
+                index = self.in_index if p in drives else self.io_index
+                index[c] = column[c, p]
         # fixpoint sweeps: longest register-free chain of the routed tree
         # (replaces the conservative len(route_edges) + 4 bound)
         self.depth = (depth if depth is not None
@@ -59,26 +92,37 @@ class AppEmulator:
                  depth: Optional[int] = None) -> "AppEmulator":
         """Bind a PnRResult directly (packing-aware)."""
         with span("emu.bind"):
-            pe_ops: Dict[Tuple[int, int], Tuple[str, int]] = {}
-            pe_imms: Dict[Tuple[int, int], Dict[int, int]] = {}
+            pe_ops: Dict[Coord, Tuple[str, int]] = {}
+            pe_imms: Dict[Coord, Dict[int, int]] = {}
             for name, inst in packed.placeable.items():
                 if inst.kind != "pe":
                     continue
                 xy = result.placement[name]
                 pe_ops[xy] = (inst.op, inst.const)
                 for port, val in packed.const_ports.get(name, {}).items():
-                    pe_imms.setdefault(xy, {})[int(port[-1])] = val
+                    pe_imms.setdefault(xy, {})[IMM_SLOTS[port]] = val
+            io_ports: Dict[Coord, List[str]] = {}
+            for net in packed.nets:
+                for name, port in [net.src] + list(net.sinks):
+                    inst = packed.placeable.get(name)
+                    if inst is None or inst.kind not in ("io_in", "io_out"):
+                        continue
+                    io_ports.setdefault(tuple(result.placement[name]),
+                                        []).append(
+                        fabric_port(inst.kind, port))
             return cls(fabric, result.route_edges(), pe_ops, pe_imms,
-                       depth=depth)
+                       depth=depth, io_ports=io_ports)
 
     def ext_stream(self, inputs: Dict[Tuple[int, int], np.ndarray],
                    cycles: int) -> np.ndarray:
         """Dense (cycles, num_io) drive matrix; streams longer than the
-        emulation window are truncated."""
+        emulation window are truncated. A port takes each word's low bits
+        of its width (a 1-bit port the lowest)."""
         ext = np.zeros((cycles, self.fabric.num_io), np.int32)
         for coord, stream in inputs.items():
             stream = np.asarray(stream)[:cycles]
-            ext[:len(stream), self.io_index[coord]] = stream
+            col = self.in_index[coord]
+            ext[:len(stream), col] = stream & self.fabric.io_in_mask[col]
         return ext
 
     def run(self, inputs: Dict[Tuple[int, int], np.ndarray], cycles: int

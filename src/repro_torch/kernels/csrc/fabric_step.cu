@@ -11,7 +11,14 @@
 //   nv[i] = gather  : v[src[i, sel[i]]]          (v[N] is the zero sentinel)
 //   nv[i] = hold    : v[i]                       where keep[i]
 //   nv[i] = re-pin  : pin_vals[i]                where pin_mask[i]
-//   nv[i] = PE ALU  : res[pe_res_idx[i]]         where pe_res_idx[i] < 2P
+//   nv[i] = PE ALU  : res[pe_res_idx[i]]         where pe_res_idx[i] < OP
+//
+// A PE has O = 2 outputs (res0 = the ALU result & word, res1 = a & word)
+// read from pe_in's 4 columns (data0-3), or, on a fabric with a 1-bit
+// routing layer (pred), O = 3 outputs (res_p = the ALU result & 1) read
+// from 7 columns (data0-3, bit0-2); the ALU's predicate ops read bit0 and
+// bit1. Both layouts are template instances (kPred), so the plain layout
+// compiles to what it was before the 1-bit inputs existed.
 //
 // A PE output node evaluates its PE from the gathered-and-pinned values of
 // the PE's input nodes, which it reads from the previous vector itself.
@@ -30,7 +37,8 @@
 // fused_cluster), never on a failure:
 //
 // Cluster (a lane fits a cluster's shared memory: 16 ceil((N + 1) / C) +
-// 64 P + 16 <= 227 KB with C <= 8 blocks on an H100). One thread block
+// 64 P + 16 <= 227 KB, 144 P with the 1-bit inputs, with C <= 8 blocks on
+// an H100). One thread block
 // cluster per lane, launched with cudaLaunchKernelEx; clusters that do not
 // fit the card at once queue, as no cluster waits on another. The lane's
 // N + 1 node slots are split over the cluster's blocks in contiguous
@@ -52,9 +60,11 @@
 //                   src): where its value comes from, as (block rank,
 //                   slot) of the vector or of `pin`, or a PE record,
 //   rec             the records of the PE outputs among its slots, packed
-//                   (room for all 2P): the slot, the op, the constant and
+//                   (room for all OP): the slot, the op, the constant and
 //                   three operands (an immediate, or a resolved (rank,
-//                   slot)). Kept in global memory, their dependent loads
+//                   slot)); with the 1-bit inputs a third int4 holds the
+//                   bit0 and bit1 operands and the result's mask (1 for
+//                   res_p). Kept in global memory, their dependent loads
 //                   took ~60% of a sweep at FULL; evaluated inside the
 //                   node loop, a warp walked the PE path for one lane.
 // A sweep then costs a node one shared-memory descriptor read, one read of
@@ -84,8 +94,8 @@ struct Fabric {
     const int* src;         // (N, F)
     const int* keep;        // (N,)
     const int* pin_mask;    // (N,)
-    const int* pe_in;       // (P, 4), sentinel N
-    const int* pe_res_idx;  // (N,), 2P when not a PE output
+    const int* pe_in;       // (P, K), sentinel N; K = 4, or 7 with bits
+    const int* pe_res_idx;  // (N,), OP when not a PE output
     // per-lane programs
     const int* depths;      // (B,)
     const int* sel;         // (B, N)
@@ -113,6 +123,18 @@ struct Stream {
     int* pinv;              // (B, N)  global variant's scratch
     int* state;             // (B, S): [regs | io | mem | 0], global variant
     int T, n_reg, n_io, n_mem;
+};
+
+// A PE's layout: columns of pe_in, outputs, int4s of one output's record
+// in the cluster variant, and the shared memory its records take there
+// (fabric_step.py's PE_BYTES and PRED_PE_BYTES), without (false) or with
+// the 1-bit inputs.
+template <bool kPred>
+struct Pe {
+    static constexpr int kIn = kPred ? 7 : 4;
+    static constexpr int kOut = kPred ? 3 : 2;
+    static constexpr int kRec = kPred ? 3 : 2;
+    static constexpr int kBytes = 16 * kOut * kRec;
 };
 
 __device__ __forceinline__ int lane_sweeps(const Fabric& f, int b) {
@@ -144,7 +166,7 @@ struct Lane {
     int* pin;
     uint32_t* desc;
     uint32_t sval0, sval1, spin;  // shared-window addresses of the arrays
-    int4* rec;              // PE records of this block's outputs, 2 each
+    int4* rec;              // PE records of this block's outputs
     int* n_pe;              // their count
 };
 
@@ -152,6 +174,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+template <bool kPred>
 __device__ __forceinline__ Lane make_lane(const Fabric& f, int* smem) {
     cg::cluster_group cluster = cg::this_cluster();
     const int c = (int)cluster.num_blocks();
@@ -170,7 +193,7 @@ __device__ __forceinline__ Lane make_lane(const Fabric& f, int* smem) {
     l.sval1 = smem_addr(l.val1);
     l.spin = smem_addr(l.pin);
     l.rec = reinterpret_cast<int4*>(smem + 4 * l.chunk);
-    l.n_pe = smem + 4 * l.chunk + 16 * f.P;
+    l.n_pe = smem + 4 * l.chunk + Pe<kPred>::kBytes / 4 * f.P;
     return l;
 }
 
@@ -201,42 +224,57 @@ __device__ uint32_t gathered_operand(const Fabric& f, const Lane& l, int u) {
 
 // Node `node`'s descriptor: where its value comes from, or kSpecial for a
 // PE output, which the block's PE records compute.
+template <bool kPred>
 __device__ __forceinline__ uint32_t describe(const Fabric& f, const Lane& l,
                                              int node) {
-    if (__ldg(f.pe_res_idx + node) < 2 * f.P) return kSpecial;
+    if (__ldg(f.pe_res_idx + node) < Pe<kPred>::kOut * f.P) return kSpecial;
     return gathered_operand(f, l, node);
 }
 
 // The record of PE result r, placed in this block's `slot`: (slot and op
 // + 1 in bits 24-31, op -1 for res1 = a & word; the PE's constant) then
-// (operand, constant) for a, b and c.
+// (operand, constant) for a, b and c; with the 1-bit inputs then (bit0's
+// operand, bit1's operand, the result's mask: 1 for res_p, else word).
+template <bool kPred>
 __device__ void pe_record(const Fabric& f, const Lane& l, int r, int slot,
                           int4* rec) {
-    const int k = r >> 1;
+    using L = Pe<kPred>;
+    const int k = r / L::kOut, col = r - k * L::kOut;
     const size_t pk = (size_t)l.b * f.P + k;
     uint32_t o[3] = {kSpecial, kSpecial, kSpecial};
     int c[3] = {0, 0, 0};
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-        if (j > 0 && (r & 1)) break;          // res1 needs input a only
+        if (j > 0 && col == 1) break;         // res1 needs input a only
         if (__ldg(f.imm_mask + pk * 4 + j) > 0)
             c[j] = __ldg(f.imm_val + pk * 4 + j);
         else
-            o[j] = gathered_operand(f, l, __ldg(f.pe_in + k * 4 + j));
+            o[j] = gathered_operand(f, l, __ldg(f.pe_in + k * L::kIn + j));
     }
-    const int op = (r & 1) ? -1 : __ldg(f.op + pk);
+    const int op = col == 1 ? -1 : __ldg(f.op + pk);
     rec[0] = make_int4(slot | ((op + 1) << kRankShift), __ldg(f.cst + pk),
                        (int)o[0], c[0]);
     rec[1] = make_int4((int)o[1], c[1], (int)o[2], c[2]);
+    if (kPred) {
+        uint32_t p[2] = {kSpecial, kSpecial};
+        if (col != 1) {
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+                p[j] = gathered_operand(f, l,
+                                        __ldg(f.pe_in + k * L::kIn + 4 + j));
+        }
+        rec[2] = make_int4((int)p[0], (int)p[1], col == 2 ? 1 : f.word, 0);
+    }
 }
 
 // Slot k's descriptor; a PE output also appends its record to the block's.
+template <bool kPred>
 __device__ __forceinline__ uint32_t prepare(const Fabric& f, const Lane& l,
                                             int node, int k) {
-    const uint32_t d = describe(f, l, node);
+    const uint32_t d = describe<kPred>(f, l, node);
     if (d == kSpecial)
-        pe_record(f, l, __ldg(f.pe_res_idx + node), k,
-                  l.rec + 2 * atomicAdd(l.n_pe, 1));
+        pe_record<kPred>(f, l, __ldg(f.pe_res_idx + node), k,
+                         l.rec + Pe<kPred>::kRec * atomicAdd(l.n_pe, 1));
     return d;
 }
 
@@ -275,21 +313,31 @@ __device__ __forceinline__ int32_t operand(int o, int c, uint32_t sval,
 // 32 PEs at once rather than one among 31 idle lanes, while the other
 // warps start on the nodes), then the other nodes; one cluster barrier a
 // sweep. Returns the buffer that holds the result.
+template <bool kPred>
 __device__ int fixpoint(const Fabric& f, const Lane& l, int sweeps) {
     cg::cluster_group cluster = cg::this_cluster();
     const int step = kUnroll * (int)blockDim.x;
     const int n_pe = *l.n_pe;
+    constexpr int kRec = Pe<kPred>::kRec;
     for (int t = 0; t < sweeps; ++t) {
         const uint32_t sv = (t & 1) ? l.sval1 : l.sval0;
         int* to = (t & 1) ? l.val0 : l.val1;
         for (int j = threadIdx.x; j < n_pe; j += blockDim.x) {
-            const int4 h = l.rec[2 * j];       // slot | op, const, a
-            const int4 g = l.rec[2 * j + 1];   // b, c
+            const int4 h = l.rec[kRec * j];       // slot | op, const, a
+            const int4 g = l.rec[kRec * j + 1];   // b, c
             const int op = ((uint32_t)h.x >> kRankShift) - 1;  // -1: res1
-            to[h.x & kSlot] = pe_alu(op, operand(h.z, h.w, sv, l.spin),
-                                     operand(g.x, g.y, sv, l.spin),
-                                     operand(g.z, g.w, sv, l.spin), h.y) &
-                              f.word;
+            int32_t p0 = 0, p1 = 0, mask = f.word;
+            if (kPred) {                          // bit0, bit1, mask
+                const int4 q = l.rec[kRec * j + 2];
+                p0 = operand(q.x, 0, sv, l.spin);
+                p1 = operand(q.y, 0, sv, l.spin);
+                mask = q.z;
+            }
+            to[h.x & kSlot] =
+                pe_alu<kPred>(op, operand(h.z, h.w, sv, l.spin),
+                              operand(g.x, g.y, sv, l.spin),
+                              operand(g.z, g.w, sv, l.spin), p0, p1, h.y) &
+                mask;
         }
         for (int k0 = threadIdx.x; k0 < l.nodes; k0 += step) {
             uint32_t d[kUnroll];
@@ -313,11 +361,12 @@ __device__ int fixpoint(const Fabric& f, const Lane& l, int sweeps) {
     return sweeps & 1;
 }
 
+template <bool kPred>
 __global__ void __launch_bounds__(kClusterThreads, 1)
 cluster_batch_kernel(Fabric f, const int* vals0, int* out) {
     extern __shared__ int smem[];
     cg::cluster_group cluster = cg::this_cluster();
-    const Lane l = make_lane(f, smem);
+    const Lane l = make_lane<kPred>(f, smem);
     const size_t row = (size_t)l.b * f.N;
     if (threadIdx.x == 0) *l.n_pe = 0;
     __syncthreads();
@@ -326,7 +375,7 @@ cluster_batch_kernel(Fabric f, const int* vals0, int* out) {
         const int pos = l.lo + k;
         if (pos < f.N) {
             const int node = node_at(f, pos);
-            l.desc[k] = prepare(f, l, node, k);
+            l.desc[k] = prepare<kPred>(f, l, node, k);
             l.val0[k] = vals0[row + node];
             l.pin[k] = f.pinv[row + node];
         } else if (pos == f.N) {
@@ -335,7 +384,8 @@ cluster_batch_kernel(Fabric f, const int* vals0, int* out) {
         }
     }
     cluster.sync();
-    const int* res = fixpoint(f, l, lane_sweeps(f, l.b)) ? l.val1 : l.val0;
+    const int* res =
+        fixpoint<kPred>(f, l, lane_sweeps(f, l.b)) ? l.val1 : l.val0;
     // after the last barrier only this block's own slots are read
     for (int k = threadIdx.x; k < l.nodes; k += blockDim.x)
         out[row + node_at(f, l.lo + k)] = res[k];
@@ -360,11 +410,12 @@ __device__ __forceinline__ int32_t slot_value(const Fabric& f,
     return 0;
 }
 
+template <bool kPred>
 __global__ void __launch_bounds__(kClusterThreads, 1)
 cluster_run_kernel(Fabric f, Stream s) {
     extern __shared__ int smem[];
     cg::cluster_group cluster = cg::this_cluster();
-    const Lane l = make_lane(f, smem);
+    const Lane l = make_lane<kPred>(f, smem);
     const int first = (int)cluster.block_rank() * blockDim.x + threadIdx.x;
     const int stride = (int)cluster.num_blocks() * blockDim.x;
     if (threadIdx.x == 0) *l.n_pe = 0;
@@ -373,7 +424,7 @@ cluster_run_kernel(Fabric f, Stream s) {
     for (int k = threadIdx.x; k < l.chunk; k += blockDim.x) {
         const int pos = l.lo + k;
         if (pos < f.N) {
-            l.desc[k] = prepare(f, l, node_at(f, pos), k);
+            l.desc[k] = prepare<kPred>(f, l, node_at(f, pos), k);
         } else if (pos == f.N) {
             l.val0[k] = 0;
             l.val1[k] = 0;
@@ -394,7 +445,7 @@ cluster_run_kernel(Fabric f, Stream s) {
         for (int k = threadIdx.x; k < l.nodes; k += blockDim.x)
             l.val0[k] = l.pin[k];
         cluster.sync();
-        sres = fixpoint(f, l, sweeps) ? l.sval1 : l.sval0;
+        sres = fixpoint<kPred>(f, l, sweeps) ? l.sval1 : l.sval0;
         for (int j = first; j < s.n_io; j += stride)
             s.obs[((size_t)l.b * s.T + c) * s.n_io + j] =
                 load(locate(f, l, __ldg(s.io_out + j)), sres, 0);
@@ -402,19 +453,19 @@ cluster_run_kernel(Fabric f, Stream s) {
     cluster.sync();      // no block leaves while another reads its slots
 }
 
-// Shared memory of one block: four words a slot, 32 B a PE record (room
-// for all 2P), the record count.
-size_t cluster_smem(int n, int p, int cluster) {
-    return (size_t)16 * (size_t)((n + cluster) / cluster) + (size_t)64 * p +
-           16;
+// Shared memory of one block: four words a slot, the PE records (room for
+// all P), the record count.
+size_t cluster_smem(int n, int p, int pred, int cluster) {
+    return (size_t)16 * (size_t)((n + cluster) / cluster) +
+           (size_t)(pred ? Pe<true>::kBytes : Pe<false>::kBytes) * p + 16;
 }
 
 template <typename... Params>
 cudaError_t cluster_config(void (*kernel)(Params...), int B, int N, int P,
-                           int cluster, cudaStream_t stream,
+                           int pred, int cluster, cudaStream_t stream,
                            cudaLaunchConfig_t* cfg,
                            cudaLaunchAttribute* attr) {
-    const size_t smem = cluster_smem(N, P, cluster);
+    const size_t smem = cluster_smem(N, P, pred, cluster);
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err == cudaSuccess && cluster > 8)
@@ -435,12 +486,12 @@ cudaError_t cluster_config(void (*kernel)(Params...), int B, int N, int P,
 }
 
 template <typename... Params, typename... Args>
-int launch_cluster(void (*kernel)(Params...), int B, int N, int P,
+int launch_cluster(void (*kernel)(Params...), int B, int N, int P, int pred,
                    int cluster, cudaStream_t stream, Args... args) {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
-    cudaError_t err = cluster_config(kernel, B, N, P, cluster, stream, &cfg,
-                                     &attr);
+    cudaError_t err = cluster_config(kernel, B, N, P, pred, cluster, stream,
+                                     &cfg, &attr);
     if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, kernel, args...);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
@@ -463,22 +514,31 @@ __device__ __forceinline__ int32_t gathered(const Fabric& f, const int* v,
     return v[f.picked[bi]];
 }
 
+template <bool kPred>
 __device__ __forceinline__ int32_t node_update(const Fabric& f, const int* v,
                                                int b, int i) {
+    using L = Pe<kPred>;
     const int r = f.pe_res_idx[i];
-    if (r >= 2 * f.P) return gathered(f, v, b, i);
-    const int k = r >> 1;
+    if (r >= L::kOut * f.P) return gathered(f, v, b, i);
+    const int k = r / L::kOut, col = r - k * L::kOut;
     const size_t pk = (size_t)b * f.P + k;
     int32_t ins[3];
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
         ins[j] = f.imm_mask[pk * 4 + j] > 0
                      ? f.imm_val[pk * 4 + j]
-                     : gathered(f, v, b, f.pe_in[k * 4 + j]);
-        if (r & 1) break;                 // res1 = a & word needs a only
+                     : gathered(f, v, b, f.pe_in[k * L::kIn + j]);
+        if (col == 1) break;              // res1 = a & word needs a only
     }
-    if (r & 1) return ins[0] & f.word;
-    return pe_alu(f.op[pk], ins[0], ins[1], ins[2], f.cst[pk]) & f.word;
+    if (col == 1) return ins[0] & f.word;
+    int32_t p0 = 0, p1 = 0;
+    if (kPred) {
+        p0 = gathered(f, v, b, f.pe_in[k * L::kIn + 4]);
+        p1 = gathered(f, v, b, f.pe_in[k * L::kIn + 5]);
+    }
+    return pe_alu<kPred>(f.op[pk], ins[0], ins[1], ins[2], p0, p1,
+                         f.cst[pk]) &
+           (col == 2 ? 1 : f.word);
 }
 
 // picked[b, i] = src[i, sel[b, i]] (sweep-invariant).
@@ -497,6 +557,7 @@ __device__ void pick_sources(const Fabric& f) {
 // (sweeps(b) & 1). Threads stride over the flat (lane, node) space. A lane
 // that is done still reaches every grid.sync() (a return would deadlock
 // the grid); it just stops swapping buffers.
+template <bool kPred>
 __device__ void grid_fixpoint(cg::grid_group& grid, const Fabric& f) {
     const int total = f.B * f.N;
     const int stride = gridDim.x * blockDim.x;
@@ -508,12 +569,13 @@ __device__ void grid_fixpoint(cg::grid_group& grid, const Fabric& f) {
             const int i = idx - b * f.N;
             if (t < lane_sweeps(f, b))
                 lane_buf(f, from ^ 1, b)[i] =
-                    node_update(f, lane_buf(f, from, b), b, i);
+                    node_update<kPred>(f, lane_buf(f, from, b), b, i);
         }
         grid.sync();
     }
 }
 
+template <bool kPred>
 __global__ void __launch_bounds__(kThreads)
 grid_batch_kernel(Fabric f, const int* vals0, int* out) {
     cg::grid_group grid = cg::this_grid();
@@ -527,7 +589,7 @@ grid_batch_kernel(Fabric f, const int* vals0, int* out) {
     }
     pick_sources(f);
     grid.sync();
-    grid_fixpoint(grid, f);
+    grid_fixpoint<kPred>(grid, f);
     for (size_t idx = first; idx < (size_t)f.B * f.N; idx += stride) {
         const int b = (int)(idx / f.N);
         const int i = (int)(idx % f.N);
@@ -535,6 +597,7 @@ grid_batch_kernel(Fabric f, const int* vals0, int* out) {
     }
 }
 
+template <bool kPred>
 __global__ void __launch_bounds__(kThreads)
 grid_run_kernel(Fabric f, Stream s) {
     cg::grid_group grid = cg::this_grid();
@@ -566,7 +629,7 @@ grid_run_kernel(Fabric f, Stream s) {
             lane_buf(f, 0, b)[i] = pv;
         }
         grid.sync();
-        grid_fixpoint(grid, f);
+        grid_fixpoint<kPred>(grid, f);
         // observe, then clock registers / memories and load the next
         // cycle's stimulus
         for (size_t idx = first; idx < (size_t)f.B * S; idx += stride) {
@@ -622,38 +685,79 @@ Fabric make_fabric(const int* depths, const int* sel, const int* op,
     return f;
 }
 
+template <bool kPred>
+int fused_batch(const Fabric& f, const int* vals0, int* out, int cluster,
+                cudaStream_t stream) {
+    if (cluster > 0)
+        return launch_cluster(cluster_batch_kernel<kPred>, f.B, f.N, f.P,
+                              (int)kPred, cluster, stream, f, vals0, out);
+    int blocks = 0;
+    int err = cooperative_grid(grid_batch_kernel<kPred>,
+                               (size_t)f.B * (f.N + 1), &blocks);
+    if (err) return err;
+    Fabric fa = f;
+    void* args[] = {&fa, &vals0, &out};
+    cudaLaunchCooperativeKernel((void*)grid_batch_kernel<kPred>, dim3(blocks),
+                                dim3(kThreads), args, 0, stream);
+    return (int)cudaGetLastError();
+}
+
+template <bool kPred>
+int fused_run(const Fabric& f, const Stream& s, int cluster,
+              cudaStream_t stream) {
+    if (cluster > 0)
+        return launch_cluster(cluster_run_kernel<kPred>, f.B, f.N, f.P,
+                              (int)kPred, cluster, stream, f, s);
+    int blocks = 0;
+    int err = cooperative_grid(grid_run_kernel<kPred>,
+                               (size_t)f.B * (f.N + 1), &blocks);
+    if (err) return err;
+    Fabric fa = f;
+    Stream sa = s;
+    void* args[] = {&fa, &sa};
+    cudaLaunchCooperativeKernel((void*)grid_run_kernel<kPred>, dim3(blocks),
+                                dim3(kThreads), args, 0, stream);
+    return (int)cudaGetLastError();
+}
+
+template <typename Kernel>
+cudaError_t max_clusters(Kernel kernel, int N, int P, int pred, int cluster,
+                         int* active) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cudaError_t err = cluster_config(kernel, 1, N, P, pred, cluster, 0, &cfg,
+                                     &attr);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveClusters(active, (const void*)kernel,
+                                             &cfg);
+    return err;
+}
+
 }  // namespace
 
 // cluster > 0: the cluster variant with `cluster` blocks a lane, nodes
 // placed in slots by node_of / slot_of (no scratch); cluster == 0: the
-// global variant (scratch: buf, picked).
+// global variant (scratch: buf, picked). pred: pe_in has the 1-bit inputs
+// (7 columns) and a PE three outputs.
 extern "C" int canal_fabric_fused_batch(
     const int* depths, const int* vals0, const int* sel, const int* pin_vals,
     const int* op, const int* cst, const int* imm_mask, const int* imm_val,
     const int* src, const int* keep, const int* pin_mask, const int* pe_in,
     const int* pe_res_idx, const int* node_of, const int* slot_of, int* out,
-    int* buf, int* picked, int B, int N, int F, int P,
+    int* buf, int* picked, int B, int N, int F, int P, int pred,
     int max_depth, int word, int cluster, void* stream) {
     Fabric f = make_fabric(depths, sel, op, cst, imm_mask, imm_val, src, keep,
                            pin_mask, pe_in, pe_res_idx, node_of, slot_of, buf,
                            picked, pin_vals, B, N, F, P, max_depth, word);
-    if (cluster > 0)
-        return launch_cluster(cluster_batch_kernel, B, N, P, cluster,
-                              (cudaStream_t)stream, f, vals0, out);
-    int blocks = 0;
-    int err = cooperative_grid(grid_batch_kernel,
-                               (size_t)B * (N + 1), &blocks);
-    if (err) return err;
-    void* args[] = {&f, &vals0, &out};
-    cudaLaunchCooperativeKernel((void*)grid_batch_kernel, dim3(blocks),
-                                dim3(kThreads), args, 0,
-                                (cudaStream_t)stream);
-    return (int)cudaGetLastError();
+    return pred ? fused_batch<true>(f, vals0, out, cluster,
+                                    (cudaStream_t)stream)
+                : fused_batch<false>(f, vals0, out, cluster,
+                                     (cudaStream_t)stream);
 }
 
 // cluster > 0: the cluster variant, nodes placed by node_of / slot_of (no
 // scratch); cluster == 0: the global variant (scratch: buf, picked, pinv,
-// state).
+// state). pred as in canal_fabric_fused_batch.
 extern "C" int canal_fabric_fused_run(
     const int* depths, const int* sel, const int* op, const int* cst,
     const int* imm_mask, const int* imm_val, const int* ext, const int* src,
@@ -661,7 +765,7 @@ extern "C" int canal_fabric_fused_run(
     const int* pe_in, const int* pe_res_idx, const int* reg_src,
     const int* mem_in, const int* io_out, const int* node_of,
     const int* slot_of, int* obs, int* buf, int* picked, int* pinv,
-    int* state, int B, int N, int F, int P, int T, int n_reg,
+    int* state, int B, int N, int F, int P, int pred, int T, int n_reg,
     int n_io, int n_mem, int max_depth, int word, int cluster,
     void* stream) {
     Fabric f = make_fabric(depths, sel, op, cst, imm_mask, imm_val, src, keep,
@@ -671,39 +775,25 @@ extern "C" int canal_fabric_fused_run(
     s.ext = ext; s.pin_src = pin_src; s.reg_src = reg_src; s.mem_in = mem_in;
     s.io_out = io_out; s.obs = obs; s.pinv = pinv; s.state = state; s.T = T;
     s.n_reg = n_reg; s.n_io = n_io; s.n_mem = n_mem;
-    if (cluster > 0)
-        return launch_cluster(cluster_run_kernel, B, N, P, cluster,
-                              (cudaStream_t)stream, f, s);
-    int blocks = 0;
-    int err = cooperative_grid(grid_run_kernel, (size_t)B * (N + 1),
-                               &blocks);
-    if (err) return err;
-    void* args[] = {&f, &s};
-    cudaLaunchCooperativeKernel((void*)grid_run_kernel, dim3(blocks),
-                                dim3(kThreads), args, 0,
-                                (cudaStream_t)stream);
-    return (int)cudaGetLastError();
+    return pred ? fused_run<true>(f, s, cluster, (cudaStream_t)stream)
+                : fused_run<false>(f, s, cluster, (cudaStream_t)stream);
 }
 
 // How many clusters of `cluster` blocks of the batch (run == 0) or run
-// (run == 1) kernel at N nodes and P PEs the card holds at once (0: none).
+// (run == 1) kernel at N nodes and P PEs (pred: with the 1-bit inputs) the
+// card holds at once (0: none).
 extern "C" int canal_fabric_fused_clusters(int run, int N, int P, int cluster,
-                                           int* active) {
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute attr;
+                                           int pred, int* active) {
     cudaError_t err;
-    if (run) {
-        err = cluster_config(cluster_run_kernel, 1, N, P, cluster, 0, &cfg,
-                             &attr);
-        if (err == cudaSuccess)
-            err = cudaOccupancyMaxActiveClusters(
-                active, (const void*)cluster_run_kernel, &cfg);
-    } else {
-        err = cluster_config(cluster_batch_kernel, 1, N, P, cluster, 0,
-                             &cfg, &attr);
-        if (err == cudaSuccess)
-            err = cudaOccupancyMaxActiveClusters(
-                active, (const void*)cluster_batch_kernel, &cfg);
-    }
+    if (run)
+        err = pred ? max_clusters(cluster_run_kernel<true>, N, P, 1, cluster,
+                                  active)
+                   : max_clusters(cluster_run_kernel<false>, N, P, 0, cluster,
+                                  active);
+    else
+        err = pred ? max_clusters(cluster_batch_kernel<true>, N, P, 1,
+                                  cluster, active)
+                   : max_clusters(cluster_batch_kernel<false>, N, P, 0,
+                                  cluster, active);
     return (int)err;
 }

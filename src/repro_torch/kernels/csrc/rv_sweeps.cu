@@ -229,7 +229,7 @@ __device__ void forward(const Args& a, const Part& p, int* smem,
                 to[h.x & kSlot] =
                     pe_alu(op, operand(h.z, h.w, sv),
                            operand(g.x, g.y, sv),
-                           operand(g.z, g.w, sv), h.y) & a.word;
+                           operand(g.z, g.w, sv), 0, 0, h.y) & a.word;
             }
         }
         for (int k0 = threadIdx.x; k0 < p.nodes; k0 += step) {

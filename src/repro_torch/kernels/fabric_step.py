@@ -11,9 +11,10 @@ Four kernels, all hand-written CUDA:
 ``fabric_fused_batch`` (``csrc/fabric_step.cu``)
     The whole per-cycle fixpoint for B configurations in one launch:
     ``max_depth`` sweeps of gather -> hold undriven (``keep``) -> re-pin
-    (``pin_mask`` / ``pin_vals``) -> 14-op PE ALU masked by ``word`` ->
-    PE results placed through ``pe_res_idx``; lane b runs exactly
-    ``min(depths[b], max_depth)`` sweeps.
+    (``pin_mask`` / ``pin_vals``) -> PE ALU (14 ops, 19 for PEs with the
+    1-bit inputs) masked by ``word`` -> PE results placed through
+    ``pe_res_idx``; lane b runs exactly ``min(depths[b], max_depth)``
+    sweeps.
 
 ``fabric_fused_run`` (``csrc/fabric_step.cu``)
     T fabric cycles in one launch. Each lane's state vector is laid out
@@ -39,20 +40,32 @@ from typing import Optional
 
 import torch
 
+from repro_torch.obs import span
+
 from . import build
 
 # PE ALU candidate order; must match repro_torch.core.tiles.PECore.OPS
 # (repro_torch.core.lowering asserts the correspondence at import time).
 PE_OPS = ("add", "sub", "mul", "and", "or", "xor", "shl", "shr", "min",
           "max", "abs", "sel", "const", "pass")
+#: the predicate PE's further ops (``PECore.PRED_OPS``), ids 14-18: they
+#: read the 1-bit inputs, which only a fabric with a 1-bit layer has
+PRED_OPS = ("ugt", "uge", "ult", "psel", "pand")
+#: columns of ``pe_in``: data0-3, and on a fabric with a 1-bit layer also
+#: bit0-2 (the PE then has a third output, res_p)
+PE_INPUTS = 4
+PRED_PE_INPUTS = 7
 
 #: shared memory one block may opt into on an H100 (227 KB), and what the
 #: fused kernels' cluster variant keeps there: for each node slot two value
 #: buffers, the pinned value and the node's descriptor, 4 B each; for each
-#: PE its two outputs' records, 32 B each; the records' count
+#: PE its two outputs' records, 32 B each (on a fabric with a 1-bit layer
+#: three outputs' records of 48 B: the bit operands and the result's mask
+#: too); the records' count
 BLOCK_SMEM_BYTES = 232_448
 SLOT_BYTES = 16
 PE_BYTES = 64
+PRED_PE_BYTES = 144
 COUNT_BYTES = 16
 #: the largest portable cluster
 MAX_CLUSTER = 8
@@ -82,22 +95,58 @@ def _wrap32(x: torch.Tensor) -> torch.Tensor:
 
 
 def pe_alu_candidates(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
-                      const: torch.Tensor) -> torch.Tensor:
+                      const: torch.Tensor, bits=None) -> torch.Tensor:
     """All PE ALU results, stacked (n_ops, ...) in ``PE_OPS`` order, with
     the reference's int32 semantics: add/sub/mul/shl/abs wrap, ``>>`` is
     arithmetic and the shift amount clips to [0, 15]. Wrapping ops are
     computed in int64 and wrapped explicitly (int32 overflow is not
-    defined behaviour in PyTorch's C++ kernels)."""
+    defined behaviour in PyTorch's C++ kernels).
+
+    ``bits`` (the PE's bit0 and bit1 inputs) appends the ``PRED_OPS``:
+    a >, >= and < b compared as unsigned 32-bit words (0 or 1), ``bit0 ?
+    a : b`` and ``bit0 & bit1`` (both on the inputs' low bits)."""
     a64, b64 = a.long(), b.long()
     shift = torch.clamp(b, 0, 15)
-    return torch.stack([
+    rows = [
         _wrap32(a64 + b64), _wrap32(a64 - b64), _wrap32(a64 * b64),
         a & b, a | b, a ^ b,
         _wrap32(a64 << shift.long()), a >> shift,
         torch.minimum(a, b), torch.maximum(a, b),
         _wrap32(torch.abs(_wrap32(a64 - b64).long())),
         torch.where((a & 1) == 1, b, c), const, a,
-    ], dim=0)
+    ]
+    if bits is not None:
+        p0, p1 = bits
+        ua, ub = a64 & 0xFFFFFFFF, b64 & 0xFFFFFFFF
+        rows += [(ua > ub).to(a.dtype), (ua >= ub).to(a.dtype),
+                 (ua < ub).to(a.dtype), torch.where((p0 & 1) == 1, a, b),
+                 p0 & p1 & 1]
+    return torch.stack(rows, dim=0)
+
+
+def pe_outputs(pe_in: torch.Tensor) -> int:
+    """A PE's outputs for ``pe_in``'s layout: res0 and res1, and res_p
+    where the PE has the 1-bit inputs (``PRED_PE_INPUTS`` columns)."""
+    return 3 if pe_in.shape[-1] == PRED_PE_INPUTS else 2
+
+
+def pe_results(ins: torch.Tensor, imm_mask: Optional[torch.Tensor],
+               imm_val: Optional[torch.Tensor], op: torch.Tensor,
+               const: torch.Tensor, word: int):
+    """(B, P, K) gathered PE inputs (``pe_in``'s columns) -> the (B, P)
+    results of each output: the ALU result masked to ``word`` (res0),
+    data0 passed through (res1) and, for a PE with the 1-bit inputs, the
+    result's low bit (res_p). Immediates (``imm_mask`` > 0) replace data
+    inputs only."""
+    data = ins[..., :PE_INPUTS]
+    if imm_mask is not None:
+        data = torch.where(imm_mask > 0, imm_val, data)
+    a, b, c = data[..., 0], data[..., 1], data[..., 2]
+    pred = pe_outputs(ins) == 3
+    bits = (ins[..., 4], ins[..., 5]) if pred else None
+    cand = pe_alu_candidates(a, b, c, const, bits)
+    res = torch.gather(cand, 0, op.long()[None])[0]
+    return [res & word, a & word] + ([res & 1] if pred else [])
 
 
 # ----------------------------------------------------------- plain versions
@@ -152,28 +201,24 @@ def _plain_fixpoint(vals0, pin_vals, picked, depths, op, const, imm_mask,
                     max_depth: int, word: int) -> torch.Tensor:
     """Masked Jacobi sweeps of the fused engine; returns (B, N)."""
     b, n = vals0.shape
-    p = pe_in.shape[0]
+    p, k_in = pe_in.shape
+    outs = pe_outputs(pe_in)
     zero = torch.zeros((b, 1), dtype=torch.int32, device=vals0.device)
     v = torch.cat([vals0, zero], dim=1)                   # (B, N+1)
     keep_b = (keep > 0)[None, :]
     pin_b = (pin_mask > 0)[None, :]
-    is_pe = (pe_res_idx < 2 * p)[None, :]
+    is_pe = (pe_res_idx < outs * p)[None, :]
     pe_flat = pe_in.reshape(-1).long()
     res_idx = pe_res_idx.long()
-    imm_b = imm_mask > 0
     depths = depths.to(vals0.device)
     for t in range(max_depth):
         nv = torch.gather(v, 1, picked)
         nv = torch.where(keep_b, v[:, :n], nv)
         nv = torch.where(pin_b, pin_vals, nv)
-        ins = torch.cat([nv, zero], dim=1)[:, pe_flat].reshape(b, p, 4)
-        ins = torch.where(imm_b, imm_val, ins)
-        a_, b_, c_ = ins[..., 0], ins[..., 1], ins[..., 2]
-        cand = pe_alu_candidates(a_, b_, c_, const)      # (14, B, P)
-        res0 = torch.gather(cand, 0, op.long()[None])[0] & word
-        res1 = a_ & word
-        res = torch.cat([torch.stack([res0, res1], dim=2).reshape(b, 2 * p),
-                         zero], dim=1)
+        ins = torch.cat([nv, zero], dim=1)[:, pe_flat].reshape(b, p, k_in)
+        res = torch.stack(pe_results(ins, imm_mask, imm_val, op, const,
+                                     word), dim=2)
+        res = torch.cat([res.reshape(b, outs * p), zero], dim=1)
         nv = torch.where(is_pe, res[:, res_idx], nv)
         live = (t < depths)[:, None]
         v = torch.cat([torch.where(live, nv, v[:, :n]), zero], dim=1)
@@ -367,9 +412,13 @@ def _check_fabric(kernel, b, n, p, depths, sel, op, const, imm_mask,
                            ("imm_mask", imm_mask, (b, p, 4)),
                            ("imm_val", imm_val, (b, p, 4)),
                            ("keep", keep, (n,)), ("pin_mask", pin_mask, (n,)),
-                           ("pe_in", pe_in, (p, 4)),
                            ("pe_res_idx", pe_res_idx, (n,))]:
         build.require_shape(kernel, name, t, shape)
+    if pe_in.dim() != 2 or pe_in.shape[0] != p or pe_in.shape[1] not in (
+            PE_INPUTS, PRED_PE_INPUTS):
+        raise ValueError(f"{kernel}: pe_in has shape {tuple(pe_in.shape)}, "
+                         f"expected ({p}, {PE_INPUTS}) or "
+                         f"({p}, {PRED_PE_INPUTS})")
     if src.dim() != 2 or src.shape[0] != n:
         raise ValueError(f"{kernel}: src has shape {tuple(src.shape)}, "
                          f"expected ({n}, F)")
@@ -378,7 +427,7 @@ def _check_fabric(kernel, b, n, p, depths, sel, op, const, imm_mask,
                          f"kernel's int32 indexing")
 
 
-def fused_cluster(n: int, p: int) -> int:
+def fused_cluster(n: int, p: int, pred: bool = False) -> int:
     """The fused kernels' size rule: the number of blocks in the cluster
     that holds one lane of N nodes and P PEs, or 0 for the global-memory
     variant.
@@ -391,9 +440,11 @@ def fused_cluster(n: int, p: int) -> int:
     PE_BYTES * P + COUNT_BYTES <= BLOCK_SMEM_BYTES``: at the Amber FULL
     size (N 86,288, P 780) 8 blocks of 222,528 B. Past 8 blocks (at P 780,
     N + 1 > 8 x 11,407 = 91,256) a fabric takes the global-memory variant
-    (0). The rule reads N and P only: it never depends on a launch's
-    outcome."""
-    room = BLOCK_SMEM_BYTES - PE_BYTES * p - COUNT_BYTES
+    (0). ``pred`` (PEs with the 1-bit inputs) counts ``PRED_PE_BYTES`` a
+    PE instead. The rule reads N, P and ``pred`` only: it never depends
+    on a launch's outcome."""
+    pe_bytes = PRED_PE_BYTES if pred else PE_BYTES
+    room = BLOCK_SMEM_BYTES - pe_bytes * p - COUNT_BYTES
     c = 1
     while c <= MAX_CLUSTER:
         if SLOT_BYTES * -(-(n + 1) // c) <= room:
@@ -438,19 +489,22 @@ def fused_order(src: torch.Tensor):
 
 
 @functools.lru_cache(maxsize=None)
-def active_clusters(kernel: str, n: int, p: int, cluster: int) -> int:
+def active_clusters(kernel: str, n: int, p: int, cluster: int,
+                    pred: bool = False) -> int:
     """How many clusters of ``cluster`` blocks of the fused ``kernel``
     (``"fabric_fused_batch"`` or ``"fabric_fused_run"``) at N nodes and P
-    PEs the card holds at once (``cudaOccupancyMaxActiveClusters``); a
-    launch of more lanes queues the rest."""
+    PEs (with the 1-bit inputs where ``pred``) the card holds at once
+    (``cudaOccupancyMaxActiveClusters``); a launch of more lanes queues
+    the rest."""
     out = ctypes.c_int(0)
     err = build.library().canal_fabric_fused_clusters(
-        int(kernel == "fabric_fused_run"), n, p, cluster, ctypes.byref(out))
+        int(kernel == "fabric_fused_run"), n, p, cluster, int(pred),
+        ctypes.byref(out))
     build.check(err, kernel)
     return out.value
 
 
-def _fused_scratch(kernel, src, b, p, cluster, state_words=0):
+def _fused_scratch(kernel, src, b, p, pred, cluster, state_words=0):
     """Device tables of the variant ``cluster`` selects: the cluster
     variant's node order (:func:`fused_order` of ``src``); the global
     variant's value buffers and picked sources (and, for the run kernel,
@@ -463,7 +517,7 @@ def _fused_scratch(kernel, src, b, p, cluster, state_words=0):
         return torch.empty(shape, dtype=torch.int32, device=dev)
 
     if cluster:
-        if active_clusters(kernel, n, p, cluster) < 1:
+        if active_clusters(kernel, n, p, cluster, pred) < 1:
             raise RuntimeError(f"{kernel}: no cluster of {cluster} blocks "
                                f"at N {n}, P {p} fits this card")
         return dict(zip(("node_of", "slot_of"), fused_order(src)))
@@ -489,18 +543,27 @@ def fabric_fused_batch(vals0: torch.Tensor, sel: torch.Tensor,
     """Fused batched fixpoint. vals0/sel/pin_vals: (B, N) int32; depths:
     (B,) per-lane sweep counts; op/const: (B, P); imm_mask/imm_val:
     (B, P, 4); src: (N, F) with sentinel N for absent fan-in; keep /
-    pin_mask: (N,) flags; pe_in: (P, 4) node ids (sentinel N);
-    pe_res_idx: (N,) index into the flattened (res0, res1) PE results, 2P
-    for non-PE-output nodes. ``sel`` must lie in [0, F) and ``op`` in
-    [0, 14). Returns the (B, N) values after the fixpoint.
+    pin_mask: (N,) flags; pe_in: (P, 4) node ids (sentinel N), or (P, 7)
+    with each PE's bit0-2 inputs after its data0-3 (a fabric with a 1-bit
+    layer); pe_res_idx: (N,) index into the flattened (res0, res1) PE
+    results, (res0, res1, res_p) with the bit inputs, 2P (3P) for
+    non-PE-output nodes. ``sel`` must lie in [0, F) and ``op`` in [0, 14),
+    or [0, 19) with the bit inputs. Returns the (B, N) values after the
+    fixpoint.
 
     On the card the variant follows :func:`fused_cluster` (N and P): where
     a lane fits the shared memory of a cluster of 1-8 blocks, one cluster
-    per lane keeps it there; past that, the global-memory variant."""
+    per lane keeps it there; past that, the global-memory variant. Each
+    call runs in an ``emu.fused`` span: ``cluster`` is the variant it
+    launched (blocks a lane; 0 for the global-memory variant), ``nodes``
+    its N, and ``kernel`` False where the plain version ran instead (CPU
+    tensors: no cluster holds a lane, ``cluster`` 0)."""
     if vals0.device.type == "cpu":
-        return fabric_fused_batch_plain(
-            vals0, sel, pin_vals, depths, op, const, imm_mask, imm_val, src,
-            keep, pin_mask, pe_in, pe_res_idx, max_depth, word)
+        with span("emu.fused", cluster=0, nodes=vals0.shape[1],
+                  kernel=False):
+            return fabric_fused_batch_plain(
+                vals0, sel, pin_vals, depths, op, const, imm_mask, imm_val,
+                src, keep, pin_mask, pe_in, pe_res_idx, max_depth, word)
     kernel = "fabric_fused_batch"
     b, n = vals0.shape
     p = pe_in.shape[0]
@@ -511,17 +574,20 @@ def fabric_fused_batch(vals0: torch.Tensor, sel: torch.Tensor,
     out = torch.empty((b, n), dtype=torch.int32, device=vals0.device)
     if b == 0 or n == 0:
         return out
-    cluster = fused_cluster(n, p)
-    scratch = _fused_scratch(kernel, src, b, p, cluster)
-    err = build.library().canal_fabric_fused_batch(
-        depths.data_ptr(), vals0.data_ptr(), sel.data_ptr(),
-        pin_vals.data_ptr(), op.data_ptr(), const.data_ptr(),
-        imm_mask.data_ptr(), imm_val.data_ptr(), src.data_ptr(),
-        keep.data_ptr(), pin_mask.data_ptr(), pe_in.data_ptr(),
-        pe_res_idx.data_ptr(), _ptr(scratch, "node_of"),
-        _ptr(scratch, "slot_of"), out.data_ptr(), _ptr(scratch, "buf"),
-        _ptr(scratch, "picked"), b, n, src.shape[1], p,
-        int(max_depth), int(word), cluster, build.stream_ptr(vals0.device))
+    pred = pe_outputs(pe_in) == 3
+    cluster = fused_cluster(n, p, pred)
+    scratch = _fused_scratch(kernel, src, b, p, pred, cluster)
+    with span("emu.fused", cluster=cluster, nodes=n, kernel=True):
+        err = build.library().canal_fabric_fused_batch(
+            depths.data_ptr(), vals0.data_ptr(), sel.data_ptr(),
+            pin_vals.data_ptr(), op.data_ptr(), const.data_ptr(),
+            imm_mask.data_ptr(), imm_val.data_ptr(), src.data_ptr(),
+            keep.data_ptr(), pin_mask.data_ptr(), pe_in.data_ptr(),
+            pe_res_idx.data_ptr(), _ptr(scratch, "node_of"),
+            _ptr(scratch, "slot_of"), out.data_ptr(), _ptr(scratch, "buf"),
+            _ptr(scratch, "picked"), b, n, src.shape[1], p, int(pred),
+            int(max_depth), int(word), cluster,
+            build.stream_ptr(vals0.device))
     build.check(err, kernel)
     build.count_launch(kernel)
     return out
@@ -554,10 +620,11 @@ def fabric_fused_run(sel: torch.Tensor, ext: torch.Tensor,
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     if sel.device.type == "cpu":
-        return fabric_fused_run_plain(
-            sel, ext, depths, op, const, imm_mask, imm_val, src, keep,
-            pin_mask, pin_src, pe_in, pe_res_idx, reg_src, mem_in, io_out,
-            n_reg, n_io, n_mem, max_depth, chunk, word)
+        with span("emu.fused", cluster=0, nodes=sel.shape[1], kernel=False):
+            return fabric_fused_run_plain(
+                sel, ext, depths, op, const, imm_mask, imm_val, src, keep,
+                pin_mask, pin_src, pe_in, pe_res_idx, reg_src, mem_in,
+                io_out, n_reg, n_io, n_mem, max_depth, chunk, word)
     b, n = sel.shape
     p = pe_in.shape[0]
     t_len = ext.shape[1]
@@ -576,20 +643,22 @@ def fabric_fused_run(sel: torch.Tensor, ext: torch.Tensor,
     obs = torch.empty((b, t_len, n_io), dtype=torch.int32, device=dev)
     if b == 0 or n == 0 or t_len == 0:
         return obs
-    cluster = fused_cluster(n, p)
-    scratch = _fused_scratch(kernel, src, b, p, cluster,
+    pred = pe_outputs(pe_in) == 3
+    cluster = fused_cluster(n, p, pred)
+    scratch = _fused_scratch(kernel, src, b, p, pred, cluster,
                              state_words=n_reg + n_io + n_mem + 1)
-    err = build.library().canal_fabric_fused_run(
-        depths.data_ptr(), sel.data_ptr(), op.data_ptr(), const.data_ptr(),
-        imm_mask.data_ptr(), imm_val.data_ptr(), ext.data_ptr(),
-        src.data_ptr(), keep.data_ptr(), pin_mask.data_ptr(),
-        pin_src.data_ptr(), pe_in.data_ptr(), pe_res_idx.data_ptr(),
-        reg_src.data_ptr(), mem_in.data_ptr(), io_out.data_ptr(),
-        _ptr(scratch, "node_of"), _ptr(scratch, "slot_of"), obs.data_ptr(),
-        _ptr(scratch, "buf"), _ptr(scratch, "picked"), _ptr(scratch, "pinv"),
-        _ptr(scratch, "state"),
-        b, n, src.shape[1], p, t_len, n_reg, n_io, n_mem, int(max_depth),
-        int(word), cluster, build.stream_ptr(dev))
+    with span("emu.fused", cluster=cluster, nodes=n, kernel=True):
+        err = build.library().canal_fabric_fused_run(
+            depths.data_ptr(), sel.data_ptr(), op.data_ptr(), const.data_ptr(),
+            imm_mask.data_ptr(), imm_val.data_ptr(), ext.data_ptr(),
+            src.data_ptr(), keep.data_ptr(), pin_mask.data_ptr(),
+            pin_src.data_ptr(), pe_in.data_ptr(), pe_res_idx.data_ptr(),
+            reg_src.data_ptr(), mem_in.data_ptr(), io_out.data_ptr(),
+            _ptr(scratch, "node_of"), _ptr(scratch, "slot_of"),
+            obs.data_ptr(), _ptr(scratch, "buf"), _ptr(scratch, "picked"),
+            _ptr(scratch, "pinv"), _ptr(scratch, "state"),
+            b, n, src.shape[1], p, int(pred), t_len, n_reg, n_io, n_mem,
+            int(max_depth), int(word), cluster, build.stream_ptr(dev))
     build.check(err, kernel)
     build.count_launch(kernel)
     return obs

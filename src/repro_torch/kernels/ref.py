@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from .fabric_step import _picked, pe_alu_candidates
+from .fabric_step import PE_INPUTS, _picked, pe_alu_candidates, \
+    pe_outputs
 
 
 def fabric_fused_batch_ref(vals0, sel, pin_vals, depths, op, const,
@@ -22,7 +23,9 @@ def fabric_fused_batch_ref(vals0, sel, pin_vals, depths, op, const,
                            word: int = 0xFFFF) -> torch.Tensor:
     """Lane-batched gather -> hold-undriven -> re-pin -> PE-eval sweeps,
     each lane frozen once its own ``depths`` count is reached. PE outputs
-    are named by ``pe_out`` (n_pe, n_cols) node ids."""
+    are named by ``pe_out`` (n_pe, n_cols) node ids; where ``pe_in`` has
+    the 1-bit inputs (bit0-2 after data0-3) the third column, res_p,
+    takes the result's low bit."""
     b, n = vals0.shape
     n_pe = pe_out.shape[0]
     zero = torch.zeros((b, 1), dtype=torch.int32, device=vals0.device)
@@ -37,17 +40,22 @@ def fabric_fused_batch_ref(vals0, sel, pin_vals, depths, op, const,
         nv = torch.gather(torch.cat([v, zero], dim=1), 1, picked)
         nv = torch.where(keep_b, v, nv)
         nv = torch.where(pin_b, pin_vals, nv)
-        ins = torch.cat([nv, zero], dim=1)[:, pe_in]      # (B, P, 4)
-        ins = torch.where(imm_mask > 0, imm_val, ins)
+        ins = torch.cat([nv, zero], dim=1)[:, pe_in]      # (B, P, K)
+        bits = ((ins[..., 4], ins[..., 5])
+                if pe_outputs(pe_in) == 3 else None)
+        ins = torch.where(imm_mask > 0, imm_val, ins[..., :PE_INPUTS])
         a, b_, c = ins[..., 0], ins[..., 1], ins[..., 2]
-        cand = pe_alu_candidates(a, b_, c, const)
-        res0 = torch.gather(cand, 0, op.long()[None])[0] & word
+        cand = pe_alu_candidates(a, b_, c, const, bits)
+        res = torch.gather(cand, 0, op.long()[None])[0]
+        res0 = res & word
         res1 = a & word
         if n_pe:
             nv = nv.clone()
             nv[:, pe_out[:, 0]] = res0[:, :n_pe]
             if pe_out.shape[1] > 1:
                 nv[:, pe_out[:, 1]] = res1[:, :n_pe]
+            if pe_out.shape[1] > 2:
+                nv[:, pe_out[:, 2]] = (res & 1)[:, :n_pe]
         v = torch.where((t < depths)[:, None], nv, v)
     return v
 

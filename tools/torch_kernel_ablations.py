@@ -167,7 +167,8 @@ def soft_exp(cond):
 SWITCH_ALU = """
 // The PE ALU as a switch (a variant: the committed one selects).
 __device__ __forceinline__ int32_t pe_alu_switch(int op, int32_t a, int32_t b,
-                                                 int32_t c, int32_t k) {
+                                                 int32_t c, int32_t p0,
+                                                 int32_t p1, int32_t k) {
     const uint32_t ua = (uint32_t)a, ub = (uint32_t)b;
     const int s = b < 0 ? 0 : (b > 15 ? 15 : b);
     switch (op) {
@@ -187,6 +188,11 @@ __device__ __forceinline__ int32_t pe_alu_switch(int op, int32_t a, int32_t b,
         }
         case 11: return (a & 1) ? b : c;
         case 12: return k;
+        case 14: return (int32_t)(ua > ub);
+        case 15: return (int32_t)(ua >= ub);
+        case 16: return (int32_t)(ua < ub);
+        case 17: return (p0 & 1) ? a : b;
+        case 18: return p0 & p1 & 1;
         default: return a;
     }
 }
@@ -226,7 +232,7 @@ SLOTS_IN_REGISTERS = chain(
         "            for (int u = 0; u < 16; ++u)\n"
         "                if (!(d[u] & kSpecial))"))
 RESOLVE_EACH_SWEEP = """                d[u] = k < l.nodes
-                    ? describe(f, l, node_at(f, l.lo + k)) : kSpecial;"""
+                    ? describe<kPred>(f, l, node_at(f, l.lo + k)) : kSpecial;"""
 #: the sweep's cluster barrier, and two others in its place: one built from
 #: mbarriers (a block's thread 0 arrives on every block's barrier, two
 #: barriers alternating by sweep; a wait that never ends traps), and
@@ -287,16 +293,16 @@ MBAR = chain(
     sub("int fixpoint(const Fabric& f, const Lane& l, int sweeps) {",
         "int fixpoint(const Fabric& f, const Lane& l, int sweeps,\n"
         "             int& tick) {"),
-    sub("    const int* res = fixpoint(f, l, lane_sweeps(f, l.b)) ?",
-        "    int tick = 0;\n"
-        "    const int* res = fixpoint(f, l, lane_sweeps(f, l.b), tick) ?"),
-    sub("        sres = fixpoint(f, l, sweeps) ?",
-        "        sres = fixpoint(f, l, sweeps, tick) ?"),
+    sub("    const int* res =\n        fixpoint<kPred>(f, l, lane_sweeps(f, l.b)) ?",
+        "    int tick = 0;\n    const int* res =\n"
+        "        fixpoint<kPred>(f, l, lane_sweeps(f, l.b), tick) ?"),
+    sub("        sres = fixpoint<kPred>(f, l, sweeps) ?",
+        "        sres = fixpoint<kPred>(f, l, sweeps, tick) ?"),
     sub("    uint32_t sres = l.sval0;",
         "    uint32_t sres = l.sval0;\n    int tick = 0;"),
     replace_all("    if (threadIdx.x == 0) *l.n_pe = 0;", MBAR_INIT),
-    sub("(size_t)64 * p +\n           16;",
-        "(size_t)64 * p +\n           32;"))
+    sub("(size_t)(pred ? 144 : 64) * p + 16;",
+        "(size_t)(pred ? 144 : 64) * p + 32;"))
 RELAXED = sub(SWEEP_END,
               '        asm volatile("barrier.cluster.arrive.relaxed.aligned;'
               '\\n\\t"\n                     "barrier.cluster.wait.aligned;"'
@@ -308,10 +314,12 @@ NO_PE_EVAL = sub("for (int j = threadIdx.x; j < n_pe;",
 
 REFRESH = """
 // Resolve PE record j again from the global tables, in place.
+template <bool kPred>
 __device__ void refresh_record(const Fabric& f, const Lane& l, int j) {
-    const int slot = l.rec[2 * j].x & kSlot;
+    int4* rec = l.rec + Pe<kPred>::kRec * j;
+    const int slot = rec->x & kSlot;
     const int node = node_at(f, l.lo + slot);
-    pe_record(f, l, __ldg(f.pe_res_idx + node), slot, l.rec + 2 * j);
+    pe_record<kPred>(f, l, __ldg(f.pe_res_idx + node), slot, rec);
 }
 
 """
@@ -458,9 +466,9 @@ VARIANTS = {
                 RESOLVE_EACH_SWEEP),
             sub("// `sweeps` Jacobi sweeps from val0", REFRESH
                 + "// `sweeps` Jacobi sweeps from val0"),
-            sub("            const int4 h = l.rec[2 * j];",
-                "            refresh_record(f, l, j);\n"
-                "            const int4 h = l.rec[2 * j];")), False),
+            sub("            const int4 h = l.rec[kRec * j];",
+                "            refresh_record<kPred>(f, l, j);\n"
+                "            const int4 h = l.rec[kRec * j];")), False),
         "slots_in_registers": (SLOTS_IN_REGISTERS, False),
         "unroll1": (sub("constexpr int kUnroll = 4;",
                         "constexpr int kUnroll = 1;"), False),
@@ -470,10 +478,11 @@ VARIANTS = {
                               '"setp.eq.b32 far, %2, %2;'), False),
         "mbarrier_barrier": (MBAR, False),
         "switch_alu": (chain(
-            sub("// PE ALU in PE_OPS order;",
-                SWITCH_ALU + "// PE ALU in PE_OPS order;"),
-            sub("            to[h.x & kSlot] = pe_alu(",
-                "            to[h.x & kSlot] = pe_alu_switch(")), False),
+            sub('#include "pe_alu.cuh"\n',
+                '#include "pe_alu.cuh"\n' + SWITCH_ALU),
+            sub("                pe_alu<kPred>(op, operand(h.z, h.w, sv, l.spin),",
+                "                pe_alu_switch(op, operand(h.z, h.w, sv, l.spin),")),
+            False),
         "threads512": (sub("constexpr int kClusterThreads = 1024;",
                            "constexpr int kClusterThreads = 512;"), False),
         "no_node_updates": (NO_NODE_UPDATES, True),
@@ -698,8 +707,8 @@ def fused_rows(libs, device):
             continue
         lib = libs["fused", name]
         # the tables stay referenced by ``sc`` while the calls run
-        sc = fs._fused_scratch("fabric_fused_run", bargs[8], b, p, cluster,
-                               state_words=state)
+        sc = fs._fused_scratch("fabric_fused_run", bargs[8], b, p, False,
+                               cluster, state_words=state)
         ptr = [fs._ptr(sc, k) for k in ("buf", "picked", "pinv", "state")]
         nodes = [fs._ptr(sc if placed == "slots" else ir_order, k)
                  for k in ("node_of", "slot_of")]
@@ -708,14 +717,14 @@ def fused_rows(libs, device):
             build.check(entry(lib, "canal_fabric_fused_batch")(
                 *[a.data_ptr() for a in (bargs[3], bargs[0], bargs[1],
                                          bargs[2], *bargs[4:])],
-                *nodes, out_b.data_ptr(), ptr[0], ptr[1], b, n, f, p, md,
-                word, cluster, build.stream_ptr(device)), name)
+                *nodes, out_b.data_ptr(), ptr[0], ptr[1], b, n, f, p, 0,
+                md, word, cluster, build.stream_ptr(device)), name)
 
         def call_r():
             build.check(entry(lib, "canal_fabric_fused_run")(
                 *[a.data_ptr() for a in (rargs[2], rargs[0], *rargs[3:7],
                                          rargs[1], *rargs[7:])],
-                *nodes, out_r.data_ptr(), *ptr, b, n, f, p, t_len,
+                *nodes, out_r.data_ptr(), *ptr, b, n, f, p, 0, t_len,
                 rkw["n_reg"], rkw["n_io"], rkw["n_mem"], md, word, cluster,
                 build.stream_ptr(device)), name)
 
