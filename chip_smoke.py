@@ -1131,9 +1131,15 @@ def two_layer_phase(device):
                     for i, v in stims[-1].items()})
     emus = [AppEmulator.from_pnr(fabric, routed[a].packed, routed[a])
             for a in lanes]
-    want_cluster = fs.fused_cluster(n, p, pred=True)
+    t = fabric._fused_args()
     outs, rec["emulation_ms"], rec["fused_clusters"] = {}, {}, {}
-    for mode, chunk in (("unstreamed", None), ("io_chunk", IO_CHUNK)):
+    rec["fused_plan"] = {}
+    for mode, chunk, kernel in (
+            ("unstreamed", None, "fabric_fused_batch"),
+            ("io_chunk", IO_CHUNK, "fabric_fused_run")):
+        want_cluster, room = fs.fused_plan(kernel, t["src"],
+                                           t["pe_res_idx"], t["pe_in"])
+        rec["fused_plan"][mode] = {"cluster": want_cluster, "room": room}
         torch.cuda.synchronize()
         since = time.perf_counter()
         outs[mode] = run_apps_batch(emus, ins, T, io_chunk=chunk)
@@ -1259,17 +1265,25 @@ def local_share(batch_args, cluster, ordered=True):
     return local / total
 
 
-def fused_shape(kernel, n, p, pred, depths, max_depth, cycles, ms):
-    """The fused rows' variant (``pred``: PEs with the 1-bit inputs) and
-    sweep counts: ``sweeps`` is the deepest lane's sweeps a launch (lanes
-    run side by side), ``lane_sweeps`` their sum."""
+def fused_shape(kernel, batch_args, depths, max_depth, cycles, ms):
+    """The fused rows' variant (``fabric_step.fused_plan`` of the tables in
+    ``batch_args``), a block's PE-record room and shared memory, and sweep
+    counts: ``sweeps`` is the deepest lane's sweeps a launch (lanes run
+    side by side), ``lane_sweeps`` their sum."""
     from repro_torch.kernels import fabric_step as fs
 
-    cluster = fs.fused_cluster(n, p, pred)
+    src, pe_in, pe_res_idx = batch_args[8], batch_args[11], batch_args[12]
+    n = src.shape[0]
+    pred = fs.pe_outputs(pe_in) == 3
+    cluster, room = fs.fused_plan(kernel, src, pe_res_idx, pe_in)
+    rec = fs.PRED_REC_BYTES if pred else fs.REC_BYTES
     run = np.minimum(np.maximum(depths, 0), max_depth)
     sweeps = cycles * int(run.max())
-    return {"variant": cluster or "global",
-            "active_clusters": (fs.active_clusters(kernel, n, p, cluster,
+    return {"variant": cluster or "global", "room": room,
+            "block_smem_bytes": (fs.SLOT_BYTES * -(-(n + 1) // cluster)
+                                 + rec * room + fs.COUNT_BYTES
+                                 if cluster else None),
+            "active_clusters": (fs.active_clusters(kernel, n, cluster, room,
                                                    pred)
                                 if cluster else None),
             "sweeps": sweeps, "lane_sweeps": cycles * int(run.sum()),
@@ -1287,7 +1301,8 @@ def fabric_kernel_rows(fabric, device, batch, path="main"):
     n = fabric.arrays.num_nodes
     p = fabric.fused_tables["num_pe_slots"]
     pred = fabric.pred
-    cluster = fs.fused_cluster(n, p, pred)
+    cluster = fs.fused_plan("fabric_fused_batch", batch_args[8],
+                            batch_args[12], batch_args[11])[0]
     # local_share reads the two-output record layout only
     share = ({"ordered": local_share(batch_args, cluster),
               "ir_order": local_share(batch_args, cluster, ordered=False)}
@@ -1319,7 +1334,7 @@ def fabric_kernel_rows(fabric, device, batch, path="main"):
                   "P": p, "pe_inputs": int(batch_args[11].shape[1]),
                   "max_depth": max_depth,
                   "depths": depths_np.tolist(), "local_share": share,
-                  **fused_shape("fabric_fused_batch", n, p, pred, depths_np,
+                  **fused_shape("fabric_fused_batch", batch_args, depths_np,
                                 max_depth, 1, ms)}})
 
     got = fs.fabric_fused_run(*run_args, chunk=IO_CHUNK, **run_kw)
@@ -1345,7 +1360,7 @@ def fabric_kernel_rows(fabric, device, batch, path="main"):
         "shape": {"B": batch, "T": T, "N": n, "n_io": fabric.num_io,
                   "R": run_kw["n_reg"], "M": fabric.num_mem,
                   "max_depth": max_depth, "local_share": share,
-                  **fused_shape("fabric_fused_run", n, p, pred, depths_np,
+                  **fused_shape("fabric_fused_run", batch_args, depths_np,
                                 max_depth, T, ms)}})
     return rows
 

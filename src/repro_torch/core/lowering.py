@@ -719,7 +719,7 @@ class FabricModule:
                 from repro_torch.kernels import ref as kref
                 # no kernel, so no cluster holds a lane (as the kernel
                 # wrappers' own spans record it)
-                with span("emu.fused", cluster=0, nodes=a.num_nodes,
+                with span("emu.fused", cluster=0, room=0, nodes=a.num_nodes,
                           kernel=False):
                     vals = kref.fabric_fused_batch_ref(
                         pin_vals, sel, pin_vals, depths, op, const,

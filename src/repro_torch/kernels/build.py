@@ -53,8 +53,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "canal_fabric_sweep": [_P] * 4 + [_I] * 5 + [_P],
     "canal_fabric_sweep_batch": [_P] * 4 + [_I] * 10 + [_P],
-    "canal_fabric_fused_batch": [_P] * 15 + [_P] * 3 + [_I] * 8 + [_P],
-    "canal_fabric_fused_run": [_P] * 18 + [_P] * 5 + [_I] * 12 + [_P],
+    "canal_fabric_fused_batch": [_P] * 15 + [_P] * 3 + [_I] * 9 + [_P],
+    "canal_fabric_fused_run": [_P] * 18 + [_P] * 5 + [_I] * 13 + [_P],
     "canal_fabric_fused_clusters": [_I] * 5 + [ctypes.POINTER(ctypes.c_int)],
     "canal_rv_sweeps": [_P] * 17 + [_I] * 5 + [_P],
     "canal_minplus_step": [_P, _P, _P, _I, _I, _P],

@@ -34,12 +34,14 @@
 // dependent load of the previous vector).
 //
 // Two variants, chosen by the wrapper's size rule (fabric_step.py,
-// fused_cluster), never on a failure:
+// fused_plan), never on a failure:
 //
 // Cluster (a lane fits a cluster's shared memory: 16 ceil((N + 1) / C) +
-// 64 P + 16 <= 227 KB, 144 P with the 1-bit inputs, with C <= 8 blocks on
-// an H100). One thread block
-// cluster per lane, launched with cudaLaunchKernelEx; clusters that do not
+// 32 R + 16 <= 227 KB, 48 R with the 1-bit inputs, with C <= 16 blocks on
+// an H100, where R, the record room, is the most PE outputs any one block's
+// slots hold in the wrapper's order). One thread block
+// cluster per lane, launched with cudaLaunchKernelEx (past 8 blocks a
+// non-portable size); clusters that do not
 // fit the card at once queue, as no cluster waits on another. The lane's
 // N + 1 node slots are split over the cluster's blocks in contiguous
 // ranges of `chunk`. The wrapper's node order (node_of / slot_of) puts
@@ -48,8 +50,8 @@
 // separate runs, and contiguous ranges of IR order kept only ~54% of reads
 // at home at FULL). Each block keeps in
 // shared memory, for its slots, four arrays of 32-bit words (16 B a slot),
-// and a table of 2P PE records (32 B each): 172.6 + 49.9 KB a block at the
-// Amber FULL size (N 86,288, P 780, 8 blocks):
+// and a table of R PE records (32 B each): 172.6 + 6.7 KB a block at the
+// Amber FULL size (N 86,288, P 780, 8 blocks, R 208):
 //   val[0], val[1]  the double-buffered value vector (sentinel N is 0 in
 //                   both and never written),
 //   pin             the pinned values (fabric_fused_run rewrites them
@@ -60,7 +62,7 @@
 //                   src): where its value comes from, as (block rank,
 //                   slot) of the vector or of `pin`, or a PE record,
 //   rec             the records of the PE outputs among its slots, packed
-//                   (room for all OP): the slot, the op, the constant and
+//                   (room for R): the slot, the op, the constant and
 //                   three operands (an immediate, or a resolved (rank,
 //                   slot)); with the 1-bit inputs a third int4 holds the
 //                   bit0 and bit1 operands and the result's mask (1 for
@@ -111,6 +113,7 @@ struct Fabric {
     int* picked;            // (B, N) selected source per node
     const int* pinv;        // (B, N) pinned values
     int B, N, F, P, max_depth, word;
+    int room;               // PE records a block holds (cluster variant)
 };
 
 struct Stream {
@@ -125,16 +128,14 @@ struct Stream {
     int T, n_reg, n_io, n_mem;
 };
 
-// A PE's layout: columns of pe_in, outputs, int4s of one output's record
-// in the cluster variant, and the shared memory its records take there
-// (fabric_step.py's PE_BYTES and PRED_PE_BYTES), without (false) or with
-// the 1-bit inputs.
+// A PE's layout: columns of pe_in, outputs, and int4s of one output's
+// record in the cluster variant (16 kRec B: fabric_step.py's REC_BYTES and
+// PRED_REC_BYTES), without (false) or with the 1-bit inputs.
 template <bool kPred>
 struct Pe {
     static constexpr int kIn = kPred ? 7 : 4;
     static constexpr int kOut = kPred ? 3 : 2;
     static constexpr int kRec = kPred ? 3 : 2;
-    static constexpr int kBytes = 16 * kOut * kRec;
 };
 
 __device__ __forceinline__ int lane_sweeps(const Fabric& f, int b) {
@@ -166,7 +167,7 @@ struct Lane {
     int* pin;
     uint32_t* desc;
     uint32_t sval0, sval1, spin;  // shared-window addresses of the arrays
-    int4* rec;              // PE records of this block's outputs
+    int4* rec;              // PE records of this block's outputs (f.room)
     int* n_pe;              // their count
 };
 
@@ -193,7 +194,7 @@ __device__ __forceinline__ Lane make_lane(const Fabric& f, int* smem) {
     l.sval1 = smem_addr(l.val1);
     l.spin = smem_addr(l.pin);
     l.rec = reinterpret_cast<int4*>(smem + 4 * l.chunk);
-    l.n_pe = smem + 4 * l.chunk + Pe<kPred>::kBytes / 4 * f.P;
+    l.n_pe = smem + 4 * l.chunk + 4 * Pe<kPred>::kRec * f.room;
     return l;
 }
 
@@ -268,13 +269,18 @@ __device__ void pe_record(const Fabric& f, const Lane& l, int r, int slot,
 }
 
 // Slot k's descriptor; a PE output also appends its record to the block's.
+// The wrapper's room is the most PE outputs any block's slots hold, so no
+// record lands past it (a trap, should the tables disagree).
 template <bool kPred>
 __device__ __forceinline__ uint32_t prepare(const Fabric& f, const Lane& l,
                                             int node, int k) {
     const uint32_t d = describe<kPred>(f, l, node);
-    if (d == kSpecial)
+    if (d == kSpecial) {
+        const int j = atomicAdd(l.n_pe, 1);
+        if (j >= f.room) __trap();
         pe_record<kPred>(f, l, __ldg(f.pe_res_idx + node), k,
-                         l.rec + Pe<kPred>::kRec * atomicAdd(l.n_pe, 1));
+                         l.rec + Pe<kPred>::kRec * j);
+    }
     return d;
 }
 
@@ -453,19 +459,19 @@ cluster_run_kernel(Fabric f, Stream s) {
     cluster.sync();      // no block leaves while another reads its slots
 }
 
-// Shared memory of one block: four words a slot, the PE records (room for
-// all P), the record count.
-size_t cluster_smem(int n, int p, int pred, int cluster) {
+// Shared memory of one block: four words a slot, `room` PE records, the
+// record count.
+size_t cluster_smem(int n, int room, int pred, int cluster) {
     return (size_t)16 * (size_t)((n + cluster) / cluster) +
-           (size_t)(pred ? Pe<true>::kBytes : Pe<false>::kBytes) * p + 16;
+           (size_t)16 * (pred ? Pe<true>::kRec : Pe<false>::kRec) * room + 16;
 }
 
 template <typename... Params>
-cudaError_t cluster_config(void (*kernel)(Params...), int B, int N, int P,
+cudaError_t cluster_config(void (*kernel)(Params...), int B, int N, int room,
                            int pred, int cluster, cudaStream_t stream,
                            cudaLaunchConfig_t* cfg,
                            cudaLaunchAttribute* attr) {
-    const size_t smem = cluster_smem(N, P, pred, cluster);
+    const size_t smem = cluster_smem(N, room, pred, cluster);
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err == cudaSuccess && cluster > 8)
@@ -486,12 +492,13 @@ cudaError_t cluster_config(void (*kernel)(Params...), int B, int N, int P,
 }
 
 template <typename... Params, typename... Args>
-int launch_cluster(void (*kernel)(Params...), int B, int N, int P, int pred,
-                   int cluster, cudaStream_t stream, Args... args) {
+int launch_cluster(void (*kernel)(Params...), int B, int N, int room,
+                   int pred, int cluster, cudaStream_t stream,
+                   Args... args) {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
-    cudaError_t err = cluster_config(kernel, B, N, P, pred, cluster, stream,
-                                     &cfg, &attr);
+    cudaError_t err = cluster_config(kernel, B, N, room, pred, cluster,
+                                     stream, &cfg, &attr);
     if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, kernel, args...);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
@@ -674,14 +681,14 @@ Fabric make_fabric(const int* depths, const int* sel, const int* op,
                    const int* pe_in, const int* pe_res_idx,
                    const int* node_of, const int* slot_of, int* buf,
                    int* picked, const int* pinv, int B, int N, int F, int P,
-                   int max_depth, int word) {
+                   int max_depth, int word, int room) {
     Fabric f;
     f.node_of = node_of; f.slot_of = slot_of;
     f.src = src; f.keep = keep; f.pin_mask = pin_mask; f.pe_in = pe_in;
     f.pe_res_idx = pe_res_idx; f.depths = depths; f.sel = sel; f.op = op;
     f.cst = cst; f.imm_mask = imm_mask; f.imm_val = imm_val; f.buf = buf;
     f.picked = picked; f.pinv = pinv; f.B = B; f.N = N; f.F = F; f.P = P;
-    f.max_depth = max_depth; f.word = word;
+    f.max_depth = max_depth; f.word = word; f.room = room;
     return f;
 }
 
@@ -689,7 +696,7 @@ template <bool kPred>
 int fused_batch(const Fabric& f, const int* vals0, int* out, int cluster,
                 cudaStream_t stream) {
     if (cluster > 0)
-        return launch_cluster(cluster_batch_kernel<kPred>, f.B, f.N, f.P,
+        return launch_cluster(cluster_batch_kernel<kPred>, f.B, f.N, f.room,
                               (int)kPred, cluster, stream, f, vals0, out);
     int blocks = 0;
     int err = cooperative_grid(grid_batch_kernel<kPred>,
@@ -706,7 +713,7 @@ template <bool kPred>
 int fused_run(const Fabric& f, const Stream& s, int cluster,
               cudaStream_t stream) {
     if (cluster > 0)
-        return launch_cluster(cluster_run_kernel<kPred>, f.B, f.N, f.P,
+        return launch_cluster(cluster_run_kernel<kPred>, f.B, f.N, f.room,
                               (int)kPred, cluster, stream, f, s);
     int blocks = 0;
     int err = cooperative_grid(grid_run_kernel<kPred>,
@@ -721,12 +728,12 @@ int fused_run(const Fabric& f, const Stream& s, int cluster,
 }
 
 template <typename Kernel>
-cudaError_t max_clusters(Kernel kernel, int N, int P, int pred, int cluster,
-                         int* active) {
+cudaError_t max_clusters(Kernel kernel, int N, int room, int pred,
+                         int cluster, int* active) {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
-    cudaError_t err = cluster_config(kernel, 1, N, P, pred, cluster, 0, &cfg,
-                                     &attr);
+    cudaError_t err = cluster_config(kernel, 1, N, room, pred, cluster, 0,
+                                     &cfg, &attr);
     if (err == cudaSuccess)
         err = cudaOccupancyMaxActiveClusters(active, (const void*)kernel,
                                              &cfg);
@@ -736,19 +743,21 @@ cudaError_t max_clusters(Kernel kernel, int N, int P, int pred, int cluster,
 }  // namespace
 
 // cluster > 0: the cluster variant with `cluster` blocks a lane, nodes
-// placed in slots by node_of / slot_of (no scratch); cluster == 0: the
-// global variant (scratch: buf, picked). pred: pe_in has the 1-bit inputs
-// (7 columns) and a PE three outputs.
+// placed in slots by node_of / slot_of (no scratch), room for `room` PE
+// records a block; cluster == 0: the global variant (scratch: buf, picked;
+// room unused). pred: pe_in has the 1-bit inputs (7 columns) and a PE
+// three outputs.
 extern "C" int canal_fabric_fused_batch(
     const int* depths, const int* vals0, const int* sel, const int* pin_vals,
     const int* op, const int* cst, const int* imm_mask, const int* imm_val,
     const int* src, const int* keep, const int* pin_mask, const int* pe_in,
     const int* pe_res_idx, const int* node_of, const int* slot_of, int* out,
     int* buf, int* picked, int B, int N, int F, int P, int pred,
-    int max_depth, int word, int cluster, void* stream) {
+    int max_depth, int word, int cluster, int room, void* stream) {
     Fabric f = make_fabric(depths, sel, op, cst, imm_mask, imm_val, src, keep,
                            pin_mask, pe_in, pe_res_idx, node_of, slot_of, buf,
-                           picked, pin_vals, B, N, F, P, max_depth, word);
+                           picked, pin_vals, B, N, F, P, max_depth, word,
+                           room);
     return pred ? fused_batch<true>(f, vals0, out, cluster,
                                     (cudaStream_t)stream)
                 : fused_batch<false>(f, vals0, out, cluster,
@@ -756,8 +765,9 @@ extern "C" int canal_fabric_fused_batch(
 }
 
 // cluster > 0: the cluster variant, nodes placed by node_of / slot_of (no
-// scratch); cluster == 0: the global variant (scratch: buf, picked, pinv,
-// state). pred as in canal_fabric_fused_batch.
+// scratch), room as in canal_fabric_fused_batch; cluster == 0: the global
+// variant (scratch: buf, picked, pinv, state). pred as in
+// canal_fabric_fused_batch.
 extern "C" int canal_fabric_fused_run(
     const int* depths, const int* sel, const int* op, const int* cst,
     const int* imm_mask, const int* imm_val, const int* ext, const int* src,
@@ -766,11 +776,11 @@ extern "C" int canal_fabric_fused_run(
     const int* mem_in, const int* io_out, const int* node_of,
     const int* slot_of, int* obs, int* buf, int* picked, int* pinv,
     int* state, int B, int N, int F, int P, int pred, int T, int n_reg,
-    int n_io, int n_mem, int max_depth, int word, int cluster,
+    int n_io, int n_mem, int max_depth, int word, int cluster, int room,
     void* stream) {
     Fabric f = make_fabric(depths, sel, op, cst, imm_mask, imm_val, src, keep,
                            pin_mask, pe_in, pe_res_idx, node_of, slot_of, buf,
-                           picked, pinv, B, N, F, P, max_depth, word);
+                           picked, pinv, B, N, F, P, max_depth, word, room);
     Stream s;
     s.ext = ext; s.pin_src = pin_src; s.reg_src = reg_src; s.mem_in = mem_in;
     s.io_out = io_out; s.obs = obs; s.pinv = pinv; s.state = state; s.T = T;
@@ -780,20 +790,21 @@ extern "C" int canal_fabric_fused_run(
 }
 
 // How many clusters of `cluster` blocks of the batch (run == 0) or run
-// (run == 1) kernel at N nodes and P PEs (pred: with the 1-bit inputs) the
-// card holds at once (0: none).
-extern "C" int canal_fabric_fused_clusters(int run, int N, int P, int cluster,
-                                           int pred, int* active) {
+// (run == 1) kernel at N nodes and `room` PE records a block (pred: with the
+// 1-bit inputs) the card holds at once (0: none).
+extern "C" int canal_fabric_fused_clusters(int run, int N, int room,
+                                           int cluster, int pred,
+                                           int* active) {
     cudaError_t err;
     if (run)
-        err = pred ? max_clusters(cluster_run_kernel<true>, N, P, 1, cluster,
-                                  active)
-                   : max_clusters(cluster_run_kernel<false>, N, P, 0, cluster,
-                                  active);
-    else
-        err = pred ? max_clusters(cluster_batch_kernel<true>, N, P, 1,
+        err = pred ? max_clusters(cluster_run_kernel<true>, N, room, 1,
                                   cluster, active)
-                   : max_clusters(cluster_batch_kernel<false>, N, P, 0,
+                   : max_clusters(cluster_run_kernel<false>, N, room, 0,
+                                  cluster, active);
+    else
+        err = pred ? max_clusters(cluster_batch_kernel<true>, N, room, 1,
+                                  cluster, active)
+                   : max_clusters(cluster_batch_kernel<false>, N, room, 0,
                                   cluster, active);
     return (int)err;
 }

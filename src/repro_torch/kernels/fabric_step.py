@@ -23,9 +23,10 @@ Four kernels, all hand-written CUDA:
     clocks registers (``reg_src``) and memories (``mem_in``).
 
 The two fused kernels come in two variants, chosen by
-:func:`fused_cluster` from N and P alone: one thread block cluster per
-lane with the lane's vector in the cluster's shared memory, or, for
-fabrics too large for that, one cooperative grid over value vectors in
+:func:`fused_plan` from N, the PE layout and how many PE outputs each
+block's slots hold (:func:`fused_rooms`): one thread block cluster of 1-16
+blocks per lane with the lane's vector in the cluster's shared memory, or,
+for fabrics too large for that, one cooperative grid over value vectors in
 device memory.
 
 Each wrapper takes the plain PyTorch version beside it only when its
@@ -35,8 +36,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 import weakref
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -59,16 +61,20 @@ PRED_PE_INPUTS = 7
 #: shared memory one block may opt into on an H100 (227 KB), and what the
 #: fused kernels' cluster variant keeps there: for each node slot two value
 #: buffers, the pinned value and the node's descriptor, 4 B each; for each
-#: PE its two outputs' records, 32 B each (on a fabric with a 1-bit layer
-#: three outputs' records of 48 B: the bit operands and the result's mask
-#: too); the records' count
+#: PE output among the block's slots its record, 32 B (48 B on a fabric with
+#: a 1-bit layer: the bit operands and the result's mask too); the records'
+#: count
 BLOCK_SMEM_BYTES = 232_448
 SLOT_BYTES = 16
-PE_BYTES = 64
-PRED_PE_BYTES = 144
+REC_BYTES = 32
+PRED_REC_BYTES = 48
 COUNT_BYTES = 16
-#: the largest portable cluster
+#: the largest portable cluster (``rv_sweep``'s ceiling)
 MAX_CLUSTER = 8
+#: the fused kernels' cluster sizes; past 8 blocks a cluster is
+#: non-portable, which an H100 schedules where a GPC has 16 free SMs
+FUSED_CLUSTERS = (1, 2, 4, 8, 16)
+FUSED_MAX_CLUSTER = FUSED_CLUSTERS[-1]
 #: an H100's SMs, and the threads each holds at once
 SM_COUNT = 132
 SM_THREADS = 2048
@@ -427,35 +433,60 @@ def _check_fabric(kernel, b, n, p, depths, sel, op, const, imm_mask,
                          f"kernel's int32 indexing")
 
 
-def fused_cluster(n: int, p: int, pred: bool = False) -> int:
+def fused_cluster(n: int, p: int, pred: bool = False,
+                  rooms: Optional[Dict[int, int]] = None) -> int:
     """The fused kernels' size rule: the number of blocks in the cluster
     that holds one lane of N nodes and P PEs, or 0 for the global-memory
     variant.
 
     A block of the cluster variant keeps ``SLOT_BYTES`` of shared memory
     per node slot, the N + 1 slots (the zero sentinel included) split
-    evenly over the cluster's blocks, ``PE_BYTES`` per PE and
-    ``COUNT_BYTES``. The rule takes the smallest cluster of 1, 2, 4 or
-    ``MAX_CLUSTER`` blocks with ``SLOT_BYTES * ceil((N + 1) / C) +
-    PE_BYTES * P + COUNT_BYTES <= BLOCK_SMEM_BYTES``: at the Amber FULL
-    size (N 86,288, P 780) 8 blocks of 222,528 B. Past 8 blocks (at P 780,
-    N + 1 > 8 x 11,407 = 91,256) a fabric takes the global-memory variant
-    (0). ``pred`` (PEs with the 1-bit inputs) counts ``PRED_PE_BYTES`` a
-    PE instead. The rule reads N, P and ``pred`` only: it never depends
-    on a launch's outcome."""
-    pe_bytes = PRED_PE_BYTES if pred else PE_BYTES
-    room = BLOCK_SMEM_BYTES - pe_bytes * p - COUNT_BYTES
-    c = 1
-    while c <= MAX_CLUSTER:
-        if SLOT_BYTES * -(-(n + 1) // c) <= room:
+    evenly over the cluster's blocks, ``REC_BYTES`` per PE output among
+    its slots (``PRED_REC_BYTES`` where ``pred``: PEs with the 1-bit
+    inputs) and ``COUNT_BYTES``. ``rooms`` maps each cluster size C to the
+    most PE outputs one block's slots hold (:func:`fused_rooms`); without
+    it every block is charged all of a lane's 2P (3P) outputs, which
+    bounds any order. The rule takes the smallest C of
+    ``FUSED_CLUSTERS`` with ``SLOT_BYTES * ceil((N + 1) / C) + REC_BYTES *
+    rooms[C] + COUNT_BYTES <= BLOCK_SMEM_BYTES``: at the Amber FULL size
+    (N 86,288, P 780, room 208) 8 blocks of 179,264 B; the two-layer
+    array (N 179,312, 1-bit inputs, room 208) 16 blocks of 189,328 B. Past
+    16 blocks a fabric takes the global-memory variant (0). The rule reads
+    N, P, ``pred`` and the rooms only: it never depends on a launch's
+    outcome."""
+    rec = PRED_REC_BYTES if pred else REC_BYTES
+    outs = 3 if pred else 2
+    for c in FUSED_CLUSTERS:
+        room = outs * p if rooms is None else rooms[c]
+        if (SLOT_BYTES * -(-(n + 1) // c) + rec * room + COUNT_BYTES
+                <= BLOCK_SMEM_BYTES):
             return c
-        c *= 2
     return 0
 
 
-#: the node orders computed so far: id(src) -> (weak reference to src, its
-#: version counter, (node_of, slot_of))
-_ORDERS: dict = {}
+#: values computed once per table: a key of the tables' ids and the
+#: question -> (weak references to the tables, their version counters,
+#: the value); the DSE executor's emulation thread reads it too
+_MEMO: dict = {}
+_MEMO_LOCK = threading.Lock()
+
+
+def _memo(tables, question, compute):
+    """``compute()``, kept while every tensor of ``tables`` lives and is
+    not modified in place."""
+    key = tuple(id(t) for t in tables) + question
+    hit = _MEMO.get(key)
+    if hit is not None and all(r() is t and v == t._version for r, v, t in
+                               zip(hit[0], hit[1], tables)):
+        return hit[2]
+    value = compute()
+    with _MEMO_LOCK:
+        for k in [k for k, (refs, _, _) in _MEMO.items()
+                  if any(r() is None for r in refs)]:
+            del _MEMO[k]
+        _MEMO[key] = ([weakref.ref(t) for t in tables],
+                      [t._version for t in tables], value)
+    return value
 
 
 def fused_order(src: torch.Tensor):
@@ -472,44 +503,80 @@ def fused_order(src: torch.Tensor):
     tile's registers and muxes next to its switch box: the contiguous
     slot ranges of a cluster's blocks then hold rows of whole tiles. The
     order changes where values live, never what they are."""
-    hit = _ORDERS.get(id(src))
-    if hit is not None and hit[0]() is src and hit[1] == src._version:
-        return hit[2]
-    n = src.shape[0]
-    idx = torch.arange(n, dtype=torch.int32, device=src.device)
-    key = torch.minimum(idx, src.amin(1)) if src.shape[1] else idx
-    node_of = torch.argsort(key, stable=True).to(torch.int32)
-    slot_of = torch.empty(n + 1, dtype=torch.int32, device=src.device)
-    slot_of[node_of.long()] = idx
-    slot_of[n:] = n
-    for key_id in [k for k, (ref, _, _) in _ORDERS.items() if ref() is None]:
-        del _ORDERS[key_id]
-    _ORDERS[id(src)] = (weakref.ref(src), src._version, (node_of, slot_of))
-    return node_of, slot_of
+    def compute():
+        n = src.shape[0]
+        idx = torch.arange(n, dtype=torch.int32, device=src.device)
+        key = torch.minimum(idx, src.amin(1)) if src.shape[1] else idx
+        node_of = torch.argsort(key, stable=True).to(torch.int32)
+        slot_of = torch.empty(n + 1, dtype=torch.int32, device=src.device)
+        slot_of[node_of.long()] = idx
+        slot_of[n:] = n
+        return node_of, slot_of
+    return _memo((src,), ("order",), compute)
+
+
+def fused_rooms(src: torch.Tensor, pe_res_idx: torch.Tensor,
+                n_res: int) -> Dict[int, int]:
+    """The cluster variant's record room: for each C of
+    ``FUSED_CLUSTERS``, the most PE-output nodes (``pe_res_idx < n_res``,
+    n_res = 2P, or 3P with the 1-bit inputs) whose :func:`fused_order`
+    slot falls in any one block's range of ceil((N + 1) / C) slots: the
+    records that block appends. Computed on ``src``'s device in a few small
+    launches and one read back, once per (``src``, ``pe_res_idx``) while
+    both live unmodified."""
+    def compute():
+        n = src.shape[0]
+        dev = src.device
+        slot = fused_order(src)[1][:n].long()[pe_res_idx < n_res]
+        sizes = torch.tensor(FUSED_CLUSTERS, device=dev)
+        block = slot[None, :] // -(-(n + 1) // sizes)[:, None]   # (5, R)
+        ranks = torch.arange(FUSED_MAX_CLUSTER, device=dev)
+        counts = (block[:, :, None] == ranks).sum(1)             # (5, 16)
+        return dict(zip(FUSED_CLUSTERS, counts.amax(1).tolist()))
+    return _memo((src, pe_res_idx), ("rooms", n_res), compute)
 
 
 @functools.lru_cache(maxsize=None)
-def active_clusters(kernel: str, n: int, p: int, cluster: int,
+def active_clusters(kernel: str, n: int, cluster: int, room: int,
                     pred: bool = False) -> int:
     """How many clusters of ``cluster`` blocks of the fused ``kernel``
-    (``"fabric_fused_batch"`` or ``"fabric_fused_run"``) at N nodes and P
-    PEs (with the 1-bit inputs where ``pred``) the card holds at once
-    (``cudaOccupancyMaxActiveClusters``); a launch of more lanes queues
-    the rest."""
+    (``"fabric_fused_batch"`` or ``"fabric_fused_run"``) at N nodes and
+    ``room`` PE records a block (with the 1-bit inputs where ``pred``) the
+    card holds at once (``cudaOccupancyMaxActiveClusters``); a launch of
+    more lanes queues the rest."""
     out = ctypes.c_int(0)
     err = build.library().canal_fabric_fused_clusters(
-        int(kernel == "fabric_fused_run"), n, p, cluster, int(pred),
+        int(kernel == "fabric_fused_run"), n, room, cluster, int(pred),
         ctypes.byref(out))
     build.check(err, kernel)
     return out.value
 
 
-def _fused_scratch(kernel, src, b, p, pred, cluster, state_words=0):
+def fused_plan(kernel: str, src: torch.Tensor, pe_res_idx: torch.Tensor,
+               pe_in: torch.Tensor) -> Tuple[int, int]:
+    """The fused ``kernel``'s variant for these tables on the card:
+    ``(cluster, room)``, :func:`fused_cluster` on the order's
+    :func:`fused_rooms` (room 0 for the global-memory variant). A
+    non-portable cluster of ``FUSED_MAX_CLUSTER`` blocks is taken only
+    where the card holds one at this size (:func:`active_clusters`),
+    else the global-memory variant."""
+    n, p = src.shape[0], pe_in.shape[0]
+    outs = pe_outputs(pe_in)
+    pred = outs == 3
+    rooms = fused_rooms(src, pe_res_idx, outs * p)
+    cluster = fused_cluster(n, p, pred, rooms)
+    if cluster > MAX_CLUSTER and active_clusters(
+            kernel, n, cluster, rooms[cluster], pred) < 1:
+        cluster = 0
+    return cluster, rooms.get(cluster, 0)
+
+
+def _fused_scratch(kernel, src, b, pred, cluster, room, state_words=0):
     """Device tables of the variant ``cluster`` selects: the cluster
     variant's node order (:func:`fused_order` of ``src``); the global
     variant's value buffers and picked sources (and, for the run kernel,
     pinned values and the state). Raises when no cluster of that size
-    fits the card."""
+    and ``room`` fits the card."""
     dev = src.device
     n = src.shape[0]
 
@@ -517,9 +584,9 @@ def _fused_scratch(kernel, src, b, p, pred, cluster, state_words=0):
         return torch.empty(shape, dtype=torch.int32, device=dev)
 
     if cluster:
-        if active_clusters(kernel, n, p, cluster, pred) < 1:
+        if active_clusters(kernel, n, cluster, room, pred) < 1:
             raise RuntimeError(f"{kernel}: no cluster of {cluster} blocks "
-                               f"at N {n}, P {p} fits this card")
+                               f"at N {n}, room {room} fits this card")
         return dict(zip(("node_of", "slot_of"), fused_order(src)))
     out = {"buf": empty(2 * b * (n + 1)), "picked": empty(b, n)}
     if state_words:
@@ -551,15 +618,16 @@ def fabric_fused_batch(vals0: torch.Tensor, sel: torch.Tensor,
     or [0, 19) with the bit inputs. Returns the (B, N) values after the
     fixpoint.
 
-    On the card the variant follows :func:`fused_cluster` (N and P): where
-    a lane fits the shared memory of a cluster of 1-8 blocks, one cluster
-    per lane keeps it there; past that, the global-memory variant. Each
-    call runs in an ``emu.fused`` span: ``cluster`` is the variant it
-    launched (blocks a lane; 0 for the global-memory variant), ``nodes``
-    its N, and ``kernel`` False where the plain version ran instead (CPU
-    tensors: no cluster holds a lane, ``cluster`` 0)."""
+    On the card the variant follows :func:`fused_plan`: where a lane fits
+    the shared memory of a cluster of 1-16 blocks, one cluster per lane
+    keeps it there; past that, the global-memory variant. Each call runs
+    in an ``emu.fused`` span: ``cluster`` is the variant it launched
+    (blocks a lane; 0 for the global-memory variant), ``room`` the PE
+    records a block has room for (0 for the global-memory variant),
+    ``nodes`` its N, and ``kernel`` False where the plain version ran
+    instead (CPU tensors: no cluster holds a lane, ``cluster`` 0)."""
     if vals0.device.type == "cpu":
-        with span("emu.fused", cluster=0, nodes=vals0.shape[1],
+        with span("emu.fused", cluster=0, room=0, nodes=vals0.shape[1],
                   kernel=False):
             return fabric_fused_batch_plain(
                 vals0, sel, pin_vals, depths, op, const, imm_mask, imm_val,
@@ -575,9 +643,10 @@ def fabric_fused_batch(vals0: torch.Tensor, sel: torch.Tensor,
     if b == 0 or n == 0:
         return out
     pred = pe_outputs(pe_in) == 3
-    cluster = fused_cluster(n, p, pred)
-    scratch = _fused_scratch(kernel, src, b, p, pred, cluster)
-    with span("emu.fused", cluster=cluster, nodes=n, kernel=True):
+    cluster, room = fused_plan(kernel, src, pe_res_idx, pe_in)
+    scratch = _fused_scratch(kernel, src, b, pred, cluster, room)
+    with span("emu.fused", cluster=cluster, room=room, nodes=n,
+              kernel=True):
         err = build.library().canal_fabric_fused_batch(
             depths.data_ptr(), vals0.data_ptr(), sel.data_ptr(),
             pin_vals.data_ptr(), op.data_ptr(), const.data_ptr(),
@@ -586,7 +655,7 @@ def fabric_fused_batch(vals0: torch.Tensor, sel: torch.Tensor,
             pe_res_idx.data_ptr(), _ptr(scratch, "node_of"),
             _ptr(scratch, "slot_of"), out.data_ptr(), _ptr(scratch, "buf"),
             _ptr(scratch, "picked"), b, n, src.shape[1], p, int(pred),
-            int(max_depth), int(word), cluster,
+            int(max_depth), int(word), cluster, room,
             build.stream_ptr(vals0.device))
     build.check(err, kernel)
     build.count_launch(kernel)
@@ -614,13 +683,14 @@ def fabric_fused_run(sel: torch.Tensor, ext: torch.Tensor,
     :func:`fabric_fused_batch` cycle by cycle. ``chunk`` (>= 1) is the
     stimulus block of the streamed contract; the kernel reads each
     cycle's stimulus straight from device memory, so it does not change
-    the launch. The variant follows :func:`fused_cluster`, as in
+    the launch. The variant follows :func:`fused_plan`, as in
     :func:`fabric_fused_batch`; the cluster variant runs the whole cycle
     loop inside each lane's cluster."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     if sel.device.type == "cpu":
-        with span("emu.fused", cluster=0, nodes=sel.shape[1], kernel=False):
+        with span("emu.fused", cluster=0, room=0, nodes=sel.shape[1],
+                  kernel=False):
             return fabric_fused_run_plain(
                 sel, ext, depths, op, const, imm_mask, imm_val, src, keep,
                 pin_mask, pin_src, pe_in, pe_res_idx, reg_src, mem_in,
@@ -644,10 +714,11 @@ def fabric_fused_run(sel: torch.Tensor, ext: torch.Tensor,
     if b == 0 or n == 0 or t_len == 0:
         return obs
     pred = pe_outputs(pe_in) == 3
-    cluster = fused_cluster(n, p, pred)
-    scratch = _fused_scratch(kernel, src, b, p, pred, cluster,
+    cluster, room = fused_plan(kernel, src, pe_res_idx, pe_in)
+    scratch = _fused_scratch(kernel, src, b, pred, cluster, room,
                              state_words=n_reg + n_io + n_mem + 1)
-    with span("emu.fused", cluster=cluster, nodes=n, kernel=True):
+    with span("emu.fused", cluster=cluster, room=room, nodes=n,
+              kernel=True):
         err = build.library().canal_fabric_fused_run(
             depths.data_ptr(), sel.data_ptr(), op.data_ptr(), const.data_ptr(),
             imm_mask.data_ptr(), imm_val.data_ptr(), ext.data_ptr(),
@@ -658,7 +729,7 @@ def fabric_fused_run(sel: torch.Tensor, ext: torch.Tensor,
             obs.data_ptr(), _ptr(scratch, "buf"), _ptr(scratch, "picked"),
             _ptr(scratch, "pinv"), _ptr(scratch, "state"),
             b, n, src.shape[1], p, int(pred), t_len, n_reg, n_io, n_mem,
-            int(max_depth), int(word), cluster, build.stream_ptr(dev))
+            int(max_depth), int(word), cluster, room, build.stream_ptr(dev))
     build.check(err, kernel)
     build.count_launch(kernel)
     return obs

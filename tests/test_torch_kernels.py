@@ -13,6 +13,8 @@ plain version on the card; it skips on a host without CUDA. The JAX side
 is imported inside a fixture, so that class also runs where JAX is
 absent: ``python -m pytest -q -m cuda tests/test_torch_kernels.py``.
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -362,24 +364,157 @@ def test_cpu_wrappers_launch_nothing():
     assert all(v == 0 for v in build.LAUNCHES.values())
 
 
+def block_bytes(n, cluster, room, pred=False):
+    """A block's shared memory in the fused kernels' cluster variant."""
+    rec = fabric_step.PRED_REC_BYTES if pred else fabric_step.REC_BYTES
+    return (fabric_step.SLOT_BYTES * -(-(n + 1) // cluster) + rec * room
+            + fabric_step.COUNT_BYTES)
+
+
 def test_fused_cluster_size_rule():
-    """The fused kernels' variant follows N and P alone: the smallest
-    cluster (1, 2, 4, 8 blocks) whose blocks hold 16 B x ceil((N + 1) / C)
-    + 64 B x P + 16 B in 227 KB, the global-memory variant (0) past 8
-    blocks."""
+    """The fused kernels' variant follows N, P and the record rooms alone:
+    the smallest cluster (1, 2, 4, 8, 16 blocks) whose blocks hold 16 B x
+    ceil((N + 1) / C) + 32 B x room + 16 B in 227 KB, the global-memory
+    variant (0) past 16 blocks. Without rooms every block is charged all
+    2P records."""
     rule = fabric_step.fused_cluster
     assert [rule(n, 0) for n in (0, 1, 5000, 14526, 14527, 29053, 29054,
                                  58107, 58108, 86288, 116215, 116216,
-                                 10 ** 6)] == [1, 1, 1, 1, 2, 2, 4, 4, 8, 8,
-                                               8, 0, 0]
-    # the Amber FULL size and the limit at its P
-    assert [rule(n, 780) for n in (86288, 91255, 91256)] == [8, 8, 0]
+                                 232431, 232432, 10 ** 6)] == [
+        1, 1, 1, 1, 2, 2, 4, 4, 8, 8, 8, 16, 16, 0, 0]
+    # the Amber FULL size and the limits at its P with every record
+    assert [rule(n, 780) for n in (86288, 91255, 91256, 182511,
+                                   182512)] == [8, 8, 16, 16, 0]
     assert rule(5000, 3632) == 0                 # no room for one slot
-    for n, p in ((5000, 200), (60000, 200), (86288, 780), (116215, 0)):
+    for n, p in ((5000, 200), (60000, 200), (86288, 780), (116215, 0),
+                 (200000, 200)):
         c = rule(n, p)
-        assert fabric_step.SLOT_BYTES * -(-(n + 1) // c) + \
-            fabric_step.PE_BYTES * p + fabric_step.COUNT_BYTES <= \
-            fabric_step.BLOCK_SMEM_BYTES
+        assert block_bytes(n, c, 2 * p) <= fabric_step.BLOCK_SMEM_BYTES
+    # FULL's room at 8 blocks (208 records in its order) keeps 8 blocks
+    # (4 would need 345 KB of slots), in less shared memory; the two-layer
+    # array's (208 at 16 blocks) fits 16 blocks, where every record did not
+    full = {1: 1560, 2: 780, 4: 416, 8: 208, 16: 110}
+    assert rule(86288, 780, rooms=full) == 8
+    assert block_bytes(86288, 8, 208) == 179_264
+    assert block_bytes(86288, 4, 416) > fabric_step.BLOCK_SMEM_BYTES
+    two = {1: 2340, 2: 1170, 4: 828, 8: 414, 16: 208}
+    assert rule(179312, 780, pred=True) == 0
+    assert rule(179312, 780, pred=True, rooms=two) == 16
+    assert block_bytes(179312, 16, 208, pred=True) == 189_328
+    assert block_bytes(179312, 8, 414, pred=True) == 378_528
+
+
+def host_rooms(src, pe_res_idx, n_res):
+    """The most PE outputs in one block's slot range for each cluster
+    size, counted on the host from the order's definition (key min(i,
+    src[i, :]), ties in node order); and the per-block counts."""
+    n = src.shape[0]
+    key = np.minimum(np.arange(n), src.min(axis=1)) if src.shape[1] else \
+        np.arange(n)
+    slot = np.empty(n, np.int64)
+    slot[np.argsort(key, kind="stable")] = np.arange(n)
+    counts = {}
+    for c in fabric_step.FUSED_CLUSTERS:
+        chunk = -(-(n + 1) // c)
+        counts[c] = np.bincount(slot[pe_res_idx < n_res] // chunk,
+                                minlength=c)
+    return {c: int(v.max()) for c, v in counts.items()}, counts
+
+
+@pytest.mark.parametrize("seed,n,f,p", [(0, 300, 6, 16), (1, 2000, 20, 200),
+                                        (2, 17, 3, 2), (3, 5000, 4, 0),
+                                        (4, 40000, 20, 2000)])
+def test_fused_rooms_count_each_blocks_pe_outputs(seed, n, f, p):
+    """A block's record room, for every cluster size of 1-16 blocks, is
+    the most PE outputs any block's slot range holds: the records the
+    kernel appends there, so none lands past the room. Kept per table
+    pair, and counted again after an in-place change."""
+    case = fabric_case(seed, b=1, n=n, f=f, p=p)
+    src = torch.as_tensor(case["src"])
+    res = torch.as_tensor(case["pe_res_idx"])
+    rooms = fabric_step.fused_rooms(src, res, 2 * p)
+    assert rooms == host_rooms(case["src"], case["pe_res_idx"], 2 * p)[0]
+    assert fabric_step.fused_rooms(src, res, 2 * p) is rooms
+    assert rooms[1] == 2 * p
+    res[: n // 2] = 2 * p                      # half the outputs go
+    again = fabric_step.fused_rooms(src, res, 2 * p)
+    assert again == host_rooms(case["src"], res.numpy(), 2 * p)[0]
+
+
+def tight_case(seed, b, n, r, cluster=16, f=20, t_len=4):
+    """Random fused tables (``fabric_case``) whose PE outputs lie r in
+    each block's slot range of a ``cluster``-block lane: every block
+    holds exactly the counted room."""
+    p = cluster * r // 2
+    case = fabric_case(seed, b=b, n=n, f=f, p=p, t_len=t_len)
+    node_of = fabric_step.fused_order(torch.as_tensor(case["src"]))[0]
+    node_of = node_of.numpy()
+    chunk = -(-(n + 1) // cluster)
+    rng = np.random.default_rng(seed)
+    pe_nodes = rng.permutation(np.concatenate([
+        rng.choice(node_of[k * chunk:(k + 1) * chunk], r, replace=False)
+        for k in range(cluster)]))
+    case["pe_res_idx"] = np.full(n, 2 * p, np.int32)
+    case["pe_res_idx"][pe_nodes] = np.arange(2 * p, dtype=np.int32)
+    case["pe_out"] = pe_nodes.reshape(p, 2).astype(np.int32)
+    return case
+
+
+#: N 120,000 in 16 blocks of 7,501 slots, with 3,513 records each, fills a
+#: block's 232,448 B exactly
+TIGHT = dict(n=120000, r=3513)
+
+
+def test_the_tightest_room_fills_a_block_exactly(monkeypatch):
+    """Where every block holds r PE outputs, the room is r, the 16-block
+    lane's blocks take every byte of shared memory, and one record more
+    would not fit."""
+    n, r = TIGHT["n"], TIGHT["r"]
+    case = tight_case(0, 1, n, r)
+    p = case["pe_in"].shape[0]
+    rooms, counts = host_rooms(case["src"], case["pe_res_idx"], 2 * p)
+    assert (counts[16] == r).all() and rooms[16] == r
+    t = {k: torch.as_tensor(case[k]) for k in ("src", "pe_res_idx",
+                                               "pe_in")}
+    assert fabric_step.fused_rooms(t["src"], t["pe_res_idx"], 2 * p) == rooms
+    assert block_bytes(n, 16, r) == fabric_step.BLOCK_SMEM_BYTES
+    assert fabric_step.fused_cluster(n, p, rooms=rooms) == 16
+    assert fabric_step.fused_cluster(n, p, rooms={**rooms, 16: r + 1}) == 0
+    monkeypatch.setattr(fabric_step, "active_clusters", lambda *a: 1)
+    assert fabric_step.fused_plan("fabric_fused_run", t["src"],
+                                  t["pe_res_idx"], t["pe_in"]) == (16, r)
+
+
+def test_fused_plan_takes_16_blocks_where_the_card_holds_one(monkeypatch):
+    """The plan asks the card (``active_clusters``) only for a
+    non-portable 16-block cluster, at the counted room, and takes the
+    global-memory variant where the card holds none; 1-8 blocks never
+    ask."""
+    case = fabric_case(5, b=1, n=120000, f=4, p=200)
+    t = {k: torch.as_tensor(case[k]) for k in ("src", "pe_res_idx",
+                                               "pe_in")}
+    room = fabric_step.fused_rooms(t["src"], t["pe_res_idx"], 400)[16]
+    asked = []
+    monkeypatch.setattr(fabric_step, "active_clusters",
+                        lambda *a: asked.append(a) or 7)
+    plan = fabric_step.fused_plan("fabric_fused_run", t["src"],
+                                  t["pe_res_idx"], t["pe_in"])
+    assert plan == (16, room) and 0 < room < 400
+    assert asked == [("fabric_fused_run", 120000, 16, room, False)]
+    monkeypatch.setattr(fabric_step, "active_clusters", lambda *a: 0)
+    assert fabric_step.fused_plan("fabric_fused_batch", t["src"],
+                                  t["pe_res_idx"], t["pe_in"]) == (0, 0)
+
+    def never(*a):
+        raise AssertionError("asked the card below 16 blocks")
+    monkeypatch.setattr(fabric_step, "active_clusters", never)
+    small = fabric_case(6, b=1, n=60000, f=4, p=200)
+    t = {k: torch.as_tensor(small[k]) for k in ("src", "pe_res_idx",
+                                                "pe_in")}
+    cluster, room = fabric_step.fused_plan("fabric_fused_run", t["src"],
+                                           t["pe_res_idx"], t["pe_in"])
+    assert cluster == 8 and room == host_rooms(small["src"],
+                                               small["pe_res_idx"], 400)[0][8]
 
 
 #: (B, N, F): the Amber FULL size at verify's chunk, the unfused
@@ -883,11 +1018,12 @@ def mixed_depths(b, max_depth, seed=0):
     return d.astype(np.int32)
 
 
-#: (N, B, word, cluster): the fused kernels' cluster variant at 1, 2, 4 and
-#: 8 blocks a lane (at N 60,000 a lane spans every block of its cluster
-#: and reads the others' shared memory), B 40 above the clusters the card
-#: holds at once (the rest queue), and N 120,000 past the size rule's
-#: limit (the global-memory variant, 0)
+#: (N, B, word, cluster): the fused kernels' cluster variant at 1, 2, 4, 8
+#: and 16 blocks a lane (at N 60,000 a lane spans every block of its
+#: cluster and reads the others' shared memory; N 120,000 at P 200 takes 16
+#: by its counted room), B 40 above the clusters the card holds at once
+#: (the rest queue), and N 250,000 past the size rule's limit (the
+#: global-memory variant, 0)
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 7, 255, 256, 1023, 1024,
                                4097, 33791, 33792, 86288, 2 ** 20 - 1,
                                2 ** 20, 2 ** 22 + 3])
@@ -950,7 +1086,42 @@ def test_fabric_sweep_out_on_the_cpu():
 
 FUSED_SIZES = [(5000, 5, 0xFFFF, 1), (20000, 3, -1, 2),
                (40000, 3, 0xFFFF, 4), (60000, 5, 0xFFFF, 8),
-               (60000, 40, -1, 8), (120000, 3, -1, 0)]
+               (60000, 40, -1, 8), (120000, 3, -1, 16),
+               (120000, 40, 0xFFFF, 16), (250000, 3, -1, 0)]
+
+
+def check_fused(device, kernel, case, cluster, word):
+    """One call of the fused ``kernel`` on ``case`` at ``device``,
+    bit-identical to its plain version, one launch, in the variant
+    ``cluster`` (its ``emu.fused`` span says so); where the lanes
+    outnumber the clusters the card holds at once, the rest queue.
+    Returns the room a block had."""
+    from repro_torch import obs
+
+    args = BATCH_ARGS if kernel == "fabric_fused_batch" else RUN_ARGS
+    kw = {} if kernel == "fabric_fused_batch" else {
+        k: case[k] for k in RUN_KW}
+    t = dict(zip(args, _t(case, args, device)))
+    plan = fabric_step.fused_plan(kernel, t["src"], t["pe_res_idx"],
+                                  t["pe_in"])
+    assert plan[0] == cluster
+    b = case["depths"].shape[0]
+    if cluster and b >= 20:
+        assert fabric_step.active_clusters(
+            kernel, t["src"].shape[0], cluster, plan[1],
+            fabric_step.pe_outputs(t["pe_in"]) == 3) < b
+    plain = getattr(fabric_step, kernel + "_plain")
+    want = plain(*t.values(), **kw, max_depth=7, word=word)
+    before = build.LAUNCHES[kernel]
+    since = time.perf_counter()
+    got = getattr(fabric_step, kernel)(*t.values(), **kw, max_depth=7,
+                                       word=word)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[kernel] == before + 1
+    assert torch.equal(got, want)
+    spans = obs.spans("emu.fused", since)
+    assert [(s.attrs["cluster"], s.attrs["room"]) for s in spans] == [plan]
+    return plan[1]
 
 
 # --------------------------------------------------------------- the card
@@ -992,44 +1163,31 @@ class TestCudaKernels:
     def test_fused_batch_variants(self, cuda, n, b, word, cluster):
         """Bit-identical to the plain version in both variants, with lane
         depths of 0, 1, ``max_depth`` and beyond it."""
-        assert fabric_step.fused_cluster(n, 200) == cluster
-        if b > 16:
-            assert fabric_step.active_clusters("fabric_fused_batch", n, 200,
-                                               cluster) < b
         case = fabric_case(20 + b, b=b, n=n, f=20, p=200)
         case["depths"] = mixed_depths(b, 7)
-        want = fabric_step.fabric_fused_batch_plain(
-            *_t(case, BATCH_ARGS, cuda), max_depth=7, word=word)
-        before = build.LAUNCHES["fabric_fused_batch"]
-        got = fabric_step.fabric_fused_batch(*_t(case, BATCH_ARGS, cuda),
-                                             max_depth=7, word=word)
-        torch.cuda.synchronize()
-        assert build.LAUNCHES["fabric_fused_batch"] == before + 1
-        assert torch.equal(got, want)
+        check_fused(cuda, "fabric_fused_batch", case, cluster, word)
 
     @pytest.mark.parametrize("n,b,word,cluster,t_len", [
         (5000, 5, -1, 1, 6), (40000, 3, 0xFFFF, 4, 4),
         (60000, 5, 0xFFFF, 8, 6), (60000, 40, -1, 8, 3),
-        (60000, 3, -1, 8, 1), (120000, 3, 0xFFFF, 0, 4),
-        (120000, 2, -1, 0, 1)])
+        (60000, 3, -1, 8, 1), (120000, 3, 0xFFFF, 16, 4),
+        (120000, 40, -1, 16, 1), (250000, 3, 0xFFFF, 0, 4),
+        (250000, 2, -1, 0, 1)])
     def test_fused_run_variants(self, cuda, n, b, word, cluster, t_len):
         """T cycles in one launch, bit-identical to the plain version in
         both variants (T 1 included), with mixed lane depths."""
-        assert fabric_step.fused_cluster(n, 200) == cluster
-        if b > 16:
-            assert fabric_step.active_clusters("fabric_fused_run", n, 200,
-                                               cluster) < b
         case = fabric_case(30 + b, b=b, n=n, f=20, p=200, t_len=t_len)
         case["depths"] = mixed_depths(b, 7, seed=1)
-        kw = {k: case[k] for k in RUN_KW}
-        want = fabric_step.fabric_fused_run_plain(
-            *_t(case, RUN_ARGS, cuda), **kw, max_depth=7, word=word)
-        before = build.LAUNCHES["fabric_fused_run"]
-        got = fabric_step.fabric_fused_run(*_t(case, RUN_ARGS, cuda), **kw,
-                                           max_depth=7, word=word)
-        torch.cuda.synchronize()
-        assert build.LAUNCHES["fabric_fused_run"] == before + 1
-        assert torch.equal(got, want)
+        check_fused(cuda, "fabric_fused_run", case, cluster, word)
+
+    @pytest.mark.parametrize("kernel", ["fabric_fused_batch",
+                                        "fabric_fused_run"])
+    def test_fused_kernels_at_the_tightest_room(self, cuda, kernel):
+        """Every block of a 16-block lane holds exactly its counted room
+        of PE records, in exactly a block's 227 KB of shared memory."""
+        case = tight_case(40, 20, TIGHT["n"], TIGHT["r"], t_len=2)
+        case["depths"] = mixed_depths(20, 7, seed=2)
+        assert check_fused(cuda, kernel, case, 16, -1) == TIGHT["r"]
 
     @pytest.mark.parametrize("b,n", [(1, 1024), (8, 1000), (32, 257),
                                      (32, 1024), (33, 1000), (64, 129),

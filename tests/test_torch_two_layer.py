@@ -289,11 +289,39 @@ def test_each_predicate_op_matches_its_numpy_definition(op):
 
 
 def test_base_alu_and_cluster_rule_are_unchanged():
+    """The plain PE keeps its 14 ops, its 32 B record (48 B with the 1-bit
+    inputs) and FULL its 8-block cluster; with the 1-bit inputs FULL fits
+    a 16-block cluster even charging every block all 3P records, and the
+    two-layer array only by its counted room."""
     a = torch.arange(-3, 3, dtype=torch.int32)
     assert len(fabric_step.pe_alu_candidates(a, a, a, a)) == 14
     assert fabric_step.fused_cluster(86_288, 780) == 8
-    assert fabric_step.fused_cluster(86_288, 780, pred=True) == 0
-    assert fabric_step.PE_BYTES == 64
+    assert fabric_step.fused_cluster(86_288, 780, pred=True) == 16
+    assert fabric_step.fused_cluster(179_312, 780, pred=True) == 0
+    assert fabric_step.fused_cluster(
+        179_312, 780, pred=True, rooms={c: 208 for c in (1, 2, 4, 8, 16)}
+    ) == 16
+    assert (fabric_step.REC_BYTES, fabric_step.PRED_REC_BYTES) == (32, 48)
+
+
+def test_fused_rooms_on_the_small_two_layer_fabric():
+    """On the benchmark's small two-layer array (three outputs a PE) the
+    room of each cluster size of 1-16 blocks is the most PE outputs that
+    one block's slot range holds, counted on the host."""
+    fab = _compiled().fabric()
+    t = fab._fused_args()
+    n, p = fab.arrays.num_nodes, fab.fused_tables["num_pe_slots"]
+    assert t["pe_in"].shape == (p, fabric_step.PRED_PE_INPUTS)
+    rooms = fabric_step.fused_rooms(t["src"], t["pe_res_idx"], 3 * p)
+    slot = fabric_step.fused_order(t["src"])[1][:n].numpy()
+    is_pe = t["pe_res_idx"].numpy() < 3 * p
+    assert is_pe.sum() == 3 * p
+    for c in fabric_step.FUSED_CLUSTERS:
+        chunk = -(-(n + 1) // c)
+        per_block = [int(((slot // chunk == k) & is_pe).sum())
+                     for k in range(c)]
+        assert rooms[c] == max(per_block)
+        assert sum(per_block) == 3 * p
 
 
 def _pred_case(seed, b=4, n=400, f=5, p=20):
@@ -376,13 +404,15 @@ def test_fused_run_on_the_card_equals_the_eager_engine(cuda, variant,
     the variant it ran."""
     if variant == "global":
         monkeypatch.setattr(fabric_step, "fused_cluster",
-                            lambda n, p, pred=False: 0)
+                            lambda n, p, pred=False, rooms=None: 0)
     cf = canal_torch.compile(make_spec({"spec": _small()}), device=cuda,
                              use_kernels=True)
     fab = cf.fabric()
     eager = cf.fabric(use_kernels=False)
-    n, p = fab.arrays.num_nodes, fab.fused_tables["num_pe_slots"]
-    launched = fabric_step.fused_cluster(n, p, pred=True)
+    n = fab.arrays.num_nodes
+    t = fab._fused_args()
+    launched = fabric_step.fused_plan("fabric_fused_run", t["src"],
+                                      t["pe_res_idx"], t["pe_in"])[0]
     assert (launched == 0) == (variant == "global")
     since = time.perf_counter()
     for name in APPS:
@@ -408,15 +438,27 @@ def test_fused_run_on_the_card_equals_the_eager_engine(cuda, variant,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,cluster", [(5000, 1), (60000, 8), (120000, 0)])
+@pytest.mark.parametrize("n,cluster,b,t_len", [
+    (5000, 1, 5, 4), (60000, 8, 5, 4), (120000, 16, 5, 4),
+    (120000, 16, 40, 1), (250000, 0, 5, 4)])
 def test_fused_kernels_with_bits_equal_their_plain_versions(cuda, n,
-                                                            cluster):
+                                                            cluster, b,
+                                                            t_len):
     """Random tables in the predicate layout (every op, immediates, cyclic
-    configurations), both fused kernels in the variant the size rule
-    picks, bit-identical to their plain versions."""
-    assert fabric_step.fused_cluster(n, 200, pred=True) == cluster
-    case = _pred_case(7, b=5, n=n, f=20, p=200)
+    configurations, lane depths of 0, 1, ``max_depth`` and past it), both
+    fused kernels in the variant the size rule picks (16 blocks at N
+    120,000 by the counted room; B 40 queues clusters the card cannot
+    hold at once), bit-identical to their plain versions."""
+    case = _pred_case(7, b=b, n=n, f=20, p=200)
+    case["depths"] = np.resize(np.array([0, 1, 7, 10, 3], np.int32), b)
     t = {k: torch.as_tensor(v, device=cuda) for k, v in case.items()}
+    for kernel in ("fabric_fused_batch", "fabric_fused_run"):
+        plan = fabric_step.fused_plan(kernel, t["src"], t["pe_res_idx"],
+                                      t["pe_in"])
+        assert plan[0] == cluster
+        if cluster and b >= 20:
+            assert fabric_step.active_clusters(kernel, n, cluster, plan[1],
+                                               True) < b
     args = [t[k] for k in BATCH] + [t["pe_res_idx"]]
     want = fabric_step.fabric_fused_batch_plain(*args, max_depth=7,
                                                 word=0xFFFF)
@@ -424,9 +466,9 @@ def test_fused_kernels_with_bits_equal_their_plain_versions(cuda, n,
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     rng = np.random.default_rng(8)
-    n_reg, n_io, n_mem, t_len = 12, 7, 3, 4
+    n_reg, n_io, n_mem = 12, 7, 3
     run = dict(
-        ext=rng.integers(0, 1 << 16, (5, t_len, n_io)),
+        ext=rng.integers(0, 1 << 16, (b, t_len, n_io)),
         pin_src=rng.integers(0, n_reg + n_io + n_mem + 1, n),
         reg_src=rng.integers(0, n + 1, n_reg),
         mem_in=rng.integers(0, n, n_mem), io_out=rng.integers(0, n, n_io))

@@ -301,8 +301,7 @@ MBAR = chain(
     sub("    uint32_t sres = l.sval0;",
         "    uint32_t sres = l.sval0;\n    int tick = 0;"),
     replace_all("    if (threadIdx.x == 0) *l.n_pe = 0;", MBAR_INIT),
-    sub("(size_t)(pred ? 144 : 64) * p + 16;",
-        "(size_t)(pred ? 144 : 64) * p + 32;"))
+    sub("* room + 16;", "* room + 32;"))
 RELAXED = sub(SWEEP_END,
               '        asm volatile("barrier.cluster.arrive.relaxed.aligned;'
               '\\n\\t"\n                     "barrier.cluster.wait.aligned;"'
@@ -698,17 +697,21 @@ def fused_rows(libs, device):
                  ("committed", 0, "ir"), ("committed", 16, "slots")]
                 + [(name, 8, "slots") for name in VARIANTS["fused"]
                    if name != "committed"])
+    # a block's record room: counted in the committed order; every PE's
+    # records (the bound of any order) in IR order
+    rooms = fs.fused_rooms(bargs[8], bargs[12], 2 * p)
     rows = []
     for name, cluster, placed in launches:
-        if cluster and fs.active_clusters("fabric_fused_batch", n, p,
-                                          cluster) < 1:
+        room = rooms[cluster] if cluster and placed == "slots" else 2 * p
+        if cluster and fs.active_clusters("fabric_fused_batch", n, cluster,
+                                          room) < 1:
             rows.append({"kernel": "fabric_fused_*", "variant": name,
                          "cluster": cluster, "scheduled": False})
             continue
         lib = libs["fused", name]
         # the tables stay referenced by ``sc`` while the calls run
-        sc = fs._fused_scratch("fabric_fused_run", bargs[8], b, p, False,
-                               cluster, state_words=state)
+        sc = fs._fused_scratch("fabric_fused_run", bargs[8], b, False,
+                               cluster, room, state_words=state)
         ptr = [fs._ptr(sc, k) for k in ("buf", "picked", "pinv", "state")]
         nodes = [fs._ptr(sc if placed == "slots" else ir_order, k)
                  for k in ("node_of", "slot_of")]
@@ -718,7 +721,7 @@ def fused_rows(libs, device):
                 *[a.data_ptr() for a in (bargs[3], bargs[0], bargs[1],
                                          bargs[2], *bargs[4:])],
                 *nodes, out_b.data_ptr(), ptr[0], ptr[1], b, n, f, p, 0,
-                md, word, cluster, build.stream_ptr(device)), name)
+                md, word, cluster, room, build.stream_ptr(device)), name)
 
         def call_r():
             build.check(entry(lib, "canal_fabric_fused_run")(
@@ -726,7 +729,7 @@ def fused_rows(libs, device):
                                          rargs[1], *rargs[7:])],
                 *nodes, out_r.data_ptr(), *ptr, b, n, f, p, 0, t_len,
                 rkw["n_reg"], rkw["n_io"], rkw["n_mem"], md, word, cluster,
-                build.stream_ptr(device)), name)
+                room, build.stream_ptr(device)), name)
 
         for kernel, call, out, want, reps in (
                 ("fabric_fused_batch", call_b, out_b, want_b, 20),
@@ -736,6 +739,7 @@ def fused_rows(libs, device):
             torch.cuda.synchronize()
             rows.append({"kernel": kernel, "variant": name,
                          "cluster": cluster or "global", "order": placed,
+                         "room": room,
                          "ms": graph_ms(call, reps),
                          "equal": bool(torch.equal(out, want)),
                          "changes_result": VARIANTS["fused"][name][1]})
