@@ -63,10 +63,8 @@ after; each must have launched the kernels it exists to drive.
              annealer), its bitstream, and ``run_with_sources`` with its
              PE program for 64 tokens (placed and routed once, on the
              full-mode point). Each cycle's sweeps are one ``rv_sweeps``
-             launch (launches = cycles, no graph replayed); the stream's
-             first 16 cycles run again on the graph path (the kernel's
-             size rule patched to refuse FULL; equal), as the kernel's
-             earlier time; the first 4 cycles of each, run again on the
+             launch (launches = cycles); the first 4 cycles of each, run
+             again on the
              card and on the port's CPU path, must agree bit for bit,
              FIFO state included, and the app's first 4 likewise with
              the card's eager sweeps. In full mode ``emulate`` runs the
@@ -326,7 +324,7 @@ EARLIER = {"fabric_sweep": ("fabric_sweep_first.cu", [_P] * 4 + [_I] * 2
 #: depth takes ~0.5 s at FULL) and eagerly on the card, and the share of
 #: cycles a backpressured sink is ready
 RV_TOKENS, RV_STREAM_T, RV_APP_T, RV_FILL_T = 64, 192, 96, 96
-RV_CPU_T, RV_EAGER_T, RV_GRAPH_T, RV_SINK_READY = 4, 4, 16, 0.6
+RV_CPU_T, RV_EAGER_T, RV_SINK_READY = 4, 4, 0.6
 #: the reference docstring's batched evaluation (``kernels/hpwl.py``):
 #: 64 chains x 4 candidates x 4,096 nets at K 4; the rounds in which the
 #: box kernels and their earlier versions are timed in turns
@@ -788,14 +786,13 @@ def rv_counts(fab):
     from repro_torch.kernels import build
 
     return {"rv_sweeps": build.LAUNCHES["rv_sweeps"],
-            "kernel_cycles": fab.kernel_cycles,
-            "graph_replays": fab.graph_replays}
+            "kernel_cycles": fab.kernel_cycles}
 
 
 def rv_timed(fab, *args, **kw):
     """``run_with_sources`` on the card: its outputs on the host, ms per
-    cycle by CUDA events, and what it counted: ``rv_sweeps`` launches,
-    kernel cycles and sweeps replayed from CUDA graphs."""
+    cycle by CUDA events, and what it counted: ``rv_sweeps`` launches
+    and kernel cycles."""
     before = rv_counts(fab)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -883,9 +880,8 @@ def rv_kernel_row(cases):
 
 
 def rv_kernel_cycles(mode, counts, cycles):
-    """At FULL every cycle's sweeps are one ``rv_sweeps`` launch and no
-    graph is replayed."""
-    want = {"rv_sweeps": cycles, "kernel_cycles": cycles, "graph_replays": 0}
+    """At FULL every cycle's sweeps are one ``rv_sweeps`` launch."""
+    want = {"rv_sweeps": cycles, "kernel_cycles": cycles}
     if counts != want:
         raise AssertionError(f"rv {mode}: counted {counts}, not {want}")
 
@@ -958,27 +954,9 @@ def rv_mode(rv, routed, rng):
         raise AssertionError(f"rv {mode}: source ready never dropped under a "
                              f"stalled sink ({absorbed} absorbed)")
     case = rv_kernel_case(fab, config, depth)
-    # the same stream on the graph path (past the kernel's size rule), as
-    # the kernel's earlier time
-    from repro_torch.fabric import ready_valid
-    rule = ready_valid.rv_cluster
-    ready_valid.rv_cluster = lambda n, p: 0
-    try:
-        graphed, graph_ms_cycle, graph_counts = rv_timed(
-            fab, config, streams[:RV_GRAPH_T], lens, sink[:RV_GRAPH_T],
-            depth=depth)
-    finally:
-        ready_valid.rv_cluster = rule
-    if graph_counts["graph_replays"] != 2 * (RV_GRAPH_T * depth - 1) or \
-            any(not np.array_equal(g, o[:RV_GRAPH_T])
-                for g, o in zip(graphed, outs)):
-        raise AssertionError(f"rv {mode}: the graph path differs: "
-                             f"{graph_counts}")
     rec["stream"] = {"cycles": RV_STREAM_T, "depth": depth,
                      "fifo_stages": stages, "ms_per_cycle": ms,
-                     "launches": counts,
-                     "graph_ms_per_cycle": graph_ms_cycle,
-                     "tokens": RV_TOKENS,
+                     "launches": counts, "tokens": RV_TOKENS,
                      "delivered": int(len(got)), "absorbed_never_ready":
                      absorbed, "cpu_equal_cycles": RV_CPU_T}
 
@@ -1234,9 +1212,10 @@ def local_share(batch_args, cluster, ordered=True):
     """Share of a sweep's shared-memory reads that land in the reading
     block, for lanes split over ``cluster`` blocks in contiguous ranges
     of ceil((N + 1) / cluster) node slots, nodes placed by
-    ``fused_order`` (``ordered``) or in IR order: one read per node that
+    ``cluster_plan.order`` (``ordered``) or in IR order: one read per node that
     is not a PE output, one per operand of a PE output that is neither an
     immediate nor absent fan-in (three for res0, one for res1)."""
+    from repro_torch.kernels import cluster_plan
     from repro_torch.kernels import fabric_step as fs
 
     (_, sel, _, _, _, _, imm_mask, _, src, keep, pin_mask, pe_in,
@@ -1244,7 +1223,7 @@ def local_share(batch_args, cluster, ordered=True):
     n = sel.shape[1]
     p = pe_in.shape[0]
     chunk = -(-(n + 1) // cluster)
-    slot = (fs.fused_order(src)[1].long() if ordered else
+    slot = (cluster_plan.order(src)[1].long() if ordered else
             torch.arange(n + 1, device=sel.device))
     i = torch.arange(n, device=sel.device)
     own = (pin_mask > 0) | (keep > 0)
@@ -1270,22 +1249,20 @@ def fused_shape(kernel, batch_args, depths, max_depth, cycles, ms):
     ``batch_args``), a block's PE-record room and shared memory, and sweep
     counts: ``sweeps`` is the deepest lane's sweeps a launch (lanes run
     side by side), ``lane_sweeps`` their sum."""
+    from repro_torch.kernels import cluster_plan
     from repro_torch.kernels import fabric_step as fs
 
     src, pe_in, pe_res_idx = batch_args[8], batch_args[11], batch_args[12]
     n = src.shape[0]
     pred = fs.pe_outputs(pe_in) == 3
     cluster, room = fs.fused_plan(kernel, src, pe_res_idx, pe_in)
-    rec = fs.PRED_REC_BYTES if pred else fs.REC_BYTES
     run = np.minimum(np.maximum(depths, 0), max_depth)
     sweeps = cycles * int(run.max())
     return {"variant": cluster or "global", "room": room,
-            "block_smem_bytes": (fs.SLOT_BYTES * -(-(n + 1) // cluster)
-                                 + rec * room + fs.COUNT_BYTES
+            "block_smem_bytes": (fs.fused_block_bytes(n, cluster, room, pred)
                                  if cluster else None),
-            "active_clusters": (fs.active_clusters(kernel, n, cluster, room,
-                                                   pred)
-                                if cluster else None),
+            "active_clusters": (cluster_plan.active_clusters(
+                kernel, n, cluster, room, pred) if cluster else None),
             "sweeps": sweeps, "lane_sweeps": cycles * int(run.sum()),
             "us_per_sweep": ms * 1e3 / max(sweeps, 1)}
 

@@ -20,7 +20,10 @@ sweep itself is the hot spot and has a kernel
 (``repro_torch.kernels.fabric_step``); the batched path runs the whole
 fixpoint — PE cores included — as one fused kernel launch per cycle, or
 the whole T-cycle emulation as one launch with ``io_chunk``, and masks
-each configuration to its own combinational depth.
+each configuration to its own combinational depth. Where the cluster
+kernels' shared-memory plan (``kernels/cluster_plan.py``, which the
+ready-valid sweeps share) gives a lane a thread-block cluster, the lane's
+values stay in its shared memory; past that they live in device memory.
 
 The numpy table builders are the reference's, unchanged. With
 ``use_kernels=True`` every path (single sweep, unfused batched sweep,

@@ -27,17 +27,18 @@ The configuration is fixed for a run, so each node's selected source and
 each consumer's "uses this producer" flag are computed once: a forward
 sweep is a gather from the selected sources, and a backward sweep a
 min-gather over the used consumers (an unused one reads the always-ready
-sentinel). Both sweeps work in place on preallocated buffers. On the card
-with ``use_kernels`` a cycle's sweeps are one launch of the
-``rv_sweeps`` kernel (``kernels/rv_sweep.py``), where its size rule holds
-the fabric; a larger fabric captures each sweep into a CUDA graph per
-direction and replays it ``depth`` times a cycle. The drive and the FIFO
-update stay a short eager tail. On the CPU, and with
-``use_kernels=False``, the same sweep functions run eagerly.
+sentinel). Both sweeps work in place on preallocated buffers. A run's
+sweeps take one of two paths. On the card with ``use_kernels``, where the
+cluster kernels' shared-memory plan gives the fabric a cluster
+(``kernels/rv_sweep.py:rv_plan``: up to 16 blocks, N + 1 <= 232,448), a
+cycle's sweeps are one launch of the ``rv_sweeps`` kernel. Everywhere
+else (the CPU, ``use_kernels=False``, a larger fabric) the same sweep
+functions run eagerly. The drive and the FIFO update stay a short eager
+tail.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,7 +47,7 @@ from repro_torch.core.graph import IO, Interconnect, Node, NodeKind, Side
 from repro_torch.core.lowering import FabricModule, State
 from repro_torch.core.tiles import WORD
 from repro_torch.device import DeviceLike
-from repro_torch.kernels.rv_sweep import rv_cluster, rv_sweeps, rv_tables
+from repro_torch.kernels.rv_sweep import rv_plan, rv_sweeps, rv_tables
 from repro_torch.obs import span
 
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -68,7 +69,9 @@ class RVFabric(FabricModule):
                 "an interconnect with a 1-bit layer (its PEs' bit0-2 and "
                 "res_p, its IOs' 1-bit pair) has no ready-valid lowering")
         self._build_reverse_tables()
-        #: sweeps replayed from CUDA graphs (forward and backward) so far
+        #: always 0 (no path replays CUDA graphs): kept because
+        #: ``canalbench/kinds/rv_stream.py`` reads it into
+        #: ``rv_sweep_launches_per_cycle``
         self.graph_replays = 0
         #: cycles whose sweeps the ``rv_sweeps`` kernel ran so far
         self.kernel_cycles = 0
@@ -290,43 +293,17 @@ class RVFabric(FabricModule):
         for k in range(depth):
             self._backward_sweep(cyc, k % 2, (k + 1) % 2)
 
-    def _rv_capture(self, cyc: State
-                    ) -> Dict[str, List[torch.cuda.CUDAGraph]]:
-        """The first cycle's first forward and backward sweeps, run eagerly
-        on a side stream (so that every device table exists), then one
-        CUDA graph per sweep direction and buffer order. A failed capture
-        raises."""
-        stream = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(stream)
-        with torch.cuda.stream(side):
-            self._forward_sweep(cyc, 0, 1)
-            self._backward_sweep(cyc, 0, 1)
-        stream.wait_stream(side)
-        graphs = {}
-        for name, sweep in (("fwd", self._forward_sweep),
-                            ("bwd", self._backward_sweep)):
-            graphs[name] = []
-            for cur, nxt in ((0, 1), (1, 0)):
-                graph = torch.cuda.CUDAGraph()
-                # other threads (the DSE executor's) may use the card
-                with torch.cuda.graph(graph,
-                                      capture_error_mode="thread_local"):
-                    sweep(cyc, cur, nxt)
-                graphs[name].append(graph)
-        return graphs
-
     def _rv_path(self, depth: int, cycles: int) -> str:
         """How a run's sweeps go: ``"kernel"`` (one ``rv_sweeps`` launch
-        a cycle) on the card with ``use_kernels`` where the kernel's size
-        rule (``rv_cluster``, from N and P alone) holds the fabric,
-        ``"graph"`` (CUDA-graph replays) there past it, ``"eager"``
-        elsewhere and for an empty run."""
+        a cycle) on the card with ``use_kernels`` where the plan
+        (``rv_plan``) gives the fabric a cluster, ``"eager"`` elsewhere
+        and for an empty run."""
         if not (self.device.type == "cuda" and self.use_kernels
                 and depth > 0 and cycles > 0):
             return "eager"
-        return ("kernel" if rv_cluster(self.arrays.num_nodes, self.num_pe)
-                else "graph")
+        cluster = rv_plan(self._dev("src", self.arrays.src, torch.int32),
+                          self._dev("pe_out", self.pe_out))[0]
+        return "kernel" if cluster else "eager"
 
     def _rv_tables(self, cyc: State) -> State:
         """The ``rv_sweeps`` kernel's tables for the run's configuration
@@ -349,36 +326,24 @@ class RVFabric(FabricModule):
         """``cycles`` cycles from ``init_state``: ``drive(t)`` gives the
         cycle's (ext_in, ext_valid, sink_ready), ``observe(t, outs)`` takes
         its outputs. The sweeps go as ``_rv_path`` says: one kernel launch
-        a cycle from tables resolved once a run (``rv.tables``), or replays
-        from CUDA graphs captured in the first cycle, or eagerly. A
-        cycle's spans part its sweeps (``rv.sweeps``: the launch, or the
-        replays' enqueue, which waits while the launch queue is full) from
-        its eager drive and FIFO update (``rv.start``, ``rv.clock``)."""
+        a cycle from tables resolved once a run (``rv.tables``), or
+        eagerly. A cycle's spans part its sweeps (``rv.sweeps``) from its
+        eager drive and FIFO update (``rv.start``, ``rv.clock``)."""
         cyc = self._rv_cycle(config, pe_cfg)
         state = self.init_state()
         path = self._rv_path(depth, cycles)
         if path == "kernel":
             with span("rv.tables"):
                 tables = self._rv_tables(cyc)
-        graphs = None
         for t in range(cycles):
             with span("rv.start"):
                 self._rv_start(cyc, state, *drive(t))
-            first = 0
-            if path == "graph" and graphs is None:
-                with span("rv.capture"):
-                    graphs, first = self._rv_capture(cyc), 1
             with span("rv.sweeps"):
                 if path == "kernel":
                     rv_sweeps(tables, cyc["d"], cyc["v"], cyc["r"],
                               cyc["pins_d"], cyc["pins_v"], cyc["fix_mask"],
                               cyc["fix_val"], depth, WORD)
                     self.kernel_cycles += 1
-                elif path == "graph":
-                    for name in ("fwd", "bwd"):
-                        for k in range(first, depth):
-                            graphs[name][k % 2].replay()
-                    self.graph_replays += 2 * (depth - first)
                 else:
                     self._rv_sweeps(cyc, depth)
             with span("rv.clock"):

@@ -57,6 +57,7 @@ _SIGNATURES = {
     "canal_fabric_fused_run": [_P] * 18 + [_P] * 5 + [_I] * 13 + [_P],
     "canal_fabric_fused_clusters": [_I] * 5 + [ctypes.POINTER(ctypes.c_int)],
     "canal_rv_sweeps": [_P] * 17 + [_I] * 5 + [_P],
+    "canal_rv_sweeps_clusters": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)],
     "canal_minplus_step": [_P, _P, _P, _I, _I, _P],
     "canal_net_bboxes": [_P, _P, _P] + [_I] * 6 + [_P],
     "canal_hpwl": [_P, _P, _P] + [_I] * 6 + [_P],

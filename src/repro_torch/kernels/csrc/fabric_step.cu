@@ -34,13 +34,14 @@
 // dependent load of the previous vector).
 //
 // Two variants, chosen by the wrapper's size rule (fabric_step.py,
-// fused_plan), never on a failure:
+// fused_plan, on the plan rv_sweeps.cu shares: cluster_plan.py), never on
+// a failure:
 //
 // Cluster (a lane fits a cluster's shared memory: 16 ceil((N + 1) / C) +
 // 32 R + 16 <= 227 KB, 48 R with the 1-bit inputs, with C <= 16 blocks on
 // an H100, where R, the record room, is the most PE outputs any one block's
 // slots hold in the wrapper's order). One thread block
-// cluster per lane, launched with cudaLaunchKernelEx (past 8 blocks a
+// cluster per lane, launched by cluster_launch.cuh (past 8 blocks a
 // non-portable size); clusters that do not
 // fit the card at once queue, as no cluster waits on another. The lane's
 // N + 1 node slots are split over the cluster's blocks in contiguous
@@ -85,6 +86,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster_launch.cuh"
 #include "pe_alu.cuh"
 
 namespace cg = cooperative_groups;
@@ -466,44 +468,6 @@ size_t cluster_smem(int n, int room, int pred, int cluster) {
            (size_t)16 * (pred ? Pe<true>::kRec : Pe<false>::kRec) * room + 16;
 }
 
-template <typename... Params>
-cudaError_t cluster_config(void (*kernel)(Params...), int B, int N, int room,
-                           int pred, int cluster, cudaStream_t stream,
-                           cudaLaunchConfig_t* cfg,
-                           cudaLaunchAttribute* attr) {
-    const size_t smem = cluster_smem(N, room, pred, cluster);
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err == cudaSuccess && cluster > 8)
-        err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    attr->id = cudaLaunchAttributeClusterDimension;
-    attr->val.clusterDim.x = (unsigned)cluster;
-    attr->val.clusterDim.y = 1;
-    attr->val.clusterDim.z = 1;
-    *cfg = cudaLaunchConfig_t{};
-    cfg->gridDim = dim3((unsigned)B * (unsigned)cluster);
-    cfg->blockDim = dim3(kClusterThreads);
-    cfg->dynamicSmemBytes = smem;
-    cfg->stream = stream;
-    cfg->attrs = attr;
-    cfg->numAttrs = 1;
-    return err;
-}
-
-template <typename... Params, typename... Args>
-int launch_cluster(void (*kernel)(Params...), int B, int N, int room,
-                   int pred, int cluster, cudaStream_t stream,
-                   Args... args) {
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute attr;
-    cudaError_t err = cluster_config(kernel, B, N, room, pred, cluster,
-                                     stream, &cfg, &attr);
-    if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, kernel, args...);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
-}
-
 // ------------------------------------------------------- the global variant
 constexpr int kThreads = 256;
 
@@ -696,8 +660,10 @@ template <bool kPred>
 int fused_batch(const Fabric& f, const int* vals0, int* out, int cluster,
                 cudaStream_t stream) {
     if (cluster > 0)
-        return launch_cluster(cluster_batch_kernel<kPred>, f.B, f.N, f.room,
-                              (int)kPred, cluster, stream, f, vals0, out);
+        return launch_cluster(cluster_batch_kernel<kPred>, f.B * cluster,
+                              kClusterThreads, cluster,
+                              cluster_smem(f.N, f.room, kPred, cluster),
+                              stream, f, vals0, out);
     int blocks = 0;
     int err = cooperative_grid(grid_batch_kernel<kPred>,
                                (size_t)f.B * (f.N + 1), &blocks);
@@ -713,8 +679,10 @@ template <bool kPred>
 int fused_run(const Fabric& f, const Stream& s, int cluster,
               cudaStream_t stream) {
     if (cluster > 0)
-        return launch_cluster(cluster_run_kernel<kPred>, f.B, f.N, f.room,
-                              (int)kPred, cluster, stream, f, s);
+        return launch_cluster(cluster_run_kernel<kPred>, f.B * cluster,
+                              kClusterThreads, cluster,
+                              cluster_smem(f.N, f.room, kPred, cluster),
+                              stream, f, s);
     int blocks = 0;
     int err = cooperative_grid(grid_run_kernel<kPred>,
                                (size_t)f.B * (f.N + 1), &blocks);
@@ -725,19 +693,6 @@ int fused_run(const Fabric& f, const Stream& s, int cluster,
     cudaLaunchCooperativeKernel((void*)grid_run_kernel<kPred>, dim3(blocks),
                                 dim3(kThreads), args, 0, stream);
     return (int)cudaGetLastError();
-}
-
-template <typename Kernel>
-cudaError_t max_clusters(Kernel kernel, int N, int room, int pred,
-                         int cluster, int* active) {
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute attr;
-    cudaError_t err = cluster_config(kernel, 1, N, room, pred, cluster, 0,
-                                     &cfg, &attr);
-    if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveClusters(active, (const void*)kernel,
-                                             &cfg);
-    return err;
 }
 
 }  // namespace
@@ -795,16 +750,14 @@ extern "C" int canal_fabric_fused_run(
 extern "C" int canal_fabric_fused_clusters(int run, int N, int room,
                                            int cluster, int pred,
                                            int* active) {
-    cudaError_t err;
+    const size_t smem = cluster_smem(N, room, pred, cluster);
+    auto query = [&](auto kernel) {
+        return max_active_clusters(kernel, kClusterThreads, cluster, smem,
+                                   active);
+    };
     if (run)
-        err = pred ? max_clusters(cluster_run_kernel<true>, N, room, 1,
-                                  cluster, active)
-                   : max_clusters(cluster_run_kernel<false>, N, room, 0,
-                                  cluster, active);
-    else
-        err = pred ? max_clusters(cluster_batch_kernel<true>, N, room, 1,
-                                  cluster, active)
-                   : max_clusters(cluster_batch_kernel<false>, N, room, 0,
-                                  cluster, active);
-    return (int)err;
+        return pred ? query(cluster_run_kernel<true>)
+                    : query(cluster_run_kernel<false>);
+    return pred ? query(cluster_batch_kernel<true>)
+                : query(cluster_batch_kernel<false>);
 }

@@ -1,7 +1,7 @@
 // A ready-valid cycle's sweeps for Hopper (sm_90a): canal_rv_sweeps.
 //
 // Replaces no Pallas kernel: the reference (repro/fabric/ready_valid.py)
-// leaves its sweeps to XLA. It replaces, on the card, the CUDA-graph
+// leaves its sweeps to XLA. It took the place, on the card, of CUDA-graph
 // replays of RVFabric._forward_sweep / _backward_sweep (two graphs a sweep
 // pair, ~50 + 3 small PyTorch kernels; 254 replays and 19.25 ms a cycle
 // on the east route across cgra_amber.FULL, depth 127). One launch runs a
@@ -31,7 +31,7 @@
 // three thread-block clusters of C blocks, one a vector: the critical
 // path is `depth` sweeps, not 2 x depth. Within a cluster the node slots
 // are split over its blocks in contiguous ranges of `chunk`, in the node
-// order of fabric_step.fused_order (each node beside the nodes it reads,
+// order of cluster_plan.order (each node beside the nodes it reads,
 // so most reads stay in the reading block); a read of another block goes
 // through the cluster's distributed shared memory (mapa +
 // ld.shared::cluster); one barrier.cluster a sweep. The per-configuration
@@ -60,19 +60,20 @@
 //
 // Shared memory a block (4 B words; chunk = ceil((N + 1) / C) rounded up
 // to 4): data and valid two buffers and the descriptors (12 B a slot) and
-// the PE records (32 B a data record, 16 B a valid one, room for 2P);
-// ready three buffers and the descriptors (16 B a slot). At FULL (N
-// 86,288, P 780, C 8, chunk 10,788): data 129,456 + 49,920 = 179,376 B,
-// ready 172,608 B, inside the 232,448 B a block may opt into. Data and
-// valid in one cluster would take 20 B a slot and 48 B a record: 215,760
-// + 74,880 = 290,640 B at 8 blocks, past the portable cluster. The size
-// rule (kernels/rv_sweep.py:rv_cluster) takes the least C of 1, 2, 4, 8
-// that fits, from N and P alone; past 8 blocks RVFabric keeps its graph
-// path.
+// the PE records among the block's slots (32 B a data record, 16 B a
+// valid one, room for R, the most any block holds); ready three buffers
+// and the descriptors (16 B a slot). At FULL (N 86,288, C 8, chunk 10,788,
+// R 208): data 129,456 + 6,656 = 136,112 B, ready 172,608 B, inside the
+// 232,448 B a block may opt into. The cluster size follows the plan the
+// fused kernels share (kernels/cluster_plan.py, from rv_sweep.py:rv_plan):
+// the least C of 1, 2, 4, 8, 16 that fits, 16 (non-portable) only where
+// the card holds one; past 16 blocks (N + 1 > 232,448) RVFabric sweeps
+// eagerly.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster_launch.cuh"
 #include "pe_alu.cuh"
 
 namespace cg = cooperative_groups;
@@ -110,7 +111,7 @@ struct Args {
     const unsigned char* fix_mask;  // (N,) bool
     const int* fix_val;     // (N,)
     int *d0, *d1, *v0, *v1, *r0, *r1;  // the cycle's buffers 0 and 1
-    int N, P, depth, word;
+    int N, depth, word;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -329,26 +330,26 @@ __global__ void __launch_bounds__(kThreads, 1) rv_sweeps_kernel(Args a) {
 }
 
 // Shared memory of one block: the larger of the forward layout (12 B a
-// slot, 32 B a data record, room for 2P) and the backward one (16 B a
+// slot, 32 B a data record, room for `room`) and the backward one (16 B a
 // slot).
-size_t rv_smem(int n, int p, int cluster) {
+size_t rv_smem(int n, int room, int cluster) {
     const size_t chunk = (size_t)(((n + cluster) / cluster + 3) & ~3);
-    const size_t fwd = 12 * chunk + (size_t)64 * p, bwd = 16 * chunk;
+    const size_t fwd = 12 * chunk + (size_t)32 * room, bwd = 16 * chunk;
     return fwd > bwd ? fwd : bwd;
 }
 
 }  // namespace
 
 // One cycle's sweeps: three clusters of `cluster` blocks (data, valid,
-// ready) of one launch; `depth` >= 1. d0 .. r1 are the cycle's buffers,
-// written in place.
+// ready) of one launch, room for `room` PE records a block; `depth` >= 1.
+// d0 .. r1 are the cycle's buffers, written in place.
 extern "C" int canal_rv_sweeps(
     const int* node_of, const int* fwd_desc, const int* pin_of,
     const int* bwd_desc, const int* rec_d, const int* rec_v,
     const int* rec_off, const int* pins_d, const int* pins_v,
     const unsigned char* fix_mask, const int* fix_val, int* d0, int* d1,
-    int* v0, int* v1, int* r0, int* r1, int N, int P, int depth, int word,
-    int cluster, void* stream) {
+    int* v0, int* v1, int* r0, int* r1, int N, int room, int depth,
+    int word, int cluster, void* stream) {
     Args a;
     a.node_of = node_of; a.fwd_desc = fwd_desc; a.pin_of = pin_of;
     a.bwd_desc = bwd_desc;
@@ -357,25 +358,16 @@ extern "C" int canal_rv_sweeps(
     a.rec_off = rec_off; a.pins_d = pins_d; a.pins_v = pins_v;
     a.fix_mask = fix_mask; a.fix_val = fix_val;
     a.d0 = d0; a.d1 = d1; a.v0 = v0; a.v1 = v1; a.r0 = r0; a.r1 = r1;
-    a.N = N; a.P = P; a.depth = depth; a.word = word;
-    const size_t smem = rv_smem(N, P, cluster);
-    cudaError_t err = cudaFuncSetAttribute(
-        rv_sweeps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    cudaLaunchAttribute attr;
-    attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = (unsigned)cluster;
-    attr.val.clusterDim.y = 1;
-    attr.val.clusterDim.z = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(3u * (unsigned)cluster);
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = (cudaStream_t)stream;
-    cfg.attrs = &attr;
-    cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, rv_sweeps_kernel, a);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
+    a.N = N; a.depth = depth; a.word = word;
+    return launch_cluster(rv_sweeps_kernel, 3 * cluster, kThreads, cluster,
+                          rv_smem(N, room, cluster), (cudaStream_t)stream,
+                          a);
+}
+
+// How many clusters of `cluster` blocks at N nodes and `room` PE records
+// a block the card holds at once (0: none).
+extern "C" int canal_rv_sweeps_clusters(int N, int room, int cluster,
+                                        int* active) {
+    return max_active_clusters(rv_sweeps_kernel, kThreads, cluster,
+                               rv_smem(N, room, cluster), active);
 }

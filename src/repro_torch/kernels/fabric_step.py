@@ -24,27 +24,24 @@ Four kernels, all hand-written CUDA:
 
 The two fused kernels come in two variants, chosen by
 :func:`fused_plan` from N, the PE layout and how many PE outputs each
-block's slots hold (:func:`fused_rooms`): one thread block cluster of 1-16
-blocks per lane with the lane's vector in the cluster's shared memory, or,
-for fabrics too large for that, one cooperative grid over value vectors in
-device memory.
+block's slots hold (:func:`fused_rooms`), by the plan ``rv_sweeps`` shares
+(``cluster_plan``): one thread block cluster of 1-16 blocks per lane with
+the lane's vector in the cluster's shared memory, or, for fabrics too
+large for that, one cooperative grid over value vectors in device memory.
 
 Each wrapper takes the plain PyTorch version beside it only when its
 tensors lie on the CPU; CUDA tensors launch the kernel (or raise).
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-import threading
-import weakref
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.obs import span
 
-from . import build
+from . import build, cluster_plan
+from .cluster_plan import BLOCK_SMEM_BYTES
 
 # PE ALU candidate order; must match repro_torch.core.tiles.PECore.OPS
 # (repro_torch.core.lowering asserts the correspondence at import time).
@@ -58,23 +55,15 @@ PRED_OPS = ("ugt", "uge", "ult", "psel", "pand")
 PE_INPUTS = 4
 PRED_PE_INPUTS = 7
 
-#: shared memory one block may opt into on an H100 (227 KB), and what the
-#: fused kernels' cluster variant keeps there: for each node slot two value
-#: buffers, the pinned value and the node's descriptor, 4 B each; for each
-#: PE output among the block's slots its record, 32 B (48 B on a fabric with
-#: a 1-bit layer: the bit operands and the result's mask too); the records'
-#: count
-BLOCK_SMEM_BYTES = 232_448
+#: what the fused kernels' cluster variant keeps in a block's shared
+#: memory (``cluster_plan``): for each node slot two value buffers, the
+#: pinned value and the node's descriptor, 4 B each; for each PE output
+#: among the block's slots its record, 32 B (48 B on a fabric with a 1-bit
+#: layer: the bit operands and the result's mask too); the records' count
 SLOT_BYTES = 16
 REC_BYTES = 32
 PRED_REC_BYTES = 48
 COUNT_BYTES = 16
-#: the largest portable cluster (``rv_sweep``'s ceiling)
-MAX_CLUSTER = 8
-#: the fused kernels' cluster sizes; past 8 blocks a cluster is
-#: non-portable, which an H100 schedules where a GPC has 16 free SMs
-FUSED_CLUSTERS = (1, 2, 4, 8, 16)
-FUSED_MAX_CLUSTER = FUSED_CLUSTERS[-1]
 #: an H100's SMs, and the threads each holds at once
 SM_COUNT = 132
 SM_THREADS = 2048
@@ -433,147 +422,50 @@ def _check_fabric(kernel, b, n, p, depths, sel, op, const, imm_mask,
                          f"kernel's int32 indexing")
 
 
-def fused_cluster(n: int, p: int, pred: bool = False,
-                  rooms: Optional[Dict[int, int]] = None) -> int:
-    """The fused kernels' size rule: the number of blocks in the cluster
-    that holds one lane of N nodes and P PEs, or 0 for the global-memory
-    variant.
-
-    A block of the cluster variant keeps ``SLOT_BYTES`` of shared memory
-    per node slot, the N + 1 slots (the zero sentinel included) split
-    evenly over the cluster's blocks, ``REC_BYTES`` per PE output among
-    its slots (``PRED_REC_BYTES`` where ``pred``: PEs with the 1-bit
-    inputs) and ``COUNT_BYTES``. ``rooms`` maps each cluster size C to the
-    most PE outputs one block's slots hold (:func:`fused_rooms`); without
-    it every block is charged all of a lane's 2P (3P) outputs, which
-    bounds any order. The rule takes the smallest C of
-    ``FUSED_CLUSTERS`` with ``SLOT_BYTES * ceil((N + 1) / C) + REC_BYTES *
-    rooms[C] + COUNT_BYTES <= BLOCK_SMEM_BYTES``: at the Amber FULL size
-    (N 86,288, P 780, room 208) 8 blocks of 179,264 B; the two-layer
-    array (N 179,312, 1-bit inputs, room 208) 16 blocks of 189,328 B. Past
-    16 blocks a fabric takes the global-memory variant (0). The rule reads
-    N, P, ``pred`` and the rooms only: it never depends on a launch's
-    outcome."""
+def fused_block_bytes(n: int, cluster: int, room: int,
+                      pred: bool = False) -> int:
+    """A block's shared memory in the cluster variant: ``SLOT_BYTES`` for
+    each of its ceil((N + 1) / C) slots, ``REC_BYTES`` for each of its
+    ``room`` PE records (``PRED_REC_BYTES`` where ``pred``: PEs with the
+    1-bit inputs) and ``COUNT_BYTES``: at the Amber FULL size (N 86,288,
+    8 blocks, room 208) 179,264 B; on the two-layer array (N 179,312, 16
+    blocks, room 208, the 1-bit inputs) 189,328 B."""
     rec = PRED_REC_BYTES if pred else REC_BYTES
-    outs = 3 if pred else 2
-    for c in FUSED_CLUSTERS:
-        room = outs * p if rooms is None else rooms[c]
-        if (SLOT_BYTES * -(-(n + 1) // c) + rec * room + COUNT_BYTES
-                <= BLOCK_SMEM_BYTES):
-            return c
-    return 0
-
-
-#: values computed once per table: a key of the tables' ids and the
-#: question -> (weak references to the tables, their version counters,
-#: the value); the DSE executor's emulation thread reads it too
-_MEMO: dict = {}
-_MEMO_LOCK = threading.Lock()
-
-
-def _memo(tables, question, compute):
-    """``compute()``, kept while every tensor of ``tables`` lives and is
-    not modified in place."""
-    key = tuple(id(t) for t in tables) + question
-    hit = _MEMO.get(key)
-    if hit is not None and all(r() is t and v == t._version for r, v, t in
-                               zip(hit[0], hit[1], tables)):
-        return hit[2]
-    value = compute()
-    with _MEMO_LOCK:
-        for k in [k for k, (refs, _, _) in _MEMO.items()
-                  if any(r() is None for r in refs)]:
-            del _MEMO[k]
-        _MEMO[key] = ([weakref.ref(t) for t in tables],
-                      [t._version for t in tables], value)
-    return value
-
-
-def fused_order(src: torch.Tensor):
-    """The cluster variant's node order: ``node_of`` (N,) int32, the node
-    in each slot, and ``slot_of`` (N + 1,) int32, its inverse with the
-    sentinel N kept at slot N. Computed once per ``src`` tensor (a few
-    small launches on its device) and kept while that tensor lives and
-    is not modified in place.
-
-    Each node goes beside the lowest-numbered node it may read, key
-    ``min(i, src[i, :])``, ties in node order. Nodes read their own tile
-    and its neighbours, and the IR numbers each kind of node (switch-box
-    and port, register, register mux) tile by tile, so the key moves a
-    tile's registers and muxes next to its switch box: the contiguous
-    slot ranges of a cluster's blocks then hold rows of whole tiles. The
-    order changes where values live, never what they are."""
-    def compute():
-        n = src.shape[0]
-        idx = torch.arange(n, dtype=torch.int32, device=src.device)
-        key = torch.minimum(idx, src.amin(1)) if src.shape[1] else idx
-        node_of = torch.argsort(key, stable=True).to(torch.int32)
-        slot_of = torch.empty(n + 1, dtype=torch.int32, device=src.device)
-        slot_of[node_of.long()] = idx
-        slot_of[n:] = n
-        return node_of, slot_of
-    return _memo((src,), ("order",), compute)
+    return SLOT_BYTES * cluster_plan.even_chunk(n, cluster) + rec * room \
+        + COUNT_BYTES
 
 
 def fused_rooms(src: torch.Tensor, pe_res_idx: torch.Tensor,
                 n_res: int) -> Dict[int, int]:
-    """The cluster variant's record room: for each C of
-    ``FUSED_CLUSTERS``, the most PE-output nodes (``pe_res_idx < n_res``,
-    n_res = 2P, or 3P with the 1-bit inputs) whose :func:`fused_order`
-    slot falls in any one block's range of ceil((N + 1) / C) slots: the
-    records that block appends. Computed on ``src``'s device in a few small
-    launches and one read back, once per (``src``, ``pe_res_idx``) while
-    both live unmodified."""
-    def compute():
-        n = src.shape[0]
-        dev = src.device
-        slot = fused_order(src)[1][:n].long()[pe_res_idx < n_res]
-        sizes = torch.tensor(FUSED_CLUSTERS, device=dev)
-        block = slot[None, :] // -(-(n + 1) // sizes)[:, None]   # (5, R)
-        ranks = torch.arange(FUSED_MAX_CLUSTER, device=dev)
-        counts = (block[:, :, None] == ranks).sum(1)             # (5, 16)
-        return dict(zip(FUSED_CLUSTERS, counts.amax(1).tolist()))
-    return _memo((src, pe_res_idx), ("rooms", n_res), compute)
-
-
-@functools.lru_cache(maxsize=None)
-def active_clusters(kernel: str, n: int, cluster: int, room: int,
-                    pred: bool = False) -> int:
-    """How many clusters of ``cluster`` blocks of the fused ``kernel``
-    (``"fabric_fused_batch"`` or ``"fabric_fused_run"``) at N nodes and
-    ``room`` PE records a block (with the 1-bit inputs where ``pred``) the
-    card holds at once (``cudaOccupancyMaxActiveClusters``); a launch of
-    more lanes queues the rest."""
-    out = ctypes.c_int(0)
-    err = build.library().canal_fabric_fused_clusters(
-        int(kernel == "fabric_fused_run"), n, room, cluster, int(pred),
-        ctypes.byref(out))
-    build.check(err, kernel)
-    return out.value
+    """The cluster variant's record rooms (``cluster_plan.rooms``): a
+    record for each PE-output node (``pe_res_idx < n_res``, n_res = 2P,
+    or 3P with the 1-bit inputs). Counted once per (``src``,
+    ``pe_res_idx``) while both live unmodified."""
+    return cluster_plan.memo(
+        (src, pe_res_idx), ("rooms", n_res),
+        lambda: cluster_plan.rooms(src, pe_res_idx < n_res))
 
 
 def fused_plan(kernel: str, src: torch.Tensor, pe_res_idx: torch.Tensor,
                pe_in: torch.Tensor) -> Tuple[int, int]:
     """The fused ``kernel``'s variant for these tables on the card:
-    ``(cluster, room)``, :func:`fused_cluster` on the order's
-    :func:`fused_rooms` (room 0 for the global-memory variant). A
-    non-portable cluster of ``FUSED_MAX_CLUSTER`` blocks is taken only
-    where the card holds one at this size (:func:`active_clusters`),
-    else the global-memory variant."""
+    ``(cluster, room)``, ``cluster_plan.plan`` of the cluster variant's
+    layout (:func:`fused_block_bytes`) on the order's :func:`fused_rooms`,
+    asking the card (``cluster_plan.active_clusters``) before a
+    non-portable cluster; ``(0, 0)`` for the global-memory variant."""
     n, p = src.shape[0], pe_in.shape[0]
     outs = pe_outputs(pe_in)
     pred = outs == 3
-    rooms = fused_rooms(src, pe_res_idx, outs * p)
-    cluster = fused_cluster(n, p, pred, rooms)
-    if cluster > MAX_CLUSTER and active_clusters(
-            kernel, n, cluster, rooms[cluster], pred) < 1:
-        cluster = 0
-    return cluster, rooms.get(cluster, 0)
+    return cluster_plan.plan(
+        lambda c, room: fused_block_bytes(n, c, room, pred),
+        fused_rooms(src, pe_res_idx, outs * p),
+        lambda c, room: cluster_plan.active_clusters(kernel, n, c, room,
+                                                     pred))
 
 
 def _fused_scratch(kernel, src, b, pred, cluster, room, state_words=0):
     """Device tables of the variant ``cluster`` selects: the cluster
-    variant's node order (:func:`fused_order` of ``src``); the global
+    variant's node order (``cluster_plan.order`` of ``src``); the global
     variant's value buffers and picked sources (and, for the run kernel,
     pinned values and the state). Raises when no cluster of that size
     and ``room`` fits the card."""
@@ -584,10 +476,10 @@ def _fused_scratch(kernel, src, b, pred, cluster, room, state_words=0):
         return torch.empty(shape, dtype=torch.int32, device=dev)
 
     if cluster:
-        if active_clusters(kernel, n, cluster, room, pred) < 1:
+        if cluster_plan.active_clusters(kernel, n, cluster, room, pred) < 1:
             raise RuntimeError(f"{kernel}: no cluster of {cluster} blocks "
                                f"at N {n}, room {room} fits this card")
-        return dict(zip(("node_of", "slot_of"), fused_order(src)))
+        return dict(zip(("node_of", "slot_of"), cluster_plan.order(src)))
     out = {"buf": empty(2 * b * (n + 1)), "picked": empty(b, n)}
     if state_words:
         out.update(pinv=empty(b, n), state=empty(b, state_words))

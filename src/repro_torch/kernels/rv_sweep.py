@@ -3,34 +3,34 @@
 ``RVFabric`` settles a cycle with ``depth`` forward sweeps of data and
 valid and ``depth`` backward sweeps of ready (``_rv_sweeps``). On the card
 with ``use_kernels``, :func:`rv_sweeps` runs them all in one launch of
-``canal_rv_sweeps``: three thread-block clusters of :func:`rv_cluster`
-blocks, one for each vector. The reference has no Pallas kernel here, so
-the kernel is held to ``_rv_sweeps`` bit for bit.
+``canal_rv_sweeps``: three thread-block clusters, one for each vector, of
+the blocks :func:`rv_plan` gives (``cluster_plan.plan``, the size rule the
+fused kernels share). Where no cluster holds the fabric, ``RVFabric``
+sweeps eagerly. The reference has no Pallas kernel here, so the kernel is
+held to ``_rv_sweeps`` bit for bit.
 
 :func:`rv_tables` resolves once a run what the configuration fixes, in
-the kernel's node order (``fabric_step.fused_order``): every slot's
-forward and backward descriptor and the PE cores' records, grouped by the
-block that holds their outputs. :func:`rv_sweeps_plain` runs the same
-sweeps from those tables in plain PyTorch; the wrapper takes it for CPU
-tensors.
+the kernel's node order (``cluster_plan.order``): every slot's forward and
+backward descriptor and the PE cores' records, grouped by the block that
+holds their outputs. :func:`rv_sweeps_plain` runs the same sweeps from
+those tables in plain PyTorch; the wrapper takes it for CPU tensors.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from . import build
-from .fabric_step import (BLOCK_SMEM_BYTES, MAX_CLUSTER, fused_order,
-                          pe_alu_candidates)
+from . import build, cluster_plan
+from .fabric_step import pe_alu_candidates
 
 #: shared memory a block of ``canal_rv_sweeps`` keeps: for each node slot
 #: 12 B in the data and valid clusters (two buffers and the descriptor) and
 #: 16 B in the ready one (three buffers and the descriptor); for each PE
-#: its two data records, 32 B each
+#: output among its slots a data record, 32 B (a valid record takes 16 B)
 FWD_SLOT_BYTES = 12
 BWD_SLOT_BYTES = 16
-PE_BYTES = 64
+REC_BYTES = 32
 #: a descriptor's fields (``csrc/rv_sweeps.cu``): the slot in its block,
 #: the block's rank, a read of another block; forward: a pinned node, a PE
 #: output or a constant operand; backward: no producer, a min that starts
@@ -49,35 +49,44 @@ INT32_MAX = 2 ** 31 - 1
 Tables = Dict[str, object]
 
 
-def rv_chunk(n: int, cluster: int) -> int:
+def rv_chunk(n, cluster):
     """Node slots a block of a cluster of ``cluster`` blocks holds: the
     N + 1 slots (the sentinel included) split evenly, rounded up to 4."""
-    return (-(-(n + 1) // cluster) + 3) & ~3
+    return (cluster_plan.even_chunk(n, cluster) + 3) & ~3
 
 
-def rv_cluster(n: int, p: int) -> int:
-    """The kernel's size rule: the blocks of each of its three clusters
-    for a fabric of N nodes and P PEs, or 0 where none fits (the graph
-    path).
-
-    The least C of 1, 2, 4 and ``MAX_CLUSTER`` with ``max(FWD_SLOT_BYTES
-    x chunk + PE_BYTES x P, BWD_SLOT_BYTES x chunk) <= BLOCK_SMEM_BYTES``,
-    chunk = :func:`rv_chunk`: 8 blocks at the Amber FULL size (N 86,288,
-    P 780: 179,376 B and 172,608 B). The ready cluster sets the limit
-    there: at 8 blocks, N + 1 <= 116,224. The rule reads N and P only; it
-    never depends on a launch's outcome."""
-    c = 1
-    while c <= MAX_CLUSTER:
-        if _fits(n, p, c):
-            return c
-        c *= 2
-    return 0
-
-
-def _fits(n: int, p: int, cluster: int) -> bool:
+def rv_block_bytes(n: int, cluster: int, room: int) -> int:
+    """A block's shared memory: the larger of the forward layout
+    (``FWD_SLOT_BYTES`` a slot, ``REC_BYTES`` for each of ``room`` PE
+    records) and the ready one (``BWD_SLOT_BYTES`` a slot), over
+    :func:`rv_chunk` slots. At the Amber FULL size (N 86,288, 8 blocks)
+    the ready layout's 172,608 B; at 8 blocks it holds N + 1 <= 116,224,
+    at 16 blocks N + 1 <= 232,448."""
     chunk = rv_chunk(n, cluster)
-    return max(FWD_SLOT_BYTES * chunk + PE_BYTES * p,
-               BWD_SLOT_BYTES * chunk) <= BLOCK_SMEM_BYTES
+    return max(FWD_SLOT_BYTES * chunk + REC_BYTES * room,
+               BWD_SLOT_BYTES * chunk)
+
+
+def rv_plan(src: torch.Tensor, pe_out: torch.Tensor) -> Tuple[int, int]:
+    """``(cluster, room)`` for the kernel on a fabric of fan-in table
+    ``src`` and PE outputs ``pe_out`` (a record each): ``cluster_plan``'s
+    plan of :func:`rv_block_bytes` on the rooms counted in
+    :func:`rv_chunk` slots (once per (``src``, ``pe_out``) while both
+    live unmodified), asking the card before a non-portable cluster;
+    ``(0, 0)`` where no cluster holds the fabric. Amber FULL takes 8
+    blocks."""
+    n = src.shape[0]
+
+    def rooms():
+        held = torch.zeros(n + 1, dtype=torch.bool, device=src.device)
+        held[pe_out.long().reshape(-1)] = True
+        return cluster_plan.rooms(src, held[:n], rv_chunk)
+
+    return cluster_plan.plan(
+        lambda c, room: rv_block_bytes(n, c, room),
+        cluster_plan.memo((src, pe_out), ("rv_rooms",), rooms),
+        lambda c, room: cluster_plan.active_clusters("rv_sweeps", n, c,
+                                                     room))
 
 
 def rv_tables(src: torch.Tensor, picked: torch.Tensor, keep: torch.Tensor,
@@ -95,17 +104,17 @@ def rv_tables(src: torch.Tensor, picked: torch.Tensor, keep: torch.Tensor,
     nodes, K <= 2; op / const: (P,) the PE program, imm_mask / imm_val
     (P, 4) its immediates or None; cons_used: (N, C) each node's used
     consumers (sentinel N). ``cluster`` forces the blocks a cluster
-    (default :func:`rv_cluster`). All on ``src``'s device."""
+    (default :func:`rv_plan`). All on ``src``'s device."""
     dev = src.device
     n, p = src.shape[0], pe_in.shape[0]
-    c = rv_cluster(n, p) if cluster is None else cluster
-    if c not in (1, 2, 4, MAX_CLUSTER) or not _fits(n, p, c):
-        raise ValueError(f"rv_sweeps: no cluster of {c or MAX_CLUSTER} "
-                         f"blocks holds N {n}, P {p}")
     if pe_out.dim() != 2 or pe_out.shape[1] > 2:
         raise ValueError("rv_sweeps: a PE has at most two outputs")
+    c = rv_plan(src, pe_out)[0] if cluster is None else cluster
+    if c not in cluster_plan.LADDER:
+        raise ValueError(f"rv_sweeps: no cluster of {c or '1-16'} blocks "
+                         f"holds N {n}, P {p}")
     chunk = rv_chunk(n, c)
-    node_of, slot_of = fused_order(src)
+    node_of, slot_of = cluster_plan.order(src)
     pos_of, node = slot_of.long(), node_of.long()
     positions = torch.arange(n, device=dev)
 
@@ -171,6 +180,10 @@ def rv_tables(src: torch.Tensor, picked: torch.Tensor, keep: torch.Tensor,
     order = torch.argsort(rank, stable=True)
     counts = torch.bincount(rank, minlength=c)
     rec_off = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    room = int(counts.max())
+    if rv_block_bytes(n, c, room) > cluster_plan.BLOCK_SMEM_BYTES:
+        raise ValueError(f"rv_sweeps: no cluster of {c} blocks holds N {n}, "
+                         f"P {p}")
 
     prod = picked.long()[node]
     no_push = prod >= n
@@ -184,7 +197,7 @@ def rv_tables(src: torch.Tensor, picked: torch.Tensor, keep: torch.Tensor,
     return {"node_of": i32(node_of), "fwd": i32(fwd),
             "pin_of": i32(pin_index[node]), "bwd": i32(bwd),
             "rec_d": i32(rec_d[order]), "rec_v": i32(rec_v[order]),
-            "rec_off": i32(rec_off), "n": n, "p": p, "cluster": c,
+            "rec_off": i32(rec_off), "n": n, "cluster": c, "room": room,
             "chunk": chunk}
 
 
@@ -323,7 +336,7 @@ def rv_sweeps(tables: Tables, d: Sequence[torch.Tensor],
         ptr["rec_v"], ptr["rec_off"], pins_d.data_ptr(), pins_v.data_ptr(),
         fix_mask.data_ptr(), fix_val.data_ptr(), d[0].data_ptr(),
         d[1].data_ptr(), v[0].data_ptr(), v[1].data_ptr(), r[0].data_ptr(),
-        r[1].data_ptr(), n, tables["p"], int(depth), int(word),
+        r[1].data_ptr(), n, tables["room"], int(depth), int(word),
         tables["cluster"], build.stream_ptr(dev))
     build.check(err, kernel)
     if not torch.cuda.is_current_stream_capturing():

@@ -4,8 +4,8 @@ function run eagerly) and as the oracle (``use_kernels=False``), on a
 routed app of a 6x6 fabric with a memory column and on a routed app of
 ``cgra_amber.FULL``, and one ``fabric_sweep`` launch counted for each
 sweep; and ``RVFabric`` on the card, whose cycle's sweeps are one launch
-of the ``rv_sweeps`` kernel at FULL (CUDA-graph replays past the kernel's
-size rule), against its eager sweeps, the CPU and the kernel's plain
+of the ``rv_sweeps`` kernel (8-block clusters at FULL, 16 past N
+116,223), against its eager sweeps, the CPU and the kernel's plain
 version. Needs a card (no JAX):
 
     python -m pytest -q -m cuda tests/test_torch_graph_run.py
@@ -72,15 +72,16 @@ def test_graph_run_equals_eager_loop_and_oracle(cuda, size):
     assert torch.equal(got, eager) and torch.equal(got, oracle)
 
 
-def _rv_full(cuda, split):
-    """``cgra_amber.FULL`` as a ready-valid fabric on the card (with the
-    kernels), the same without them, and on the CPU; the east route and
-    its depth."""
+def _rv_full(cuda, split, tracks=5):
+    """``cgra_amber.FULL`` (with ``tracks`` tracks) as a ready-valid fabric
+    on the card (with the kernels), the same without them, and on the CPU;
+    the east route and its depth."""
     from repro_torch.configs.cgra_amber import FULL
     from repro_torch.core.compile import compile_spec
     from repro_torch.fabric import RVFabric, east_route
 
-    rv = compile_spec(FULL.replace(ready_valid=True, split_fifo=split),
+    rv = compile_spec(FULL.replace(ready_valid=True, split_fifo=split,
+                                   num_tracks=tracks),
                       device=cuda, use_kernels=True)
     fab, eager = rv.fabric(), rv.fabric(use_kernels=False)
     cpu = RVFabric(rv.interconnect, fifo_mode=fab.fifo_mode, device="cpu")
@@ -129,55 +130,59 @@ def _rv_same_as_eager_and_cpu(fab, eager, cpu, config, depth, counted):
                                other.last_state[k].cpu())
 
 
+def _kernel_cycles_counted(fab):
+    """``counted(cycles)`` for ``_rv_same_as_eager_and_cpu``: one
+    ``rv_sweeps`` launch and one kernel cycle a cycle, no graph
+    replayed."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def counted(cycles):
+        before = build.LAUNCHES["rv_sweeps"], fab.kernel_cycles
+        yield
+        assert (build.LAUNCHES["rv_sweeps"] - before[0],
+                fab.kernel_cycles - before[1], fab.graph_replays) == \
+            (cycles, cycles, 0)
+    return counted
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("split", [False, True])
-def test_rv_graph_run_equals_eager_loop(cuda, split):
+def test_rv_kernel_run_equals_eager_loop(cuda, split):
     """``RVFabric`` on the card: at FULL each cycle's sweeps are one
-    launch of the ``rv_sweeps`` kernel (no graph replayed, a kernel cycle
-    counted each cycle), with the same outputs and FIFO state as the same
-    sweeps run eagerly (``use_kernels=False``) and as the CPU: the east
-    route across ``cgra_amber.FULL`` (31 FIFO stages), 16 cycles of
-    ``run_with_sources`` under random backpressure and of
+    launch of the ``rv_sweeps`` kernel in 8-block clusters (a kernel
+    cycle counted each cycle), with the same outputs and FIFO state as
+    the same sweeps run eagerly (``use_kernels=False``) and as the CPU:
+    the east route across ``cgra_amber.FULL`` (31 FIFO stages), 16 cycles
+    of ``run_with_sources`` under random backpressure and of
     ``run_stream``."""
-    import contextlib
+    from repro_torch.kernels import rv_sweep
 
     fab, eager, cpu, config, depth = _rv_full(cuda, split)
     assert fab._rv_path(depth, 16) == "kernel"
-
-    @contextlib.contextmanager
-    def counted(cycles):
-        before = (build.LAUNCHES["rv_sweeps"], fab.kernel_cycles,
-                  fab.graph_replays)
-        yield
-        assert (build.LAUNCHES["rv_sweeps"] - before[0],
-                fab.kernel_cycles - before[1],
-                fab.graph_replays) == (cycles, cycles, before[2])
-
-    _rv_same_as_eager_and_cpu(fab, eager, cpu, config, depth, counted)
+    assert fab._rv_tables(fab._rv_cycle(config, None))["cluster"] == 8
+    assert rv_sweep.rv_plan(fab._dev("src", fab.arrays.src, torch.int32),
+                            fab._dev("pe_out", fab.pe_out))[0] == 8
+    _rv_same_as_eager_and_cpu(fab, eager, cpu, config, depth,
+                              _kernel_cycles_counted(fab))
 
 
 @pytest.mark.cuda
-def test_rv_graph_path_past_the_size_rule(cuda, monkeypatch):
-    """A fabric past the kernel's size rule keeps the graph path: with
-    the rule patched to refuse FULL, the sweeps replay from CUDA graphs
-    (two a sweep pair, the first cycle's first pair run eagerly), with the
-    same outputs and FIFO state; no kernel launch."""
-    import contextlib
+def test_rv_run_in_16_block_clusters_past_8_blocks(cuda):
+    """Past 8 blocks' reach (N 116,223) the kernel runs in non-portable
+    16-block clusters: ``cgra_amber.FULL`` with 7 tracks (N 118,544)
+    gives the same outputs and FIFO state as its eager sweeps and as the
+    CPU, one launch and one kernel cycle a cycle, no graph replayed."""
+    from repro_torch.kernels import rv_sweep
 
-    from repro_torch.fabric import ready_valid
-
-    fab, eager, cpu, config, depth = _rv_full(cuda, True)
-    monkeypatch.setattr(ready_valid, "rv_cluster", lambda n, p: 0)
-
-    @contextlib.contextmanager
-    def counted(cycles):
-        before = build.LAUNCHES["rv_sweeps"], fab.graph_replays
-        yield
-        assert (build.LAUNCHES["rv_sweeps"] - before[0],
-                fab.graph_replays - before[1]) == \
-            (0, 2 * (cycles * depth - 1))
-
-    _rv_same_as_eager_and_cpu(fab, eager, cpu, config, depth, counted)
+    fab, eager, cpu, config, depth = _rv_full(cuda, True, tracks=7)
+    n = fab.arrays.num_nodes
+    assert 116_223 < n == 118_544
+    assert fab._rv_path(depth, 16) == "kernel"
+    assert rv_sweep.rv_plan(fab._dev("src", fab.arrays.src, torch.int32),
+                            fab._dev("pe_out", fab.pe_out))[0] == 16
+    _rv_same_as_eager_and_cpu(fab, eager, cpu, config, depth,
+                              _kernel_cycles_counted(fab))
 
 
 @pytest.mark.cuda
@@ -187,7 +192,7 @@ def test_rv_sweeps_kernel_equals_plain_and_eager(cuda, split):
     ``_rv_sweeps`` from the same buffers: data, valid and ready equal in
     both buffers, on a 6x6 ready-valid fabric under random selects (cyclic
     networks) and a random PE program with immediates, with each cluster
-    size (1, 2, 4, 8 blocks, so that reads and pushes cross blocks) and
+    size (1, 2, 4, 8, 16 blocks, so that reads and pushes cross blocks) and
     depths 1-40; from buffers as ``_rv_start`` leaves them, stirred, and
     with full consumer rows (``tests/test_torch_rv_sweep.py``)."""
     import canal_torch
@@ -207,7 +212,7 @@ def test_rv_sweeps_kernel_equals_plain_and_eager(cuda, split):
     config = rng.integers(0, 4, fab.num_config)
     sweeps = (rv_sweep.rv_sweeps, rv_sweep.rv_sweeps_plain)
     launches = 0
-    for cluster in (1, 2, 4, 8):
+    for cluster in (1, 2, 4, 8, 16):
         for depth in (1, 2, 3, 17, 40):
             for variant in ("start", "stir", "full"):
                 cyc = _cycle(fab, config, pe_cfg, rng, variant != "start")
@@ -217,4 +222,4 @@ def test_rv_sweeps_kernel_equals_plain_and_eager(cuda, split):
                 _same_sweeps(fab, cyc, depth, cluster, sweeps)
                 torch.cuda.synchronize()
                 launches += build.LAUNCHES["rv_sweeps"] - before
-    assert launches == 4 * 5 * 3
+    assert launches == 5 * 5 * 3

@@ -13,14 +13,16 @@ plain version on the card; it skips on a host without CUDA. The JAX side
 is imported inside a fixture, so that class also runs where JAX is
 absent: ``python -m pytest -q -m cuda tests/test_torch_kernels.py``.
 """
+import functools
 import time
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (build, fabric_step, flash_attention, hpwl,
-                                 minplus, ref, ssd_scan)
+from repro_torch.kernels import (build, cluster_plan, fabric_step,
+                                 flash_attention, hpwl, minplus, ref,
+                                 rv_sweep, ssd_scan)
 
 INT_MIN, INT_MAX = -2 ** 31, 2 ** 31 - 1
 #: operand pool: int32 extremes, shifts around the [0, 15] clip, negatives
@@ -371,37 +373,89 @@ def block_bytes(n, cluster, room, pred=False):
             + fabric_step.COUNT_BYTES)
 
 
-def test_fused_cluster_size_rule():
-    """The fused kernels' variant follows N, P and the record rooms alone:
-    the smallest cluster (1, 2, 4, 8, 16 blocks) whose blocks hold 16 B x
-    ceil((N + 1) / C) + 32 B x room + 16 B in 227 KB, the global-memory
-    variant (0) past 16 blocks. Without rooms every block is charged all
-    2P records."""
-    rule = fabric_step.fused_cluster
-    assert [rule(n, 0) for n in (0, 1, 5000, 14526, 14527, 29053, 29054,
-                                 58107, 58108, 86288, 116215, 116216,
-                                 232431, 232432, 10 ** 6)] == [
-        1, 1, 1, 1, 2, 2, 4, 4, 8, 8, 8, 16, 16, 0, 0]
-    # the Amber FULL size and the limits at its P with every record
-    assert [rule(n, 780) for n in (86288, 91255, 91256, 182511,
-                                   182512)] == [8, 8, 16, 16, 0]
-    assert rule(5000, 3632) == 0                 # no room for one slot
-    for n, p in ((5000, 200), (60000, 200), (86288, 780), (116215, 0),
-                 (200000, 200)):
-        c = rule(n, p)
-        assert block_bytes(n, c, 2 * p) <= fabric_step.BLOCK_SMEM_BYTES
-    # FULL's room at 8 blocks (208 records in its order) keeps 8 blocks
-    # (4 would need 345 KB of slots), in less shared memory; the two-layer
-    # array's (208 at 16 blocks) fits 16 blocks, where every record did not
-    full = {1: 1560, 2: 780, 4: 416, 8: 208, 16: 110}
-    assert rule(86288, 780, rooms=full) == 8
+def rv_block_bytes(n, cluster, room):
+    """A block's shared memory in ``rv_sweeps``: the forward layout (12 B a
+    slot, 32 B a record) or the ready one (16 B a slot), whichever is
+    larger, over ceil((N + 1) / C) slots rounded up to 4."""
+    chunk = (-(-(n + 1) // cluster) + 3) & ~3
+    return max(12 * chunk + 32 * room, 16 * chunk)
+
+
+def every(room):
+    """Rooms where each block is charged ``room`` records."""
+    return dict.fromkeys(cluster_plan.LADDER, room)
+
+
+#: counted rooms: FULL's order (208 records a block at 8 blocks, the same
+#: in either kernel's slot ranges) and the two-layer array's (208 at 16)
+FULL_ROOMS = {1: 1560, 2: 780, 4: 414, 8: 208, 16: 104}
+TWO_ROOMS = {1: 2340, 2: 1170, 4: 828, 8: 414, 16: 208}
+#: (N, rooms, cluster) each layout's plan gives: the limits of every
+#: cluster size without records, FULL's 8 blocks and the two-layer array's
+#: 16 at their counted rooms, limits with every PE's records in each block
+PLAN_CASES = {
+    "fused": (block_bytes, [
+        *zip((0, 1, 5000, 14526, 14527, 29053, 29054, 58107, 58108, 86288,
+              116215, 116216, 232431, 232432, 10 ** 6), [every(0)] * 15,
+             (1, 1, 1, 1, 2, 2, 4, 4, 8, 8, 8, 16, 16, 0, 0)),
+        (86288, FULL_ROOMS, 8), (86288, every(1560), 8),
+        (91255, every(1560), 8), (91256, every(1560), 16),
+        (182511, every(1560), 16), (182512, every(1560), 0),
+        (5000, every(7264), 0)]),                # no room for one slot
+    "fused_pred": (functools.partial(block_bytes, pred=True), [
+        (179312, TWO_ROOMS, 16), (179312, every(2340), 0),
+        (86288, every(2340), 16), (7506, every(2340), 1),
+        (7507, every(2340), 2), (60055, every(2340), 8),
+        (60056, every(2340), 16), (120111, every(2340), 16),
+        (120112, every(2340), 0)]),
+    "rv": (rv_block_bytes, [
+        *zip((0, 1192, 14527, 14528, 29055, 29056, 58111, 58112, 86288,
+              116223, 116224, 232447, 232448, 10 ** 6), [every(0)] * 14,
+             (1, 1, 1, 2, 2, 4, 4, 8, 8, 8, 16, 16, 0, 0)),
+        (86288, FULL_ROOMS, 8), (116223, every(1560), 8),
+        (116224, every(1560), 16),
+        (5000, every(7264), 0),                  # no room for one slot
+        (5000, {1: 6000, 2: 3000, 4: 1500, 8: 750, 16: 375}, 2)]),
+}
+
+
+@pytest.mark.parametrize("layout", sorted(PLAN_CASES))
+def test_cluster_plan_size_rule(layout, monkeypatch):
+    """The cluster kernels' one size rule, on each kernel's layout
+    (``fabric_step.fused_block_bytes``, with the 1-bit inputs, and
+    ``rv_sweep.rv_block_bytes``) and the rooms given: the smallest cluster
+    of 1, 2, 4, 8, 16 blocks whose block fits 227 KB, 0 past 16. A
+    16-block cluster only where the card holds one; below 16 the card is
+    never asked."""
+    fn, cases = PLAN_CASES[layout]
+    layout_bytes = {"fused": fabric_step.fused_block_bytes,
+                    "fused_pred": functools.partial(
+                        fabric_step.fused_block_bytes, pred=True),
+                    "rv": rv_sweep.rv_block_bytes}[layout]
+    for n, rooms, want in cases:
+        def size(c, room):
+            assert layout_bytes(n, c, room) == fn(n, c, room)
+            return fn(n, c, room)
+        asked = []
+        got = cluster_plan.plan(size, rooms,
+                                lambda c, room: asked.append(c) or 1)
+        assert got == ((want, rooms[want]) if want else (0, 0)), (n, want)
+        assert asked == ([16] if want == 16 else [])
+        if want:
+            assert size(want, rooms[want]) <= cluster_plan.BLOCK_SMEM_BYTES
+            assert want == 1 or size(want // 2, rooms[want // 2]) > \
+                cluster_plan.BLOCK_SMEM_BYTES
+        if want == 16:
+            assert cluster_plan.plan(size, rooms, lambda c, r: 0) == (0, 0)
+    assert cluster_plan.BLOCK_SMEM_BYTES == 232_448
+    # FULL at 8 blocks and the two-layer array at 16, in less shared memory
+    # than with every record charged; 4 (8) blocks would need past 227 KB
     assert block_bytes(86288, 8, 208) == 179_264
-    assert block_bytes(86288, 4, 416) > fabric_step.BLOCK_SMEM_BYTES
-    two = {1: 2340, 2: 1170, 4: 828, 8: 414, 16: 208}
-    assert rule(179312, 780, pred=True) == 0
-    assert rule(179312, 780, pred=True, rooms=two) == 16
+    assert block_bytes(86288, 4, 414) > cluster_plan.BLOCK_SMEM_BYTES
     assert block_bytes(179312, 16, 208, pred=True) == 189_328
     assert block_bytes(179312, 8, 414, pred=True) == 378_528
+    assert rv_block_bytes(86288, 8, 208) == 172_608
+    assert rv_block_bytes(86288, 4, 414) == 345_216
 
 
 def host_rooms(src, pe_res_idx, n_res):
@@ -414,7 +468,7 @@ def host_rooms(src, pe_res_idx, n_res):
     slot = np.empty(n, np.int64)
     slot[np.argsort(key, kind="stable")] = np.arange(n)
     counts = {}
-    for c in fabric_step.FUSED_CLUSTERS:
+    for c in cluster_plan.LADDER:
         chunk = -(-(n + 1) // c)
         counts[c] = np.bincount(slot[pe_res_idx < n_res] // chunk,
                                 minlength=c)
@@ -447,7 +501,7 @@ def tight_case(seed, b, n, r, cluster=16, f=20, t_len=4):
     holds exactly the counted room."""
     p = cluster * r // 2
     case = fabric_case(seed, b=b, n=n, f=f, p=p, t_len=t_len)
-    node_of = fabric_step.fused_order(torch.as_tensor(case["src"]))[0]
+    node_of = cluster_plan.order(torch.as_tensor(case["src"]))[0]
     node_of = node_of.numpy()
     chunk = -(-(n + 1) // cluster)
     rng = np.random.default_rng(seed)
@@ -477,10 +531,14 @@ def test_the_tightest_room_fills_a_block_exactly(monkeypatch):
     t = {k: torch.as_tensor(case[k]) for k in ("src", "pe_res_idx",
                                                "pe_in")}
     assert fabric_step.fused_rooms(t["src"], t["pe_res_idx"], 2 * p) == rooms
-    assert block_bytes(n, 16, r) == fabric_step.BLOCK_SMEM_BYTES
-    assert fabric_step.fused_cluster(n, p, rooms=rooms) == 16
-    assert fabric_step.fused_cluster(n, p, rooms={**rooms, 16: r + 1}) == 0
-    monkeypatch.setattr(fabric_step, "active_clusters", lambda *a: 1)
+    assert block_bytes(n, 16, r) == cluster_plan.BLOCK_SMEM_BYTES
+
+    def size(c, room):
+        return fabric_step.fused_block_bytes(n, c, room)
+    assert cluster_plan.plan(size, rooms, lambda c, room: 1) == (16, r)
+    assert cluster_plan.plan(size, {**rooms, 16: r + 1},
+                             lambda c, room: 1) == (0, 0)
+    monkeypatch.setattr(cluster_plan, "active_clusters", lambda *a: 1)
     assert fabric_step.fused_plan("fabric_fused_run", t["src"],
                                   t["pe_res_idx"], t["pe_in"]) == (16, r)
 
@@ -495,19 +553,19 @@ def test_fused_plan_takes_16_blocks_where_the_card_holds_one(monkeypatch):
                                                "pe_in")}
     room = fabric_step.fused_rooms(t["src"], t["pe_res_idx"], 400)[16]
     asked = []
-    monkeypatch.setattr(fabric_step, "active_clusters",
+    monkeypatch.setattr(cluster_plan, "active_clusters",
                         lambda *a: asked.append(a) or 7)
     plan = fabric_step.fused_plan("fabric_fused_run", t["src"],
                                   t["pe_res_idx"], t["pe_in"])
     assert plan == (16, room) and 0 < room < 400
     assert asked == [("fabric_fused_run", 120000, 16, room, False)]
-    monkeypatch.setattr(fabric_step, "active_clusters", lambda *a: 0)
+    monkeypatch.setattr(cluster_plan, "active_clusters", lambda *a: 0)
     assert fabric_step.fused_plan("fabric_fused_batch", t["src"],
                                   t["pe_res_idx"], t["pe_in"]) == (0, 0)
 
     def never(*a):
         raise AssertionError("asked the card below 16 blocks")
-    monkeypatch.setattr(fabric_step, "active_clusters", never)
+    monkeypatch.setattr(cluster_plan, "active_clusters", never)
     small = fabric_case(6, b=1, n=60000, f=4, p=200)
     t = {k: torch.as_tensor(small[k]) for k in ("src", "pe_res_idx",
                                                 "pe_in")}
@@ -581,7 +639,7 @@ def test_fused_order_is_a_permutation(seed, n, f):
     nodes, ``slot_of`` its inverse with the sentinel N kept at slot N, and
     every node placed by its key min(i, src[i, :]) in ascending order."""
     _, src, _ = sweep_case(seed, 1, n, f)
-    node_of, slot_of = fabric_step.fused_order(torch.as_tensor(src))
+    node_of, slot_of = cluster_plan.order(torch.as_tensor(src))
     node_of, slot_of = node_of.numpy(), slot_of.numpy()
     assert node_of.dtype == np.int32 and slot_of.dtype == np.int32
     assert sorted(node_of.tolist()) == list(range(n))
@@ -597,10 +655,10 @@ def test_fused_order_is_kept_per_source_table():
     tensor is modified in place."""
     _, src, _ = sweep_case(3, 1, 200, 5)
     src = torch.as_tensor(src)
-    first = fabric_step.fused_order(src)
-    assert fabric_step.fused_order(src)[0] is first[0]
+    first = cluster_plan.order(src)
+    assert cluster_plan.order(src)[0] is first[0]
     src[:, :] = torch.flip(src, [0])
-    again = fabric_step.fused_order(src)
+    again = cluster_plan.order(src)
     assert again[0] is not first[0]
     key = torch.minimum(torch.arange(200), src.amin(1))[again[0].long()]
     assert bool((key[1:] >= key[:-1]).all())
@@ -1107,7 +1165,7 @@ def check_fused(device, kernel, case, cluster, word):
     assert plan[0] == cluster
     b = case["depths"].shape[0]
     if cluster and b >= 20:
-        assert fabric_step.active_clusters(
+        assert cluster_plan.active_clusters(
             kernel, t["src"].shape[0], cluster, plan[1],
             fabric_step.pe_outputs(t["pe_in"]) == 3) < b
     plain = getattr(fabric_step, kernel + "_plain")

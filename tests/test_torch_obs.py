@@ -28,7 +28,7 @@ PROGRAM_SPANS = {
     "dse.routed_analysis", "dse.emulate", "dse.join", "pnr.app",
     "pnr.pack", "pnr.global_place", "pnr.resources", "pnr.detailed_place",
     "pnr.route", "pnr.sta", "emu.bind", "emu.stage", "emu.run",
-    "emu.fused", "emu.unpack", "rv.tables", "rv.capture", "rv.start", "rv.sweeps",
+    "emu.fused", "emu.unpack", "rv.tables", "rv.start", "rv.sweeps",
     "rv.clock"}
 SMALL = dict(width=6, height=6, num_tracks=3, io_ring=True)
 

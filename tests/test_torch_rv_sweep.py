@@ -2,8 +2,9 @@
 CPU: its plain version, which reads the kernel's own tables in the
 kernel's slot order, against ``RVFabric._rv_sweeps`` bit for bit (data,
 valid and ready, both buffers); ``_rv_run``'s kernel path (taken here
-through ``_rv_path``) against the eager one; the size rule. The kernel
-itself runs on the card: ``tests/test_torch_graph_run.py``."""
+through ``_rv_path``) against the eager one; the tables' cluster. The
+size rule is ``tests/test_torch_kernels.py::test_cluster_plan_size_rule``;
+the kernel itself runs on the card: ``tests/test_torch_graph_run.py``."""
 import functools
 
 import numpy as np
@@ -80,8 +81,14 @@ def _cycle(fab, config, pe_cfg, rng, stir=False):
 
 
 def _tables(fab, cyc, cluster):
+    """The kernel's tables: the plan's cluster (``None``), whose counted
+    room they keep, or ``cluster`` blocks."""
     if cluster is None:
-        return fab._rv_tables(cyc)
+        tables = fab._rv_tables(cyc)
+        assert (tables["cluster"], tables["room"]) == rv_sweep.rv_plan(
+            fab._dev("src", fab.arrays.src, torch.int32),
+            fab._dev("pe_out", fab.pe_out))
+        return tables
     a, pe = fab.arrays, cyc["pe"]
     return rv_sweep.rv_tables(
         fab._dev("src", a.src, torch.int32), cyc["picked"],
@@ -201,44 +208,44 @@ def test_kernel_path_of_a_run_equals_the_eager_run(route, split,
 
 
 def test_rv_path_reads_the_device_the_depth_and_the_size_rule(monkeypatch):
-    """The kernel on the card with ``use_kernels`` where the size rule
-    holds the fabric, the graph path past it, the eager sweeps elsewhere
-    and for an empty run."""
+    """The kernel on the card with ``use_kernels`` where the plan gives
+    the fabric a cluster, the eager sweeps past the plan, elsewhere and
+    for an empty run."""
     fab = _compiled(4, True, 2).fabric()
     assert fab._rv_path(8, 4) == "eager"                       # the CPU
+    fab._dev("src", fab.arrays.src, torch.int32)    # the tables stay here
+    fab._dev("pe_out", fab.pe_out)
     monkeypatch.setattr(fab, "device", torch.device("cuda"))
     monkeypatch.setattr(fab, "use_kernels", True)
     assert [fab._rv_path(d, c) for d, c in ((8, 4), (0, 4), (8, 0))] == \
         ["kernel", "eager", "eager"]
-    monkeypatch.setattr(ready_valid, "rv_cluster", lambda n, p: 0)
-    assert fab._rv_path(8, 4) == "graph"
+    monkeypatch.setattr(ready_valid, "rv_plan", lambda src, pe_out: (0, 0))
+    assert fab._rv_path(8, 4) == "eager"
+    monkeypatch.setattr(ready_valid, "rv_plan", lambda src, pe_out: (16, 9))
+    assert fab._rv_path(8, 4) == "kernel"
     monkeypatch.setattr(fab, "use_kernels", False)
     assert fab._rv_path(8, 4) == "eager"
 
 
-def test_rv_cluster_size_rule():
-    """The kernel's clusters follow N and P alone: the least of 1, 2, 4
-    and 8 blocks whose ready part (16 B a slot) and data part (12 B a
-    slot and 64 B a PE) fit in 227 KB, slots rounded up to 4; 0 (the
-    graph path) past 8 blocks. Amber FULL takes 8 blocks."""
-    rule = rv_sweep.rv_cluster
-    assert [rule(n, 0) for n in (0, 1192, 14527, 14528, 29055, 29056,
-                                 58111, 58112, 86288, 116223, 116224,
-                                 10 ** 6)] == [1, 1, 1, 2, 2, 4, 4, 8, 8, 8,
-                                               0, 0]
-    assert [rule(n, 780) for n in (86288, 116223, 116224)] == [8, 8, 0]
-    assert rule(5000, 3632) == 0                 # no room for one slot
-    assert rule(5000, 3000) == 2                 # the PE records set it
-    for n, p in ((1192, 16), (60000, 200), (86288, 780), (116223, 0)):
-        c = rule(n, p)
-        chunk = rv_sweep.rv_chunk(n, c)
-        assert chunk % 4 == 0 and c * chunk >= n + 1
-        assert max(12 * chunk + 64 * p, 16 * chunk) <= 232_448
-
-
 def test_rv_tables_refuse_a_cluster_that_does_not_fit():
+    """A cluster size off the ladder, or too small for the fabric's N,
+    raises; 16 blocks hold a small fabric. N 20,000 fits no block of 1
+    (16 B a slot), and 2 blocks hold it."""
     fab, config, pe_cfg, _ = _case("east", 4, True)
     cyc = fab._rv_cycle(config, pe_cfg)
-    for cluster in (3, 16):
-        with pytest.raises(ValueError, match="no cluster"):
-            _tables(fab, cyc, cluster)
+    with pytest.raises(ValueError, match="no cluster"):
+        _tables(fab, cyc, 3)
+    assert _tables(fab, cyc, 16)["cluster"] == 16
+    n = 20_000
+    src = torch.arange(n, dtype=torch.int32)[:, None]
+    none = torch.full((n,), n, dtype=torch.int32)
+    pe_out = torch.zeros((0, 2), dtype=torch.int32)
+    args = (src, none, torch.zeros(n, dtype=torch.bool),
+            torch.zeros(0, dtype=torch.int32), torch.zeros((0, 4),
+                                                          dtype=torch.int32),
+            pe_out, torch.zeros(0, dtype=torch.int32),
+            torch.zeros(0, dtype=torch.int32), None, None,
+            torch.full((n, 1), n, dtype=torch.int32))
+    with pytest.raises(ValueError, match="no cluster of 1 blocks"):
+        rv_sweep.rv_tables(*args, cluster=1)
+    assert rv_sweep.rv_tables(*args)["cluster"] == 2

@@ -24,7 +24,7 @@ from repro_torch.core.lowering import PRED_OP_IDS
 from repro_torch.core.pnr.packing import pack
 from repro_torch.core.spec import InterconnectSpec
 from repro_torch.fabric import AppEmulator, RVFabric, run_apps_batch
-from repro_torch.kernels import fabric_step, ref
+from repro_torch.kernels import cluster_plan, fabric_step, ref
 
 APPS = ["max_tree", "sort4", "threshold", "window"]
 PNR = dict(alphas=(2.0,), sa_steps=30, sa_batch=8)
@@ -295,12 +295,16 @@ def test_base_alu_and_cluster_rule_are_unchanged():
     two-layer array only by its counted room."""
     a = torch.arange(-3, 3, dtype=torch.int32)
     assert len(fabric_step.pe_alu_candidates(a, a, a, a)) == 14
-    assert fabric_step.fused_cluster(86_288, 780) == 8
-    assert fabric_step.fused_cluster(86_288, 780, pred=True) == 16
-    assert fabric_step.fused_cluster(179_312, 780, pred=True) == 0
-    assert fabric_step.fused_cluster(
-        179_312, 780, pred=True, rooms={c: 208 for c in (1, 2, 4, 8, 16)}
-    ) == 16
+
+    def cluster(n, room, pred=False):
+        return cluster_plan.plan(
+            lambda c, r: fabric_step.fused_block_bytes(n, c, r, pred),
+            room if isinstance(room, dict) else
+            dict.fromkeys(cluster_plan.LADDER, room), lambda c, r: 1)[0]
+    assert cluster(86_288, 2 * 780) == 8
+    assert cluster(86_288, 3 * 780, pred=True) == 16
+    assert cluster(179_312, 3 * 780, pred=True) == 0
+    assert cluster(179_312, 208, pred=True) == 16
     assert (fabric_step.REC_BYTES, fabric_step.PRED_REC_BYTES) == (32, 48)
 
 
@@ -313,10 +317,10 @@ def test_fused_rooms_on_the_small_two_layer_fabric():
     n, p = fab.arrays.num_nodes, fab.fused_tables["num_pe_slots"]
     assert t["pe_in"].shape == (p, fabric_step.PRED_PE_INPUTS)
     rooms = fabric_step.fused_rooms(t["src"], t["pe_res_idx"], 3 * p)
-    slot = fabric_step.fused_order(t["src"])[1][:n].numpy()
+    slot = cluster_plan.order(t["src"])[1][:n].numpy()
     is_pe = t["pe_res_idx"].numpy() < 3 * p
     assert is_pe.sum() == 3 * p
-    for c in fabric_step.FUSED_CLUSTERS:
+    for c in cluster_plan.LADDER:
         chunk = -(-(n + 1) // c)
         per_block = [int(((slot // chunk == k) & is_pe).sum())
                      for k in range(c)]
@@ -403,8 +407,8 @@ def test_fused_run_on_the_card_equals_the_eager_engine(cuda, variant,
     engine and to the reference; each launch's ``emu.fused`` span names
     the variant it ran."""
     if variant == "global":
-        monkeypatch.setattr(fabric_step, "fused_cluster",
-                            lambda n, p, pred=False, rooms=None: 0)
+        monkeypatch.setattr(fabric_step, "fused_plan",
+                            lambda kernel, src, pe_res_idx, pe_in: (0, 0))
     cf = canal_torch.compile(make_spec({"spec": _small()}), device=cuda,
                              use_kernels=True)
     fab = cf.fabric()
@@ -457,8 +461,8 @@ def test_fused_kernels_with_bits_equal_their_plain_versions(cuda, n,
                                       t["pe_in"])
         assert plan[0] == cluster
         if cluster and b >= 20:
-            assert fabric_step.active_clusters(kernel, n, cluster, plan[1],
-                                               True) < b
+            assert cluster_plan.active_clusters(kernel, n, cluster,
+                                                plan[1], True) < b
     args = [t[k] for k in BATCH] + [t["pe_res_idx"]]
     want = fabric_step.fabric_fused_batch_plain(*args, max_depth=7,
                                                 word=0xFFFF)

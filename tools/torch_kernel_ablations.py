@@ -17,7 +17,7 @@ its own ``nvcc`` process (all started together) into a library under
 - ``fabric_fused_batch`` and ``fabric_fused_run`` at ``cgra_amber.FULL``
   (B 5, N 86,288, T 16; ``chip_smoke.fused_workload``). Launch arguments
   of the committed library: its cluster kernel (8 blocks a lane, nodes in
-  ``fused_order``), the same in IR node order (identity tables), its
+  ``cluster_plan.order``), the same in IR node order (identity tables), its
   global-memory variant (cooperative, ``grid.sync()``) and a cluster of
   16 blocks (where the card schedules 16). Variants: the node
   descriptors and PE records resolved again every sweep from the global
@@ -103,7 +103,7 @@ sys.path.insert(0, ROOT)
 from chip_smoke import (LM_BATCH, LM_SEQ, SSD_TOL, T,  # noqa: E402
                         card_line, fused_workload, graph_ms, lm_model,
                         lm_tokens, logit_gap, main_path, swapped)
-from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import build, cluster_plan  # noqa: E402
 from repro_torch.kernels import fabric_step as fs  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import minplus as mp  # noqa: E402
@@ -703,8 +703,8 @@ def fused_rows(libs, device):
     rows = []
     for name, cluster, placed in launches:
         room = rooms[cluster] if cluster and placed == "slots" else 2 * p
-        if cluster and fs.active_clusters("fabric_fused_batch", n, cluster,
-                                          room) < 1:
+        if cluster and cluster_plan.active_clusters("fabric_fused_batch", n,
+                                                    cluster, room) < 1:
             rows.append({"kernel": "fabric_fused_*", "variant": name,
                          "cluster": cluster, "scheduled": False})
             continue
